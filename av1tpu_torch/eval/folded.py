@@ -1,0 +1,100 @@
+"""BN-folded v6 serving pipeline, with the fused-front kernels as options.
+
+Counterpart of ``av1tpu.eval.folded``. Each plain stage model's conv+BN
+pairs fold into conv+bias (``quant.ptq.fold_backbone``) in fp32, then cast
+to the serving dtype. ``use_fused_front=True`` runs the stem + maxpool as
+kernel K1, ``"g1"`` runs stem + maxpool + layer group 1 + SE1 as kernel K2;
+both are built lazily per input extent and extents above 16 px use the
+plain front, as the JAX builder does. An FGVC AB stage runs unfolded
+through its own forward.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Tuple
+
+import torch
+from torch import nn
+
+from av1tpu.data.records import NORM_10BIT
+from av1tpu_torch.eval.hierarchy import PipelineModels, assemble_v6_predict, on_device
+from av1tpu_torch.kernels.fused_front import (
+    make_fused_front,
+    make_fused_front_g1,
+    supports_extent,
+)
+from av1tpu_torch.quant.ptq import (
+    _backbone_apply,
+    _head_apply,
+    cast_tree,
+    fold_backbone,
+    fold_head,
+    is_plain_stage,
+)
+
+
+def _folded_stage_fn(model: nn.Module, float_dtype, use_fused_front,
+                     device) -> Callable:
+    """``x -> logits`` for one plain stage: folded backbone + dense head."""
+    folded32 = cast_tree(fold_backbone(model.backbone), device, torch.float32)
+    folded = cast_tree(folded32, device, float_dtype)
+    head = cast_tree(fold_head(model.head), device, float_dtype)
+    fronts: Dict[int, Tuple] = {}
+
+    def front_for(hw: int):
+        if not supports_extent(hw):
+            return None, None
+        if hw not in fronts:
+            if use_fused_front == "g1":
+                fronts[hw] = (None, make_fused_front_g1(folded32, hw, float_dtype))
+            else:
+                stem = folded32["stem"]
+                fronts[hw] = (make_fused_front(stem["weight"], stem["bias"], hw,
+                                               float_dtype), None)
+        return fronts[hw]
+
+    def forward(x):
+        front_fn, front_g1_fn = (
+            front_for(int(x.shape[1])) if use_fused_front else (None, None)
+        )
+        feats = _backbone_apply(folded, x, float_dtype=float_dtype,
+                                front_fn=front_fn, front_g1_fn=front_g1_fn)
+        return _head_apply(head, feats, float_dtype=float_dtype)
+
+    return forward
+
+
+def make_v6_pipeline_folded(
+    models: PipelineModels,
+    stage1_threshold: float = 0.45,
+    norm_scale: float = NORM_10BIT,
+    float_dtype=torch.bfloat16,
+    use_fused_front=False,
+    device="cuda",
+    use_pallas_groups: bool = False,
+) -> Callable:
+    """The v6 pipeline over BN-folded weights on ``device``:
+    ``predict(images_u16) -> dict``, the output contract of
+    ``make_v6_pipeline``. ``use_fused_front`` is False, True (K1) or
+    ``"g1"`` (K2)."""
+    if use_pallas_groups:
+        raise NotImplementedError(
+            "the fused layer-group kernel is not ported yet (ROADMAP K5)"
+        )
+    if use_fused_front not in (False, True, "g1"):
+        raise ValueError(f"use_fused_front must be False, True or 'g1', "
+                         f"got {use_fused_front!r}")
+    device = torch.device(device)
+    fns = [
+        _folded_stage_fn(m, float_dtype, use_fused_front, device)
+        for m in (models.stage1, models.stage2, models.stage3_rect)
+    ]
+    if is_plain_stage(models.stage3_ab):
+        fns.append(_folded_stage_fn(models.stage3_ab, float_dtype,
+                                    use_fused_front, device))
+    else:  # FGVC head layout: its own unfolded forward
+        fns.append(on_device(models.stage3_ab, device, float_dtype))
+    return assemble_v6_predict(*fns, stage1_threshold, norm_scale,
+                               float_dtype=float_dtype)
+
+
+__all__ = ["make_v6_pipeline_folded"]

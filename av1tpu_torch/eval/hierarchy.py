@@ -1,0 +1,171 @@
+"""Dense hierarchical v6 inference and batched streaming on one device.
+
+Counterpart of ``av1tpu.eval.hierarchy``: all four stage models run on the
+whole batch and ``v6_route`` resolves the hierarchy with masks, so the
+output of a sample never depends on the rest of its batch.
+
+    final = where(s1 == 0, NONE, where(s2 == SPLIT, SPLIT,
+            where(s2 == RECT, rect + 2, ab + 4)))
+"""
+from __future__ import annotations
+
+import copy
+from dataclasses import dataclass
+from typing import Callable, Dict, List
+
+import numpy as np
+import torch
+from torch import nn
+
+from av1tpu.data.records import NORM_10BIT
+
+
+@dataclass
+class PipelineModels:
+    """The four v6 stage models (``nn.Module``s holding their weights)."""
+
+    stage1: nn.Module
+    stage2: nn.Module
+    stage3_rect: nn.Module
+    stage3_ab: nn.Module
+
+
+def v6_route(s1_pred, s2_pred, rect_pred, ab_pred):
+    """Masked v6 hierarchy resolution -> final 8-class ids (NONE=0,
+    SPLIT=1, RECT+2, AB+4)."""
+    return torch.where(
+        s1_pred == 0,
+        0,
+        torch.where(
+            s2_pred == 0, 1, torch.where(s2_pred == 1, rect_pred + 2, ab_pred + 4)
+        ),
+    ).to(torch.int32)
+
+
+def assemble_v6_predict(f1, f2, f3r, f3a, stage1_threshold: float,
+                        norm_scale: float, float_dtype=None) -> Callable:
+    """The v6 predict body from four per-stage logit functions: uint16
+    NHWC images in, a dict of per-sample outputs out."""
+
+    @torch.inference_mode()
+    def predict(images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        # divide, not multiply by 1/1023: the two differ by 1 ulp in fp32
+        x = images.to(torch.float32) / norm_scale
+        if float_dtype is not None:
+            x = x.to(float_dtype)
+        s1_prob = torch.sigmoid(f1(x).squeeze(-1).float())
+        s1_pred = (s1_prob >= stage1_threshold).to(torch.int32)
+        s2_pred = torch.argmax(f2(x), dim=-1).to(torch.int32)
+        rect_pred = torch.argmax(f3r(x), dim=-1).to(torch.int32)
+        ab_pred = torch.argmax(f3a(x), dim=-1).to(torch.int32)
+        return {
+            "final": v6_route(s1_pred, s2_pred, rect_pred, ab_pred),
+            "stage1_prob": s1_prob,
+            "stage1_pred": s1_pred,
+            "stage2_pred": s2_pred,
+            "stage3_rect_pred": rect_pred,
+            "stage3_ab_pred": ab_pred,
+        }
+
+    return predict
+
+
+def on_device(model: nn.Module, device, dtype) -> nn.Module:
+    """An eval-mode copy of ``model`` on ``device`` in ``dtype`` (the
+    caller's module is left where it is)."""
+    return copy.deepcopy(model).to(device=device, dtype=dtype).eval()
+
+
+def make_v6_pipeline(
+    models: PipelineModels,
+    stage1_threshold: float = 0.45,
+    norm_scale: float = NORM_10BIT,
+    input_dtype=torch.float32,
+    device="cpu",
+    tta: bool = False,
+    tta_align_ab: bool = False,
+    ab_ensemble_vars=None,
+    stacked: bool = False,
+    mesh=None,
+) -> Callable:
+    """The plain v6 pipeline over the stage models' own forwards:
+    ``predict(images_u16) -> dict`` on ``device``."""
+    if tta or tta_align_ab:
+        raise NotImplementedError("TTA is not ported yet (ROADMAP M2)")
+    if ab_ensemble_vars:
+        raise NotImplementedError("AB ensembles are not ported yet (ROADMAP M2)")
+    if stacked:
+        raise NotImplementedError(
+            "stacked backbones are not ported (ROADMAP Queue 1, 'Drop, don't port')"
+        )
+    if mesh is not None:
+        raise NotImplementedError("multi-device inference waits for ROADMAP M11")
+    stages = [on_device(m, device, input_dtype) for m in (
+        models.stage1, models.stage2, models.stage3_rect, models.stage3_ab
+    )]
+    s1 = stages[0]
+    return assemble_v6_predict(
+        lambda x: s1(x)[:, None], stages[1], stages[2], stages[3],
+        stage1_threshold, norm_scale, float_dtype=input_dtype,
+    )
+
+
+class _Staging:
+    """A ring of two pinned host buffers for non-blocking uploads: a buffer
+    is refilled only after the copy that last read it has finished."""
+
+    def __init__(self, shape, dtype):
+        self.bufs = [torch.empty(shape, dtype=dtype, pin_memory=True) for _ in range(2)]
+        self.done = [None, None]
+        self.turn = 0
+
+    def upload(self, chunk: np.ndarray, device) -> torch.Tensor:
+        i, self.turn = self.turn, 1 - self.turn
+        if self.done[i] is not None:
+            self.done[i].synchronize()
+        host = self.bufs[i][: len(chunk)]
+        host.copy_(torch.from_numpy(chunk))
+        out = host.to(device, non_blocking=True)
+        self.done[i] = torch.cuda.Event()
+        self.done[i].record()
+        return out
+
+
+def run_pipeline_batched(
+    predict_fn: Callable,
+    samples,
+    batch_size: int = 4096,
+    device="cpu",
+) -> Dict[str, np.ndarray]:
+    """Stream a dataset through ``predict_fn`` in batches of ``batch_size``
+    on one device. ``samples`` is host numpy or a tensor; the last batch
+    runs at its own size. Outputs stay on the device until the end and
+    come back to the host once, as numpy."""
+    device = torch.device(device)
+    n = int(samples.shape[0])
+    staging = None
+    if isinstance(samples, np.ndarray) and device.type == "cuda":
+        staging = _Staging((min(batch_size, n),) + samples.shape[1:],
+                           torch.from_numpy(samples[:0]).dtype)
+    outputs: Dict[str, List[torch.Tensor]] = {}
+    for start in range(0, n, batch_size):
+        chunk = samples[start:start + batch_size]
+        if staging is not None:
+            chunk = staging.upload(np.ascontiguousarray(chunk), device)
+        elif isinstance(chunk, np.ndarray):
+            chunk = torch.from_numpy(np.ascontiguousarray(chunk)).to(device)
+        else:
+            chunk = chunk.to(device)
+        for key, value in predict_fn(chunk).items():
+            outputs.setdefault(key, []).append(value)
+    return {k: torch.cat(v).cpu().numpy() for k, v in outputs.items()}
+
+
+__all__ = [
+    "PipelineModels",
+    "assemble_v6_predict",
+    "make_v6_pipeline",
+    "on_device",
+    "run_pipeline_batched",
+    "v6_route",
+]

@@ -1,0 +1,231 @@
+"""Fused backbone front: kernels K1 and K2 (``csrc/fused_front.cu``).
+
+K1 ``fused_front`` replaces ``av1tpu.kernels.fused_front.make_fused_front``:
+stem 7x7/2 conv (pad 3) + fp32 bias + relu + 3x3/2 max-pool (pad 1).
+K2 ``fused_front_g1`` replaces ``make_fused_front_g1``: K1, then both
+layer-1 blocks and SE1. Both map NHWC ``(B, hw, hw, 1)`` to
+``(B, hw/4, hw/4, 64)`` for hw in {8, 16}, in fp32 or bf16.
+
+Each wrapper runs its plain PyTorch twin (``*_reference``) only for a
+tensor on the CPU; for a CUDA tensor it launches the kernel or raises. A
+launch adds one to ``launch_counts[name]``.
+
+Weight layouts the kernels take: stem ``(49, 64)`` tap-major, in the
+activation dtype; layer-1 convs ``(4, 9, 64, 64)`` as [conv][tap][ci][co]
+in the activation dtype; biases ``(64,)`` / ``(4, 64)`` fp32; SE1 ``d0``
+``(4, 64)`` and ``d1`` ``(64, 4)`` fp32 (Linear layouts).
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch
+import torch.nn.functional as F
+
+C = 64
+SE_HIDDEN = C // 16
+_DTYPES = (torch.float32, torch.bfloat16)
+
+launch_counts: Dict[str, int] = {"fused_front": 0, "fused_front_g1": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def supports_extent(hw: int) -> bool:
+    """The kernels are built for 8 and 16 px blocks."""
+    return hw in (8, 16)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (same numerics: fp32 sums, fp32 bias)
+# ---------------------------------------------------------------------------
+
+
+def _stem_pool_f32(x, stem_w, stem_b):
+    w = stem_w.float().T.reshape(C, 1, 7, 7)
+    y = F.conv2d(x.float().permute(0, 3, 1, 2), w, stride=2, padding=3)
+    y = torch.relu(y + stem_b.float()[None, :, None, None])
+    return F.max_pool2d(y, 3, stride=2, padding=1)  # NCHW fp32
+
+
+def fused_front_reference(x, stem_w, stem_b):
+    """Plain K1: ``(B, hw, hw, 1)`` -> ``(B, hw/4, hw/4, 64)`` in x's dtype."""
+    y = _stem_pool_f32(x, stem_w, stem_b)
+    return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
+
+
+def fused_front_g1_reference(x, stem_w, stem_b, conv_w, conv_b, se_d0, se_d1):
+    """Plain K2: K1, layer1_0, layer1_1, SE1. fp32 between stages; each
+    conv input rounded to the weight dtype."""
+    z = _stem_pool_f32(x, stem_w, stem_b)
+
+    def conv(a, i):
+        w = conv_w[i].float().reshape(3, 3, C, C).permute(3, 2, 0, 1)
+        a = a.to(conv_w.dtype).float()
+        return F.conv2d(a, w, padding=1) + conv_b[i].float()[None, :, None, None]
+
+    for first in (0, 2):
+        h = torch.relu(conv(z, first))
+        z = torch.relu(conv(h, first + 1) + z)
+    s = torch.relu(z.mean(dim=(2, 3)) @ se_d0.float().T)
+    s = torch.sigmoid(s @ se_d1.float().T)
+    z = z * s[:, :, None, None]
+    return z.permute(0, 2, 3, 1).to(x.dtype).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check(name, t, shape, dtype, device):
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _check_input(x):
+    if x.dim() != 4 or x.shape[3] != 1 or x.shape[1] != x.shape[2]:
+        raise ValueError(f"x: expected (B, hw, hw, 1), got {tuple(x.shape)}")
+    if not supports_extent(int(x.shape[1])):
+        raise ValueError(f"x: extent {x.shape[1]} not in (8, 16)")
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"x: dtype {x.dtype} not in {_DTYPES}")
+    if x.shape[0] == 0:
+        raise ValueError("x: empty batch")
+    if not x.is_contiguous():
+        raise ValueError("x: must be contiguous")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"x: unsupported device {x.device}")
+
+
+def _launch(name, *args):
+    from av1tpu_torch.kernels._build import check_launch, load_kernels
+
+    check_launch(name, getattr(load_kernels(), f"av1_{name}")(*args))
+    launch_counts[name] += 1
+
+
+def _out_like(x):
+    hw = int(x.shape[1])
+    return torch.empty((x.shape[0], hw // 4, hw // 4, C), dtype=x.dtype,
+                       device=x.device)
+
+
+def fused_front(x, stem_w, stem_b):
+    """K1 on ``x`` ``(B, hw, hw, 1)``; see the module docstring for layouts."""
+    _check_input(x)
+    _check("stem_w", stem_w, (49, C), x.dtype, x.device)
+    _check("stem_b", stem_b, (C,), torch.float32, x.device)
+    if x.device.type == "cpu":
+        return fused_front_reference(x, stem_w, stem_b)
+    out = _out_like(x)
+    _launch(
+        "fused_front", x.data_ptr(), stem_w.data_ptr(), stem_b.data_ptr(),
+        out.data_ptr(), int(x.shape[0]), int(x.shape[1]),
+        int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    return out
+
+
+def fused_front_g1(x, stem_w, stem_b, conv_w, conv_b, se_d0, se_d1):
+    """K2 on ``x`` ``(B, hw, hw, 1)``; see the module docstring for layouts."""
+    _check_input(x)
+    _check("stem_w", stem_w, (49, C), x.dtype, x.device)
+    _check("stem_b", stem_b, (C,), torch.float32, x.device)
+    _check("conv_w", conv_w, (4, 9, C, C), x.dtype, x.device)
+    _check("conv_b", conv_b, (4, C), torch.float32, x.device)
+    _check("se_d0", se_d0, (SE_HIDDEN, C), torch.float32, x.device)
+    _check("se_d1", se_d1, (C, SE_HIDDEN), torch.float32, x.device)
+    if x.device.type == "cpu":
+        return fused_front_g1_reference(x, stem_w, stem_b, conv_w, conv_b,
+                                        se_d0, se_d1)
+    out = _out_like(x)
+    _launch(
+        "fused_front_g1", x.data_ptr(), stem_w.data_ptr(), stem_b.data_ptr(),
+        conv_w.data_ptr(), conv_b.data_ptr(), se_d0.data_ptr(),
+        se_d1.data_ptr(), out.data_ptr(), int(x.shape[0]), int(x.shape[1]),
+        int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Builders (the JAX package's make_* signatures)
+# ---------------------------------------------------------------------------
+
+
+def stem_weights(stem_kernel, stem_bias, float_dtype):
+    """Folded OIHW ``(64, 1, 7, 7)`` stem + bias -> the kernels' layouts."""
+    w = stem_kernel.detach().float().reshape(C, 49).T.contiguous().to(float_dtype)
+    return w, stem_bias.detach().float().contiguous()
+
+
+def g1_weights(folded, float_dtype):
+    """A ``fold_backbone`` tree -> K2's stem, conv and SE1 arguments."""
+    blocks = (folded["layer1_0"], folded["layer1_1"])
+    if any(b["downsample"] is not None for b in blocks):
+        raise ValueError("layer-1 blocks must be identity-residual")
+    convs = [b[k] for b in blocks for k in ("conv1", "conv2")]
+    conv_w = torch.stack([
+        c["weight"].detach().float().permute(2, 3, 1, 0).reshape(9, C, C)
+        for c in convs
+    ]).to(float_dtype).contiguous()
+    conv_b = torch.stack([c["bias"].detach().float() for c in convs]).contiguous()
+    se = folded["se1"]
+    return (
+        *stem_weights(folded["stem"]["weight"], folded["stem"]["bias"], float_dtype),
+        conv_w, conv_b,
+        se["d0"].detach().float().contiguous(),
+        se["d1"].detach().float().contiguous(),
+    )
+
+
+def _for_extent(fn, hw, float_dtype, args) -> Callable:
+    if not supports_extent(hw):
+        raise ValueError(f"fused front supports 8/16px extents, got {hw}")
+
+    def front(x):
+        if tuple(x.shape[1:]) != (hw, hw, 1):
+            raise ValueError(f"front built for {hw}px, got {tuple(x.shape)}")
+        return fn(x.to(float_dtype).contiguous(), *args)
+
+    return front
+
+
+def make_fused_front(stem_kernel, stem_bias, hw: int,
+                     float_dtype=torch.bfloat16) -> Callable:
+    """``front(x)``: K1 for ``hw`` px with weights on the stem's device."""
+    return _for_extent(fused_front, hw, float_dtype,
+                       stem_weights(stem_kernel, stem_bias, float_dtype))
+
+
+def make_fused_front_g1(folded, hw: int, float_dtype=torch.bfloat16) -> Callable:
+    """``front_g1(x)``: K2 for ``hw`` px over a ``fold_backbone`` tree."""
+    return _for_extent(fused_front_g1, hw, float_dtype,
+                       g1_weights(folded, float_dtype))
+
+
+__all__ = [
+    "fused_front",
+    "fused_front_g1",
+    "fused_front_g1_reference",
+    "fused_front_reference",
+    "g1_weights",
+    "launch_counts",
+    "make_fused_front",
+    "make_fused_front_g1",
+    "reset_launch_counts",
+    "stem_weights",
+    "supports_extent",
+]

@@ -1,0 +1,58 @@
+"""FGVC stage-3 AB model, inference only: backbone -> BN-MLP projection ->
+L2 normalize -> scaled cosine classifier.
+
+Counterpart of ``av1tpu.models.fgvc``. The projection is one
+``nn.Sequential`` named ``feat_proj`` (Linear at 0 and 4, BatchNorm1d at 1
+and 5), as the reference checkpoints name it.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from av1tpu_torch.models.layers import BN_EPS
+from av1tpu_torch.models.v6 import FEATURE_DIM, ImprovedBackbone
+
+
+def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12):
+    """``x / sqrt(sum(x*x) + eps)``, the JAX formula (not F.normalize)."""
+    return x / torch.sqrt(torch.sum(x * x, dim=dim, keepdim=True) + eps)
+
+
+class CosineClassifier(nn.Module):
+    """``scale * features @ l2_normalize(weight).T``."""
+
+    def __init__(self, num_classes: int, feat_dim: int, scale: float = 20.0):
+        super().__init__()
+        self.weight = nn.Parameter(torch.randn(num_classes, feat_dim))
+        self.scale = scale
+
+    def forward(self, features: torch.Tensor) -> torch.Tensor:
+        weight = l2_normalize(self.weight.to(features.dtype), dim=-1)
+        return self.scale * features @ weight.T
+
+
+class FGVCModel(nn.Module):
+    """Backbone -> 2x (Linear, BatchNorm1d, relu, dropout) -> L2 normalize
+    -> cosine logits."""
+
+    def __init__(self, num_classes: int = 4, feat_dim: int = 512):
+        super().__init__()
+        self.backbone = ImprovedBackbone()
+        self.feat_proj = nn.Sequential(
+            nn.Linear(FEATURE_DIM, feat_dim),
+            nn.BatchNorm1d(feat_dim, eps=BN_EPS), nn.ReLU(), nn.Dropout(0.3),
+            nn.Linear(feat_dim, feat_dim),
+            nn.BatchNorm1d(feat_dim, eps=BN_EPS), nn.ReLU(), nn.Dropout(0.3),
+        )
+        self.classifier = CosineClassifier(num_classes, feat_dim)
+
+    def forward(self, x: torch.Tensor, return_features: bool = False,
+                from_features: bool = False):
+        feats = x if from_features else self.backbone(x)
+        feats = l2_normalize(self.feat_proj(feats), dim=-1)
+        logits = self.classifier(feats)
+        return (logits, feats) if return_features else logits
+
+
+__all__ = ["CosineClassifier", "FGVCModel", "l2_normalize"]

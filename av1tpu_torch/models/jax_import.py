@@ -1,0 +1,144 @@
+"""Weight bridge between the JAX package's variable trees and torch state
+dicts.
+
+``from_jax_variables`` takes ``{"params", "batch_stats"}`` of a v6 stage
+model or an FGVC model (numpy leaves, as ``train.checkpoint`` loads them)
+and returns the port's state dict; ``to_jax_variables`` inverts it, so
+tests and ``chip_smoke.py`` can write npz checkpoints without jax.
+
+Layouts: conv kernels HWIO <-> OIHW, Dense kernels (in, out) <-> Linear
+weights (out, in), BatchNorm ``scale/bias/mean/var`` <->
+``weight/bias/running_mean/running_var``. Names: ``layer2_0`` <->
+``layer2.0``, ``downsample_conv|bn`` <-> ``downsample.0|1``,
+``se*/Dense_0|1`` <-> ``se*.excitation.0|2``, ``spatial_attn/Conv_0`` <->
+``spatial_attn.conv``, ``head/Dense_i`` <-> ``head.head.<3i>``,
+``proj_dense<l>|proj_bn<l>`` <-> ``feat_proj.<4l>|<4l+1>``, the stage-1
+``temperature`` <-> ``head.temperature``.
+"""
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+# (JAX module path pattern, torch replacement), applied to the slash-joined
+# JAX module path; the inverse table below undoes each rule.
+_TO_TORCH = (
+    (r"layer(\d)_(\d)", r"layer\1.\2"),
+    (r"downsample_conv", "downsample.0"),
+    (r"downsample_bn", "downsample.1"),
+    (r"(se\d)/Dense_0", r"\1/excitation.0"),
+    (r"(se\d)/Dense_1", r"\1/excitation.2"),
+    (r"spatial_attn/Conv_0", "spatial_attn/conv"),
+    (r"^head/Dense_(\d+)", lambda m: f"head/head.{3 * int(m[1])}"),
+    (r"^proj_dense(\d+)", lambda m: f"feat_proj.{4 * int(m[1])}"),
+    (r"^proj_bn(\d+)", lambda m: f"feat_proj.{4 * int(m[1]) + 1}"),
+)
+_TO_JAX = (
+    (r"layer(\d)\.(\d)", r"layer\1_\2"),
+    (r"downsample\.0", "downsample_conv"),
+    (r"downsample\.1", "downsample_bn"),
+    (r"(se\d)\.excitation\.0", r"\1.Dense_0"),
+    (r"(se\d)\.excitation\.2", r"\1.Dense_1"),
+    (r"spatial_attn\.conv", "spatial_attn.Conv_0"),
+    (r"^head\.head\.(\d+)", lambda m: f"head.Dense_{int(m[1]) // 3}"),
+    (r"^feat_proj\.(\d+)", lambda m: (
+        f"proj_dense{int(m[1]) // 4}" if int(m[1]) % 4 == 0
+        else f"proj_bn{int(m[1]) // 4}"
+    )),
+)
+_BN_MODULE = re.compile(r"^(bn\d|downsample_bn|proj_bn\d+)$")
+_BN_LEAVES = {  # JAX (collection, leaf) -> torch leaf
+    ("params", "scale"): "weight",
+    ("params", "bias"): "bias",
+    ("batch_stats", "mean"): "running_mean",
+    ("batch_stats", "var"): "running_var",
+}
+_BN_LEAVES_INV = {v: k for k, v in _BN_LEAVES.items()}
+_TEMPERATURE = "head.temperature"
+
+
+def _rewrite(path: str, rules) -> str:
+    for pattern, repl in rules:
+        path = re.sub(pattern, repl, path)
+    return path
+
+
+def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator:
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _leaves(value, prefix + (str(key),))
+        else:
+            yield prefix + (str(key),), value
+
+
+def _kernel_to_torch(k: np.ndarray) -> np.ndarray:
+    if k.ndim == 4:
+        return k.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+    return k.T  # Dense (in, out) -> Linear (out, in)
+
+
+def _kernel_to_jax(w: np.ndarray) -> np.ndarray:
+    if w.ndim == 4:
+        return w.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+    return w.T
+
+
+def from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``{"params", "batch_stats"}`` tree -> torch state dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    for col in ("params", "batch_stats"):
+        for path, value in _leaves(variables.get(col, {})):
+            value = np.asarray(value)
+            if col == "params" and path == ("temperature",):
+                sd[_TEMPERATURE] = torch.from_numpy(np.array(value))
+                continue
+            module, leaf = path[:-1], path[-1]
+            tmod = _rewrite("/".join(module), _TO_TORCH).replace("/", ".")
+            if _BN_MODULE.match(module[-1]):
+                tleaf = _BN_LEAVES[(col, leaf)]
+                sd[f"{tmod}.num_batches_tracked"] = torch.tensor(0)
+            elif leaf == "kernel":
+                tleaf, value = "weight", _kernel_to_torch(value)
+            else:
+                tleaf = leaf
+            sd[f"{tmod}.{tleaf}"] = torch.from_numpy(np.array(value, order="C"))
+    return sd
+
+
+def to_jax_variables(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
+    """Torch state dict -> JAX ``{"params", "batch_stats"}`` tree of numpy
+    arrays (the inverse of :func:`from_jax_variables`)."""
+    out: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
+    for key, tensor in state_dict.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        value = tensor.detach().cpu().numpy()
+        if key == _TEMPERATURE:
+            out["params"]["temperature"] = value.copy()
+            continue
+        tmod, tleaf = key.rsplit(".", 1)
+        module = _rewrite(tmod, _TO_JAX).split(".")
+        if _BN_MODULE.match(module[-1]):
+            col, leaf = _BN_LEAVES_INV[tleaf]
+        elif tleaf == "weight" and module[-1] != "classifier":
+            col, leaf, value = "params", "kernel", _kernel_to_jax(value)
+        else:
+            col, leaf = "params", tleaf
+        node = out[col]
+        for part in module:
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(value)
+    return out
+
+
+def load_jax_variables(model: nn.Module, variables: Mapping[str, Any]) -> nn.Module:
+    """Load a JAX variable tree into ``model`` (strict: every key maps)."""
+    model.load_state_dict(from_jax_variables(variables))
+    return model
+
+
+__all__ = ["from_jax_variables", "load_jax_variables", "to_jax_variables"]

@@ -1,0 +1,108 @@
+"""v6 stage models: ResNet-18 + SE + spatial attention, then an MLP head.
+
+Counterpart of ``av1tpu.models.v6`` (ImprovedBackbone and the four stage
+models). Inputs are NHWC ``(B, H, W, 1)`` like the JAX models; the backbone
+works in NCHW inside and returns the ``(B, 512)`` embedding.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from av1tpu_torch.models.layers import (
+    BN_EPS,
+    BasicBlock,
+    MLPHead,
+    SEBlock,
+    SpatialAttention,
+)
+
+FEATURE_DIM = 512
+WIDTHS = (64, 128, 256, 512)
+
+
+class ImprovedBackbone(nn.Module):
+    """7x7/2 stem + maxpool, layer groups [2,2,2,2] with SE after each
+    group, spatial attention after layer4, global average pool."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv1 = nn.Conv2d(1, 64, 7, stride=2, padding=3, bias=False)
+        self.bn1 = nn.BatchNorm2d(64, eps=BN_EPS)
+        self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
+        in_ch = 64
+        for gi, width in enumerate(WIDTHS, start=1):
+            stride = 1 if gi == 1 else 2
+            self.add_module(f"layer{gi}", nn.Sequential(
+                BasicBlock(in_ch, width, stride), BasicBlock(width, width)
+            ))
+            self.add_module(f"se{gi}", SEBlock(width))
+            in_ch = width
+        self.spatial_attn = SpatialAttention()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
+        x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
+        for gi in range(1, 5):
+            x = getattr(self, f"se{gi}")(getattr(self, f"layer{gi}")(x))
+        return self.spatial_attn(x).mean(dim=(2, 3))
+
+
+class _StageModel(nn.Module):
+    hidden: tuple = ()
+    dropout: tuple = ()
+    num_outputs: int = 0
+
+    def __init__(self):
+        super().__init__()
+        self.backbone = ImprovedBackbone()
+        self.head = MLPHead(FEATURE_DIM, self.hidden, self.num_outputs,
+                            self.dropout)
+
+    def forward(self, x: torch.Tensor, from_features: bool = False):
+        feats = x if from_features else self.backbone(x)
+        return self.head(feats)
+
+
+class Stage1Model(_StageModel):
+    """Binary NONE-vs-PARTITION gate with a temperature parameter. Returns
+    ``(B,)`` logits, divided by the temperature when ``apply_temp``."""
+
+    hidden, dropout, num_outputs = (256,), (0.3,), 1
+
+    def __init__(self):
+        super().__init__()
+        # stored under the head, as the reference's Stage1BinaryHead does
+        self.head.temperature = nn.Parameter(torch.full((1,), 1.5))
+
+    def forward(self, x, apply_temp: bool = False, from_features: bool = False):
+        logits = super().forward(x, from_features).squeeze(-1)
+        return logits / self.head.temperature if apply_temp else logits
+
+
+class Stage2Model(_StageModel):
+    """3-way SPLIT / RECT / AB classifier."""
+
+    hidden, dropout, num_outputs = (256, 128), (0.4, 0.4), 3
+
+
+class Stage3RectModel(_StageModel):
+    """Binary HORZ-vs-VERT specialist."""
+
+    hidden, dropout, num_outputs = (128, 64), (0.2, 0.2), 2
+
+
+class Stage3ABModel(_StageModel):
+    """4-way AB specialist."""
+
+    hidden, dropout, num_outputs = (256, 128), (0.5, 0.5), 4
+
+
+__all__ = [
+    "FEATURE_DIM",
+    "ImprovedBackbone",
+    "Stage1Model",
+    "Stage2Model",
+    "Stage3ABModel",
+    "Stage3RectModel",
+]

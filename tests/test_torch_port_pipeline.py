@@ -1,0 +1,135 @@
+"""Port parity: the port's v6 pipelines against the JAX builders on 256
+blocks, fp32 on the CPU.
+
+``stage1_prob`` agrees to 1e-4; every other output is identical wherever
+the decision behind it has a margin above 1e-3 (the margin guard of
+``tests/test_torch_differential.py``), after the F2 guard on each stage's
+logits.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from av1tpu import models as jm
+from av1tpu.eval import PipelineModels as JaxModels
+from av1tpu.eval import make_v6_pipeline as jax_plain
+from av1tpu.eval import make_v6_pipeline_folded as jax_folded
+from av1tpu_torch import models as tm
+from av1tpu_torch.eval import (
+    PipelineModels,
+    make_v6_pipeline,
+    make_v6_pipeline_folded,
+    run_pipeline_batched,
+)
+from tests.torch_port_fixtures import (
+    STAGE1_THRESHOLD,
+    assert_input_sensitive,
+    calibrated_variables,
+    images_u16,
+    top2_margin,
+)
+
+N = 256
+MARGIN = 1e-3
+STAGES = (  # (flax class, port class, seed)
+    (jm.Stage1Model, tm.Stage1Model, 70),
+    (jm.Stage2Model, tm.Stage2Model, 71),
+    (jm.Stage3RectModel, tm.Stage3RectModel, 72),
+    (jm.Stage3ABModel, tm.Stage3ABModel, 73),
+)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    variables = [calibrated_variables(j(), seed, 16) for j, _, seed in STAGES]
+    jax_models = JaxModels(*[x for (j, _, _), v in zip(STAGES, variables)
+                             for x in (j(), v)])
+    port = [tm.load_jax_variables(t(), v).eval()
+            for (_, t, _), v in zip(STAGES, variables)]
+    images = images_u16(80, N, 16)
+    with torch.no_grad():
+        x = torch.from_numpy(images.astype(np.float32) / 1023.0)
+        logits = [m(x).numpy() for m in port]
+    for lg in logits:
+        assert_input_sensitive(lg, 1e-4)
+    s1_prob = 1 / (1 + np.exp(-logits[0].astype(np.float64)))
+    margins = {
+        "stage1_pred": np.abs(s1_prob - STAGE1_THRESHOLD),
+        "stage2_pred": top2_margin(logits[1]),
+        "stage3_rect_pred": top2_margin(logits[2]),
+        "stage3_ab_pred": top2_margin(logits[3]),
+    }
+    margins["final"] = np.min(np.stack(list(margins.values())), axis=0)
+    return jax_models, PipelineModels(*port), images, margins
+
+
+def _assert_same(got, want, margins):
+    assert set(got) == set(want)
+    np.testing.assert_allclose(got["stage1_prob"], want["stage1_prob"],
+                               atol=1e-4, rtol=0)
+    for key, margin in margins.items():
+        sure = margin > MARGIN
+        assert sure.mean() > 0.9, (key, sure.mean())
+        np.testing.assert_array_equal(got[key][sure], want[key][sure])
+        assert got[key].dtype == np.int32
+
+
+BUILDERS = {
+    "plain": (
+        lambda m: jax_plain(m, stage1_threshold=STAGE1_THRESHOLD,
+                            input_dtype=jnp.float32),
+        lambda m: make_v6_pipeline(m, stage1_threshold=STAGE1_THRESHOLD),
+    ),
+    **{
+        f"folded_{name}": (
+            lambda m, mode=mode: jax_folded(
+                m, stage1_threshold=STAGE1_THRESHOLD, float_dtype=jnp.float32,
+                use_fused_front=mode, interpret=True),
+            lambda m, mode=mode: make_v6_pipeline_folded(
+                m, stage1_threshold=STAGE1_THRESHOLD, float_dtype=torch.float32,
+                use_fused_front=mode, device="cpu"),
+        )
+        for name, mode in (("off", False), ("on", True), ("g1", "g1"))
+    },
+}
+
+
+@pytest.mark.parametrize("builder", list(BUILDERS))
+def test_pipeline_matches_jax(setup, builder):
+    jax_models, port_models, images, margins = setup
+    make_jax, make_port = BUILDERS[builder]
+    want = {k: np.asarray(v) for k, v in make_jax(jax_models)(
+        jnp.asarray(images)).items()}
+    got = {k: v.numpy() for k, v in make_port(port_models)(
+        torch.from_numpy(images)).items()}
+    _assert_same(got, want, margins)
+
+
+def test_batched_run_with_ragged_tail_equals_one_batch(setup):
+    """Batches of 100 over 256 blocks (tail of 56 at its own size) give the
+    outputs of one 256-block batch: the graph works per sample."""
+    _, port_models, images, _ = setup
+    predict = make_v6_pipeline_folded(port_models, float_dtype=torch.float32,
+                                      use_fused_front="g1", device="cpu")
+    whole = run_pipeline_batched(predict, images, batch_size=N)
+    parts = run_pipeline_batched(predict, images, batch_size=100)
+    for key in whole:
+        np.testing.assert_allclose(parts[key], whole[key], atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("option, item", [
+    ({"tta": True}, "M2"),
+    ({"ab_ensemble_vars": [{}]}, "M2"),
+    ({"mesh": object()}, "M11"),
+])
+def test_unported_pipeline_options_raise(setup, option, item):
+    with pytest.raises(NotImplementedError, match=item):
+        make_v6_pipeline(setup[1], **option)
+
+
+def test_unported_folded_options_raise(setup):
+    with pytest.raises(NotImplementedError, match="K5"):
+        make_v6_pipeline_folded(setup[1], use_pallas_groups=True, device="cpu")
+    with pytest.raises(ValueError, match="use_fused_front"):
+        make_v6_pipeline_folded(setup[1], use_fused_front="g2", device="cpu")
