@@ -41,11 +41,14 @@
 // Tensor cores, cp.async/TMA staging and register tiling across samples are
 // left for later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
+
+using av1::from_f;
+using av1::ldg_f;
+using av1::round_to;
+using av1::to_f;
 
 constexpr int C = 64;                  // stem and layer-1 channels
 constexpr int THREADS = 256;           // C channels x GROUPS
@@ -53,24 +56,6 @@ constexpr int GROUPS = THREADS / C;    // 4
 constexpr int SPB = GROUPS;            // samples per block
 constexpr int TAPS = 49;               // 7x7 stem taps
 constexpr int SE_HIDDEN = C / 16;      // SE1 reduction 16
-
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-// v rounded to T's precision (round to nearest even), kept as float
-template <typename T> __device__ __forceinline__ float round_to(float v) {
-  return to_f<T>(from_f<T>(v));
-}
-template <typename T> __device__ __forceinline__ float ldg_f(const T* p) {
-  return to_f<T>(__ldg(p));
-}
 
 template <int HW>
 struct Geom {

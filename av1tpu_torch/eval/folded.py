@@ -1,12 +1,15 @@
-"""BN-folded v6 serving pipeline, with the fused-front kernels as options.
+"""BN-folded v6 serving pipeline, with the fused kernels as options.
 
 Counterpart of ``av1tpu.eval.folded``. Each plain stage model's conv+BN
 pairs fold into conv+bias (``quant.ptq.fold_backbone``) in fp32, then cast
 to the serving dtype. ``use_fused_front=True`` runs the stem + maxpool as
 kernel K1, ``"g1"`` runs stem + maxpool + layer group 1 + SE1 as kernel K2;
 both are built lazily per input extent and extents above 16 px use the
-plain front, as the JAX builder does. An FGVC AB stage runs unfolded
-through its own forward.
+plain front, as the JAX pipeline does. ``use_pallas_groups=True`` runs layer
+groups 1 and 2 with SE1 and SE2 as kernel K5 at every block size (its
+weights packed once per stage); with ``"g1"`` at 8 and 16 px, K2 has done
+group 1 and K5 does not run, as in the JAX package. An FGVC AB stage runs
+unfolded through its own forward.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from av1tpu_torch.kernels.fused_front import (
     make_fused_front_g1,
     supports_extent,
 )
+from av1tpu_torch.kernels.resnet_group import fused_group12, pack_group12_weights
 from av1tpu_torch.quant.ptq import (
     _backbone_apply,
     _head_apply,
@@ -33,11 +37,18 @@ from av1tpu_torch.quant.ptq import (
 
 
 def _folded_stage_fn(model: nn.Module, float_dtype, use_fused_front,
-                     device) -> Callable:
+                     use_pallas_groups, device) -> Callable:
     """``x -> logits`` for one plain stage: folded backbone + dense head."""
     folded32 = cast_tree(fold_backbone(model.backbone), device, torch.float32)
     folded = cast_tree(folded32, device, float_dtype)
     head = cast_tree(fold_head(model.head), device, float_dtype)
+    group12_fn = None
+    if use_pallas_groups:
+        weights = pack_group12_weights(folded32, float_dtype)
+
+        def group12_fn(x):
+            return fused_group12(x, weights)
+
     fronts: Dict[int, Tuple] = {}
 
     def front_for(hw: int):
@@ -57,7 +68,8 @@ def _folded_stage_fn(model: nn.Module, float_dtype, use_fused_front,
             front_for(int(x.shape[1])) if use_fused_front else (None, None)
         )
         feats = _backbone_apply(folded, x, float_dtype=float_dtype,
-                                front_fn=front_fn, front_g1_fn=front_g1_fn)
+                                front_fn=front_fn, front_g1_fn=front_g1_fn,
+                                group12_fn=group12_fn)
         return _head_apply(head, feats, float_dtype=float_dtype)
 
     return forward
@@ -75,22 +87,19 @@ def make_v6_pipeline_folded(
     """The v6 pipeline over BN-folded weights on ``device``:
     ``predict(images_u16) -> dict``, the output contract of
     ``make_v6_pipeline``. ``use_fused_front`` is False, True (K1) or
-    ``"g1"`` (K2)."""
-    if use_pallas_groups:
-        raise NotImplementedError(
-            "the fused layer-group kernel is not ported yet (ROADMAP K5)"
-        )
+    ``"g1"`` (K2). ``use_pallas_groups`` (the JAX package's name) selects
+    kernel K5 for layer groups 1 and 2 with their SE gates."""
     if use_fused_front not in (False, True, "g1"):
         raise ValueError(f"use_fused_front must be False, True or 'g1', "
                          f"got {use_fused_front!r}")
     device = torch.device(device)
     fns = [
-        _folded_stage_fn(m, float_dtype, use_fused_front, device)
+        _folded_stage_fn(m, float_dtype, use_fused_front, use_pallas_groups, device)
         for m in (models.stage1, models.stage2, models.stage3_rect)
     ]
     if is_plain_stage(models.stage3_ab):
         fns.append(_folded_stage_fn(models.stage3_ab, float_dtype,
-                                    use_fused_front, device))
+                                    use_fused_front, use_pallas_groups, device))
     else:  # FGVC head layout: its own unfolded forward
         fns.append(on_device(models.stage3_ab, device, float_dtype))
     return assemble_v6_predict(*fns, stage1_threshold, norm_scale,

@@ -8,7 +8,7 @@ layer-1 blocks and SE1. Both map NHWC ``(B, hw, hw, 1)`` to
 
 Each wrapper runs its plain PyTorch twin (``*_reference``) only for a
 tensor on the CPU; for a CUDA tensor it launches the kernel or raises. A
-launch adds one to ``launch_counts[name]``.
+launch adds one to ``launch_counts[name]`` (a view of ``_build.launch_counts``).
 
 Weight layouts the kernels take: stem ``(49, 64)`` tap-major, in the
 activation dtype; layer-1 convs ``(4, 9, 64, 64)`` as [conv][tap][ci][co]
@@ -17,21 +17,22 @@ in the activation dtype; biases ``(64,)`` / ``(4, 64)`` fp32; SE1 ``d0``
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
+
+from av1tpu_torch.kernels import _build
 
 C = 64
 SE_HIDDEN = C // 16
 _DTYPES = (torch.float32, torch.bfloat16)
 
-launch_counts: Dict[str, int] = {"fused_front": 0, "fused_front_g1": 0}
+launch_counts = _build.CountsView(("fused_front", "fused_front_g1"))
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    _build.reset_launch_counts(launch_counts)
 
 
 def supports_extent(hw: int) -> bool:
@@ -107,13 +108,6 @@ def _check_input(x):
         raise ValueError(f"x: unsupported device {x.device}")
 
 
-def _launch(name, *args):
-    from av1tpu_torch.kernels._build import check_launch, load_kernels
-
-    check_launch(name, getattr(load_kernels(), f"av1_{name}")(*args))
-    launch_counts[name] += 1
-
-
 def _out_like(x):
     hw = int(x.shape[1])
     return torch.empty((x.shape[0], hw // 4, hw // 4, C), dtype=x.dtype,
@@ -128,11 +122,10 @@ def fused_front(x, stem_w, stem_b):
     if x.device.type == "cpu":
         return fused_front_reference(x, stem_w, stem_b)
     out = _out_like(x)
-    _launch(
+    _build.launch(
         "fused_front", x.data_ptr(), stem_w.data_ptr(), stem_b.data_ptr(),
         out.data_ptr(), int(x.shape[0]), int(x.shape[1]),
-        int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        int(x.dtype == torch.bfloat16), _build.stream_of(x),
     )
     return out
 
@@ -150,12 +143,11 @@ def fused_front_g1(x, stem_w, stem_b, conv_w, conv_b, se_d0, se_d1):
         return fused_front_g1_reference(x, stem_w, stem_b, conv_w, conv_b,
                                         se_d0, se_d1)
     out = _out_like(x)
-    _launch(
+    _build.launch(
         "fused_front_g1", x.data_ptr(), stem_w.data_ptr(), stem_b.data_ptr(),
         conv_w.data_ptr(), conv_b.data_ptr(), se_d0.data_ptr(),
         se_d1.data_ptr(), out.data_ptr(), int(x.shape[0]), int(x.shape[1]),
-        int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        int(x.dtype == torch.bfloat16), _build.stream_of(x),
     )
     return out
 

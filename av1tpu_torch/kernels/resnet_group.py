@@ -1,0 +1,173 @@
+"""Layer groups 1 and 2 with both SE gates in one kernel: K5
+(``csrc/resnet_group.cu``).
+
+Counterpart of ``av1tpu.kernels.resnet_group``. ``fused_group12`` runs
+layer1_0, layer1_1, SE1, layer2_0 (3x3/2 conv with XLA-SAME padding (0, 1)
+and a 1x1/2 downsample), layer2_1 and SE2 on BN-folded weights: NHWC
+``(B, E, E, 64)`` -> ``(B, E/2, E/2, 128)`` for E in {2, 4, 8, 16}, the
+extents after the stem of 8 to 64 px blocks. The input and the 22 packed
+weights share the serving dtype (fp32 or bf16); inside, everything is
+widened to fp32 and only the output is rounded, as the TPU kernel does.
+
+The TPU kernel's ``tile`` (its VMEM batch tile) and ``interpret`` (Pallas
+interpreter mode) have no counterpart here: the CUDA kernel picks its own
+samples per block, and a CPU tensor runs the plain twin
+``fused_group12_reference``. A CUDA tensor launches the kernel or raises; a
+launch adds one to ``_build.launch_counts["fused_group12"]``.
+
+Layouts of :func:`pack_group12_weights`, in ``PACK_ORDER``: 3x3 conv kernels
+``(9, CI, CO)`` as [tap][ci][co], the downsample ``(64, 128)`` as [ci][co],
+biases ``(CO,)``, SE ``d0`` ``(C/16, C)`` and ``d1`` ``(C, C/16)`` (Linear
+layouts).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from av1tpu_torch.kernels import _build
+from av1tpu_torch.models.layers import pad_same
+
+C1, C2 = 64, 128
+EXTENTS = (2, 4, 8, 16)
+_DTYPES = (torch.float32, torch.bfloat16)
+
+PACK_ORDER = (
+    "layer1_0.conv1.k", "layer1_0.conv1.b", "layer1_0.conv2.k", "layer1_0.conv2.b",
+    "layer1_1.conv1.k", "layer1_1.conv1.b", "layer1_1.conv2.k", "layer1_1.conv2.b",
+    "se1.d0", "se1.d1",
+    "layer2_0.conv1.k", "layer2_0.conv1.b", "layer2_0.conv2.k", "layer2_0.conv2.b",
+    "layer2_0.ds.k", "layer2_0.ds.b",
+    "layer2_1.conv1.k", "layer2_1.conv1.b", "layer2_1.conv2.k", "layer2_1.conv2.b",
+    "se2.d0", "se2.d1",
+)
+
+
+def _packed_shapes() -> Dict[str, Tuple[int, ...]]:
+    shapes = {}
+    for name, ci, co in (("layer1_0", C1, C1), ("layer1_1", C1, C1),
+                         ("layer2_0", C1, C2), ("layer2_1", C2, C2)):
+        shapes[f"{name}.conv1.k"] = (9, ci, co)
+        shapes[f"{name}.conv2.k"] = (9, co, co)
+        shapes[f"{name}.conv1.b"] = shapes[f"{name}.conv2.b"] = (co,)
+    shapes["layer2_0.ds.k"], shapes["layer2_0.ds.b"] = (C1, C2), (C2,)
+    for se, c in (("se1", C1), ("se2", C2)):
+        shapes[f"{se}.d0"], shapes[f"{se}.d1"] = (c // 16, c), (c, c // 16)
+    return shapes
+
+
+PACKED_SHAPES = _packed_shapes()
+
+
+def pack_group12_weights(folded, float_dtype=torch.bfloat16) -> Tuple[torch.Tensor, ...]:
+    """The layer-1/layer-2 part of a ``quant.ptq.fold_backbone`` tree as the
+    kernel's 22 arrays in ``PACK_ORDER``, each cast to ``float_dtype`` on the
+    tree's device (the JAX pipeline casts the packed fp32 arrays the same
+    way)."""
+    flat = {}
+    for name in ("layer1_0", "layer1_1", "layer2_0", "layer2_1"):
+        blk = folded[name]
+        for conv in ("conv1", "conv2"):
+            w = blk[conv]["weight"].detach().float()  # OIHW
+            flat[f"{name}.{conv}.k"] = w.permute(2, 3, 1, 0).reshape(9, w.shape[1], w.shape[0])
+            flat[f"{name}.{conv}.b"] = blk[conv]["bias"].detach().float()
+        if blk["downsample"] is not None:
+            flat[f"{name}.ds.k"] = blk["downsample"]["weight"].detach().float()[:, :, 0, 0].T
+            flat[f"{name}.ds.b"] = blk["downsample"]["bias"].detach().float()
+    for se in ("se1", "se2"):
+        flat[f"{se}.d0"] = folded[se]["d0"].detach().float()
+        flat[f"{se}.d1"] = folded[se]["d1"].detach().float()
+    return tuple(flat[k].to(float_dtype).contiguous() for k in PACK_ORDER)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version (fp32 inside, output rounded to x's dtype)
+# ---------------------------------------------------------------------------
+
+
+def fused_group12_reference(x, weights):
+    """Plain K5: ``(B, E, E, 64)`` -> ``(B, E/2, E/2, 128)`` in x's dtype.
+    The input and weights are widened to fp32 and every step runs in fp32."""
+    w = dict(zip(PACK_ORDER, (t.float() for t in weights)))
+
+    def conv(a, name, stride=1):
+        k = w[f"{name}.k"]
+        k = k.reshape(3, 3, k.shape[1], k.shape[2]).permute(3, 2, 0, 1)
+        y = F.conv2d(pad_same(a, 3, stride), k, stride=stride)
+        return y + w[f"{name}.b"][None, :, None, None]
+
+    def block(a, name, stride=1):
+        y = conv(torch.relu(conv(a, f"{name}.conv1", stride)), f"{name}.conv2")
+        if stride == 2:
+            res = torch.einsum("bchw,co->bohw", a[:, :, ::2, ::2], w[f"{name}.ds.k"])
+            a = res + w[f"{name}.ds.b"][None, :, None, None]
+        return torch.relu(y + a)
+
+    def se(a, name):
+        g = torch.relu(a.mean(dim=(2, 3)) @ w[f"{name}.d0"].T)
+        return a * torch.sigmoid(g @ w[f"{name}.d1"].T)[:, :, None, None]
+
+    z = x.float().permute(0, 3, 1, 2)
+    z = se(block(block(z, "layer1_0"), "layer1_1"), "se1")
+    z = se(block(block(z, "layer2_0", 2), "layer2_1"), "se2")
+    return z.permute(0, 2, 3, 1).to(x.dtype).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Wrapper
+# ---------------------------------------------------------------------------
+
+
+def _check(x, weights):
+    if x.dim() != 4 or x.shape[3] != C1 or x.shape[1] != x.shape[2]:
+        raise ValueError(f"x: expected (B, E, E, {C1}), got {tuple(x.shape)}")
+    if int(x.shape[1]) not in EXTENTS:
+        raise ValueError(f"x: extent {x.shape[1]} not in {EXTENTS}")
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"x: dtype {x.dtype} not in {_DTYPES}")
+    if x.shape[0] == 0:
+        raise ValueError("x: empty batch")
+    if not x.is_contiguous():
+        raise ValueError("x: must be contiguous")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"x: unsupported device {x.device}")
+    if len(weights) != len(PACK_ORDER):
+        raise ValueError(f"weights: {len(weights)} arrays, expected {len(PACK_ORDER)}")
+    for name, t in zip(PACK_ORDER, weights):
+        if tuple(t.shape) != PACKED_SHAPES[name]:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, "
+                             f"expected {PACKED_SHAPES[name]}")
+        if t.dtype != x.dtype:
+            raise ValueError(f"{name}: dtype {t.dtype}, expected {x.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{name}: on {t.device}, expected {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: must be contiguous")
+
+
+def fused_group12(x, weights):
+    """K5 on ``x`` ``(B, E, E, 64)`` with ``weights`` from
+    :func:`pack_group12_weights` in x's dtype; returns ``(B, E/2, E/2, 128)``."""
+    weights = tuple(weights)
+    _check(x, weights)
+    if x.device.type == "cpu":
+        return fused_group12_reference(x, weights)
+    e = int(x.shape[1])
+    out = torch.empty((x.shape[0], e // 2, e // 2, C2), dtype=x.dtype, device=x.device)
+    ptrs = (ctypes.c_void_p * len(weights))(*(t.data_ptr() for t in weights))
+    _build.launch("fused_group12", x.data_ptr(), ptrs, out.data_ptr(),
+                  int(x.shape[0]), e, int(x.dtype == torch.bfloat16),
+                  _build.stream_of(x))
+    return out
+
+
+__all__ = [
+    "EXTENTS",
+    "PACK_ORDER",
+    "fused_group12",
+    "fused_group12_reference",
+    "pack_group12_weights",
+]

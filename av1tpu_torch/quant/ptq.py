@@ -102,6 +102,7 @@ def _backbone_apply(
     float_dtype=torch.float32,
     front_fn: Optional[Callable] = None,
     front_g1_fn: Optional[Callable] = None,
+    group12_fn: Optional[Callable] = None,
 ) -> torch.Tensor:
     """ImprovedBackbone forward over folded weights: NHWC ``(B, H, W, 1)``
     in, ``(B, 512)`` embedding out.
@@ -110,12 +111,18 @@ def _backbone_apply(
     ``kernels.fused_front.make_fused_front``); ``front_g1_fn`` replaces
     that and layer group 1 with SE1 (kernel K2), so the forward resumes at
     group 2. Both take the NHWC input and return NHWC ``(B, H/4, W/4, 64)``.
+    ``group12_fn`` replaces layer groups 1 and 2 with SE1 and SE2 (kernel
+    K5, ``kernels.resnet_group.fused_group12``): NHWC ``(B, h, w, 64)`` in,
+    ``(B, h/2, w/2, 128)`` out, after ``front_fn`` or the plain stem. As in
+    the JAX package, ``front_g1_fn`` takes precedence: with it, group 1 is
+    done and ``group12_fn`` is not called.
     """
     x = x.to(float_dtype)
     groups = list(enumerate(_GROUPS, start=1))
     if front_g1_fn is not None:
         x = front_g1_fn(x).permute(0, 3, 1, 2)
         groups = groups[1:]
+        group12_fn = None
     elif front_fn is not None:
         x = front_fn(x).permute(0, 3, 1, 2)
     else:
@@ -124,6 +131,9 @@ def _backbone_apply(
                      stride=2, padding=3)
         x = torch.relu(_bias(x, stem["bias"]))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
+    if group12_fn is not None:
+        x = group12_fn(x.permute(0, 2, 3, 1).contiguous()).permute(0, 3, 1, 2)
+        groups = groups[2:]
 
     for gi, gname in groups:
         for bi in range(2):

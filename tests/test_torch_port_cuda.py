@@ -1,19 +1,27 @@
-"""Kernels K1 and K2 on a CUDA card against their plain versions.
+"""The port's CUDA kernels on a card against their plain versions:
+K1 and K2 (fused fronts), K3a and K3b (preprocess), K4 (fused dense,
+forward and backward) and K5 (layer groups 1-2).
 
 These tests need a card: they carry the ``cuda`` marker and skip without
 one. This file imports no jax, so it runs where jax is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 """
+import numpy as np
 import pytest
 import torch
 
+from av1tpu_torch.kernels import _build
 from av1tpu_torch.kernels import fused_front as ff
+from av1tpu_torch.kernels import preprocess as pp
+from av1tpu_torch.kernels import resnet_group as rg
+from av1tpu_torch.kernels.fused_dense import fused_dense, fused_dense_reference
 from av1tpu_torch.models import Stage1Model
 from av1tpu_torch.quant.ptq import fold_backbone
 
-RAGGED = 4099  # not a multiple of the kernels' 4 samples per block
+RAGGED = 4099  # not a multiple of any kernel's samples per block
 FP32_TOL = {"fused_front": 1e-5, "fused_front_g1": 5e-5}
+FP32_REL_TOL = {"fused_group12": 2e-5, "fused_dense": 1e-5}  # of max(1, max|plain|)
 BF16_REL_TOL = 1e-2  # of max(1, max|plain|)
 
 
@@ -79,3 +87,112 @@ def test_wrapper_rejects_weights_on_another_device(card, folded):
     x = torch.zeros(4, 16, 16, 1, device=card)
     with pytest.raises(ValueError, match="expected cuda"):
         ff.fused_front(x, w, b)
+
+
+def _close(got, want, rel_tol):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    scale = want.float().abs().max().item()
+    assert want.float().std().item() >= 1e-2
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= rel_tol * max(1.0, scale), (err, scale)
+
+
+def _codes(seed, shape):
+    """Seeded 10-bit codes as uint16."""
+    return np.random.default_rng(seed).integers(0, 1024, size=shape, dtype=np.uint16)
+
+
+def _counted(name, fn, *args, **kwargs):
+    before = _build.launch_counts[name]
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[name] == before + 1
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("e", [2, 4, 8, 16])
+def test_group12_matches_plain_version(card, folded, e, dtype):
+    """K5 on the stem's output of ragged batches of 4e px blocks."""
+    gen = torch.Generator().manual_seed(e)
+    img = (torch.randint(0, 1024, (RAGGED, 4 * e, 4 * e, 1), generator=gen).float()
+           / 1023.0).to(card)
+    stem = ff.stem_weights(folded["stem"]["weight"], folded["stem"]["bias"],
+                           torch.float32)
+    x = ff.fused_front_reference(img, *(t.to(card) for t in stem)).to(dtype)
+    weights = tuple(w.to(card) for w in rg.pack_group12_weights(folded, dtype))
+    got = _counted("fused_group12", rg.fused_group12, x, weights)
+    want = rg.fused_group12_reference(x, weights)
+    tol = FP32_REL_TOL["fused_group12"] if dtype == torch.float32 else BF16_REL_TOL
+    _close(got, want, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("bs", [4, 16, 64])
+def test_tile_normalize_matches_plain_version_exactly(card, bs, dtype):
+    """bs 4 takes the one-value path, 16 and 64 the 8-value path."""
+    frames = torch.from_numpy(_codes(bs, (3, 1088, 1920))).to(card)
+    got = _counted("tile_normalize_frames", pp.tile_normalize_frames, frames, bs,
+                   dtype)
+    want = pp.tile_normalize_reference(frames, bs, dtype)
+    assert got.shape == want.shape == (3 * 1088 * 1920 // bs ** 2, bs, bs, 1)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("layout", ["aligned", "offset_by_one"])
+def test_normalize_blocks_matches_plain_version_exactly(card, layout, dtype):
+    """Ragged N; a view one value into the buffer takes the unaligned path
+    and ends in a partial vector."""
+    blocks = torch.from_numpy(_codes(7, (RAGGED, 16, 16, 1))).to(card)
+    if layout == "offset_by_one":
+        blocks = blocks.view(-1)[1:]
+    got = _counted("normalize_blocks", pp.normalize_blocks, blocks, dtype)
+    assert got.shape == blocks.shape
+    assert torch.equal(got, pp.normalize_blocks_reference(blocks, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("act", ["linear", "relu", "silu", "sigmoid"])
+def test_fused_dense_matches_plain_version(card, act, dtype):
+    """A ragged M and a K and N off the kernel's 16/64 tiles."""
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(RAGGED, 500, generator=gen).to(card, dtype)
+    w = (torch.randn(500, 250, generator=gen) * 0.05).to(card, dtype)
+    b = torch.randn(250, generator=gen).to(card)
+    got = _counted("fused_dense", fused_dense, x, w, b, act)
+    tol = FP32_REL_TOL["fused_dense"] if dtype == torch.float32 else BF16_REL_TOL
+    _close(got, fused_dense_reference(x, w, b, act), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["linear", "relu", "silu", "sigmoid"])
+def test_fused_dense_gradients_match_autograd(card, act):
+    """Gradients of sum(out ** 2), fp32: the custom backward against
+    autograd through the plain version (tolerances of tests/test_kernels.py)."""
+    gen = torch.Generator().manual_seed(4)
+    data = (torch.randn(RAGGED, 512, generator=gen),
+            torch.randn(512, 256, generator=gen) * 0.05,
+            torch.randn(256, generator=gen))
+    grads = []
+    for fn in (fused_dense, fused_dense_reference):
+        params = [t.to(card).requires_grad_() for t in data]
+        (fn(*params, act) ** 2).sum().backward()
+        grads.append([p.grad for p in params])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_kernel_launch_failure_raises(card):
+    """A launch the kernel refuses raises instead of returning garbage."""
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.launch("normalize_blocks", 0, 0, 0, 0, 0)

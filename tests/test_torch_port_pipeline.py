@@ -82,14 +82,15 @@ BUILDERS = {
         lambda m: make_v6_pipeline(m, stage1_threshold=STAGE1_THRESHOLD),
     ),
     **{
-        f"folded_{name}": (
-            lambda m, mode=mode: jax_folded(
+        f"folded_{name}{'_groups' if groups else ''}": (
+            lambda m, mode=mode, groups=groups: jax_folded(
                 m, stage1_threshold=STAGE1_THRESHOLD, float_dtype=jnp.float32,
-                use_fused_front=mode, interpret=True),
-            lambda m, mode=mode: make_v6_pipeline_folded(
+                use_fused_front=mode, use_pallas_groups=groups, interpret=True),
+            lambda m, mode=mode, groups=groups: make_v6_pipeline_folded(
                 m, stage1_threshold=STAGE1_THRESHOLD, float_dtype=torch.float32,
-                use_fused_front=mode, device="cpu"),
+                use_fused_front=mode, use_pallas_groups=groups, device="cpu"),
         )
+        for groups in (False, True)
         for name, mode in (("off", False), ("on", True), ("g1", "g1"))
     },
 }
@@ -129,7 +130,5 @@ def test_unported_pipeline_options_raise(setup, option, item):
 
 
 def test_unported_folded_options_raise(setup):
-    with pytest.raises(NotImplementedError, match="K5"):
-        make_v6_pipeline_folded(setup[1], use_pallas_groups=True, device="cpu")
     with pytest.raises(ValueError, match="use_fused_front"):
         make_v6_pipeline_folded(setup[1], use_fused_front="g2", device="cpu")
