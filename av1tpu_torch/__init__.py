@@ -1,11 +1,13 @@
 """av1tpu_torch — the PyTorch/CUDA port of av1tpu for NVIDIA Hopper.
 
 The JAX package ``av1tpu`` stays the reference; this package mirrors its
-layout module by module and never imports jax or flax. It shares the
-jax-free parts of ``av1tpu`` (``codec.partitions``, ``data.bundles``,
-``data.records``) instead of copying them.
+layout module by module and imports nothing of it, nor jax or flax. What it
+needs of the jax-free modules of ``av1tpu`` it keeps as its own copies, under
+the same names: ``codec.partitions``, ``data.bundles`` and ``data.records``.
 
 Layer map:
+    codec.partitions  partition ids, names and the label maps (numpy)
+    data              split bundles (npz + metadata.json) and the sample norm
     train.checkpoint  flat npz variable files (the JAX package's format)
     models            nn.Module v6 stage models + FGVC, and the JAX weight bridge
     quant.ptq         BN folding and the folded float forward

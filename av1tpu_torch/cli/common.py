@@ -1,15 +1,14 @@
 """Shared CLI plumbing: dataset splits and checkpoint loading.
 
-Dataset bundles are the JAX package's jax-free ``av1tpu.data.bundles``
-format, shared and not copied; ``Bundle`` and ``save_split`` are
-re-exported here for scripts of the port."""
+Dataset bundles are ``av1tpu_torch.data.bundles``, the port's own copy of
+the JAX package's format (same npz keys and ``metadata.json``)."""
 from __future__ import annotations
 
 import json
 from pathlib import Path
 from typing import Any, Dict, Tuple
 
-from av1tpu.data.bundles import Bundle, save_split
+from av1tpu_torch.data.bundles import Bundle
 from av1tpu_torch.train.checkpoint import load_variables_npz
 
 
@@ -36,4 +35,4 @@ def load_model_variables(path: Path) -> Dict[str, Any]:
     raise ValueError(f"unsupported checkpoint format: {path}")
 
 
-__all__ = ["Bundle", "load_model_variables", "load_split", "save_split"]
+__all__ = ["load_model_variables", "load_split"]

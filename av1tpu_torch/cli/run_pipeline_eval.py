@@ -25,7 +25,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from av1tpu.codec.partitions import V6_EVAL_CLASS_NAMES, raw_to_v6_final
+from av1tpu_torch.codec.partitions import V6_EVAL_CLASS_NAMES, raw_to_v6_final
 from av1tpu_torch.cli.common import load_model_variables, load_split
 from av1tpu_torch.eval import (
     PipelineModels,

@@ -8,18 +8,56 @@
 //     {2, 4, 8, 16}: the post-maxpool extents of 8, 16, 32 and 64 px blocks.
 //
 // Numerics follow the TPU kernel: the input and all 22 weight arrays come in
-// the serving dtype (fp32 or bf16) and are widened to fp32 on load, every
-// intermediate stays fp32, and only the output is rounded. (K2 rounds each
-// conv input to the weight dtype; K5 does not.)
+// the serving dtype (fp32 or bf16), every intermediate is kept beyond that
+// dtype, and only the output is rounded. (K2 rounds each conv input to the
+// weight dtype; K5 does not.)
 //
 // What bounds it on an H100. The eight 3x3 convs and the downsample are
 // ~278 k x E^2 MACs per sample: 4.45 M at E = 4 (16 px blocks) for 2 KB of
-// input and 1 KB of output in bf16, ~3000 FLOP per byte of device memory.
-// So it is compute-bound on the fp32 CUDA cores. The traffic that matters is
-// the weights: 0.675 M values (1.35 MB in bf16) do not fit in shared memory
-// (one 128x128x3x3 conv alone is 295 KB in bf16) and stream through L1/L2.
+// input and 1 KB of output in bf16, ~3000 FLOP per byte of device memory. So
+// it is bound by operations: 36.5 GFLOP at batch 4096, 0.037 ms of bf16
+// tensor-core time, 0.074 ms with the two passes described below. The
+// traffic that matters is the weights: 0.675 M values (1.35 MB in bf16) do
+// not fit in shared memory and every block streams them from L2.
 //
-// The simple design:
+// bf16 (the serving dtype): fused_group12_mma_kernel, tensor cores.
+//   * Every conv is an implicit GEMM on mma.sync.m16n8k16 (mma.cuh; picked
+//     over wgmma because its A operand comes from ldmatrix with one address
+//     per row, which is what the shifted windows need, and because layer 2
+//     has only 64 rows a block, one wgmma tile). Rows are (sample, output
+//     position), K is tap x ci, N is 64 or 128. A block of 256 threads holds
+//     256 / E^2 samples (64, 16, 4, 1), so layer 1 is always 256 rows (each
+//     warp 2 m-tiles x 64 columns) and layer 2 always 64 rows (each warp one
+//     m-tile x 64 of the 128 columns), whatever the extent.
+//   * fp32 inside, to 16 bits. An activation v lives in shared memory as two
+//     bf16 planes, hi = bf16(v) and lo = bf16(v - hi), so ldmatrix reads the
+//     MMA's A fragments directly and each weight fragment feeds two MMAs
+//     (hi and lo). Products carry 16 bits of the activation (2^-17 relative),
+//     sums are fp32, and the residual and the SE mean read hi + lo.
+//   * No border is stored. A row is 64 (128) channels at a pitch of 144 (272)
+//     bytes, odd multiples of 16, so the eight rows of an ldmatrix tile hit
+//     eight bank groups. The lane that owns tile row r computes the address
+//     of its input row for each tap: the window shift, the row wrap, the
+//     stride-2 start 2*o and the sample boundary are address arithmetic, and
+//     a tap outside the image (SAME's border, XLA's pad (0, 1)) points at one
+//     shared row of zeros.
+//   * Weights: the nine conv kernels are concatenated once, when the pipeline
+//     is built, into one stream in the order of use ([tap][ci][co] is already
+//     k-major, so the stream is 100 chunks of 64 k-rows x 64 or 128 columns).
+//     A three-slot cp.async ring runs two chunks ahead of the math, straight
+//     through the boundaries between convs, with one __syncthreads per chunk.
+//     A block reads the 1.35 MB once for its 256 rows (16 samples at E = 4,
+//     where the first version read them once for 4).
+//   * layer2_0: the 1x1/2 downsample is one more chunk summed into the second
+//     conv's accumulators; the sum replaces group 1's output only after a
+//     barrier, when no warp reads that output any more.
+//   * SE1 and SE2 run from shared memory; their scratch lies in the mid
+//     buffer, which is free then. SE2's scale is applied as the output is
+//     written, 16 bytes a store. A short last block computes on zero samples
+//     and stores only those inside the batch.
+//
+// fp32 (the parity mode): fused_group12_kernel, the first version, on CUDA
+// cores, unchanged:
 //   * 256 threads; a block serves SPB samples (8/4/2/1 at E = 2/4/8/16). Each
 //     sample has two regions of fp32 activations in dynamic shared memory,
 //     with a zero border of 1 so the conv loops need no bounds checks.
@@ -34,12 +72,9 @@
 //     high-side row and column read the zero border: XLA's pad (0, 1). The
 //     downsample is the 1x1 tap at the window's start, summed into the same
 //     registers as layer2_0's second conv.
-//   * SE1 and SE2 run from shared memory at the end of their groups; SE2's
-//     channel scale is applied as the output is written.
-// Tensor cores, cp.async/TMA weight staging and register tiling across
-// channels are left for later work.
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -336,6 +371,351 @@ int launch_group12(const void* x, const Weights& w, void* out, int batch,
   return int(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernel
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int ROWS1 = 256, ROWS2 = 64;  // output rows of a block in layers 1 and 2
+constexpr int PITCH1 = C1 + 8;          // plane row pitch in layer 1 (elements)
+constexpr int PITCH2 = C2 + 8;          // ... in layer 2
+constexpr int PLANE = ROWS1 * PITCH1;   // elements of one plane
+constexpr int KC = 64;                  // k rows of a weight chunk
+constexpr int WPITCH = C2 + 8;          // ring row pitch
+constexpr int SLOT = KC * WPITCH;       // elements of a ring slot
+constexpr int STAGES = 3;
+constexpr int CHUNKS1 = 4 * 9;                  // layer 1: four 576 x 64 convs
+constexpr int CHUNKS = CHUNKS1 + 9 + 19 + 36;   // + layer 2: 100 in all
+constexpr int ZERO_ROW = PITCH2;                // elements of the shared zero row
+constexpr size_t MMA_SMEM = sizeof(bf16) * (4 * PLANE + STAGES * SLOT + ZERO_ROW);
+static_assert(ROWS2 * PITCH2 <= PLANE, "layer 2 reuses layer 1's planes");
+
+// Chunk c of the weight stream into its ring slot, as one cp.async group
+// (an empty group past the end, so that the group count stays in step).
+__device__ __forceinline__ void fetch_chunk(const bf16* __restrict__ stream, bf16* ring,
+                                            int c) {
+  if (c < CHUNKS) {
+    const int n = c < CHUNKS1 ? C1 : C2;
+    const bf16* src = stream + (c < CHUNKS1 ? c * KC * C1
+                                            : CHUNKS1 * KC * C1 + (c - CHUNKS1) * KC * C2);
+    bf16* dst = ring + (c % STAGES) * SLOT;
+    const int per_row = n / 8;
+    for (int i = threadIdx.x; i < KC * per_row; i += THREADS) {
+      const int row = i / per_row, col = (i % per_row) * 8;
+      av1::cp_async16(av1::smem_addr(dst + row * WPITCH + col), src + row * n + col);
+    }
+  }
+  av1::cp_async_commit();
+}
+
+// The shared-memory addresses (hi and lo plane) of the input row that tap
+// (dy, dx) of output row r reads: input extent IE at pitch IP, output extent
+// OE, stride S. A tap outside the image reads the zero row.
+template <int IE, int OE, int S, int IP>
+__device__ __forceinline__ void tap_row(int r, int dy, int dx, uint32_t in_hi, uint32_t in_lo,
+                                        uint32_t zero, uint32_t& hi, uint32_t& lo) {
+  constexpr int OP = OE * OE;
+  const int s = r / OP, p = r % OP;
+  const int iy = (p / OE) * S + dy, ix = (p % OE) * S + dx;
+  const bool inside = unsigned(iy) < unsigned(IE) && unsigned(ix) < unsigned(IE);
+  const uint32_t off = uint32_t((s * IE * IE + iy * IE + ix) * IP) * sizeof(bf16);
+  hi = inside ? in_hi + off : zero;
+  lo = inside ? in_lo + off : zero;
+}
+
+// acc += a conv with TAPS taps of CI input channels, for this warp's MT
+// m-tiles from output row `row0` and its 64 columns from `n0`; its weights
+// are chunks c0 .. c0 + TAPS * CI / 64 - 1 of the stream. Every thread of the
+// block calls this with the same c0: the chunk loop holds the barriers.
+template <int IE, int OE, int S, int CI, int IP, int TAPS, int MT>
+__device__ __forceinline__ void conv_mma(float (&acc)[MT][8][4], uint32_t in_hi,
+                                         uint32_t in_lo, uint32_t zero, int row0, int n0,
+                                         const bf16* __restrict__ stream, bf16* ring, int c0,
+                                         int lane) {
+  constexpr int PER_TAP = CI / KC;
+  const int r16 = lane % 16;
+  const uint32_t kb = 16 * (lane / 16);  // bytes: 8 elements along k (A) or n (B)
+#pragma unroll 1
+  for (int j = 0; j < TAPS * PER_TAP; ++j) {
+    const int c = c0 + j;
+    av1::cp_async_wait<STAGES - 2>();  // chunk c has landed
+    __syncthreads();                   // ... for every thread; chunk c-1 is consumed
+    fetch_chunk(stream, ring, c + STAGES - 1);
+    const int tap = j / PER_TAP;
+    const int dy = TAPS == 1 ? 0 : tap / 3 - (S == 1 ? 1 : 0);
+    const int dx = TAPS == 1 ? 0 : tap % 3 - (S == 1 ? 1 : 0);
+    uint32_t a_hi[MT], a_lo[MT];
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) {
+      tap_row<IE, OE, S, IP>(row0 + mi * 16 + r16, dy, dx, in_hi, in_lo, zero, a_hi[mi],
+                             a_lo[mi]);
+      const uint32_t k_off = uint32_t((j % PER_TAP) * KC) * sizeof(bf16) + kb;
+      a_hi[mi] += k_off;
+      a_lo[mi] += k_off;
+    }
+    const uint32_t w = av1::smem_addr(ring + (c % STAGES) * SLOT) +
+                       uint32_t(r16 * WPITCH + n0) * sizeof(bf16) + kb;
+#pragma unroll
+    for (int kk = 0; kk < KC / 16; ++kk) {
+      uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+        av1::ldmatrix_x4(ah[mi], a_hi[mi] + kk * 32);
+        av1::ldmatrix_x4(al[mi], a_lo[mi] + kk * 32);
+      }
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj) {
+        uint32_t b[4];
+        av1::ldmatrix_x4_trans(b, w + uint32_t(kk * 16 * WPITCH + nj * 16) * sizeof(bf16));
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi) {
+          av1::mma_bf16(acc[mi][2 * nj], al[mi], b[0], b[1]);
+          av1::mma_bf16(acc[mi][2 * nj], ah[mi], b[0], b[1]);
+          av1::mma_bf16(acc[mi][2 * nj + 1], al[mi], b[2], b[3]);
+          av1::mma_bf16(acc[mi][2 * nj + 1], ah[mi], b[2], b[3]);
+        }
+      }
+    }
+  }
+}
+
+// f(row, col, v0, v1) for every pair of neighbouring columns this thread
+// holds of its warp's accumulators.
+template <int MT, class F>
+__device__ __forceinline__ void for_each_pair(const float (&acc)[MT][8][4], int row0, int n0,
+                                              int lane, F f) {
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        f(row0 + mi * 16 + g + 8 * h, n0 + ni * 8 + 2 * t, acc[mi][ni][2 * h],
+          acc[mi][ni][2 * h + 1]);
+}
+
+template <int MT>
+__device__ __forceinline__ void zero_acc(float (&acc)[MT][8][4]) {
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0.f;
+}
+
+// the pair at element `idx` of an activation: hi + lo
+__device__ __forceinline__ float2 load_pair(const bf16* hi, const bf16* lo, int idx) {
+  const float2 h = av1::unpack_bf16(*reinterpret_cast<const uint32_t*>(hi + idx));
+  const float2 l = av1::unpack_bf16(*reinterpret_cast<const uint32_t*>(lo + idx));
+  return make_float2(h.x + l.x, h.y + l.y);
+}
+__device__ __forceinline__ void store_pair(bf16* hi, bf16* lo, int idx, float v0, float v1) {
+  uint32_t h, l;
+  av1::split2_pack(v0, v1, h, l);
+  *reinterpret_cast<uint32_t*>(hi + idx) = h;
+  *reinterpret_cast<uint32_t*>(lo + idx) = l;
+}
+
+// A stride-1 basic block on `a` (input, residual, output) with `h` for the mid
+// activation: a = relu(conv2(relu(conv1(a) + b1)) + b2 + a). EXT is the
+// extent, CH the width, IP the pitch; weights from chunk c0.
+template <int EXT, int CH, int IP, int MT>
+__device__ __forceinline__ void block_s1_mma(bf16* a_hi, bf16* a_lo, bf16* h_hi, bf16* h_lo,
+                                             uint32_t zero, const bf16* b1, const bf16* b2,
+                                             int row0, int n0, const bf16* stream, bf16* ring,
+                                             int c0, int lane) {
+  constexpr int PER_CONV = 9 * CH / KC;
+  float acc[MT][8][4];
+  zero_acc(acc);
+  conv_mma<EXT, EXT, 1, CH, IP, 9, MT>(acc, av1::smem_addr(a_hi), av1::smem_addr(a_lo), zero,
+                                       row0, n0, stream, ring, c0, lane);
+  for_each_pair(acc, row0, n0, lane, [&](int row, int col, float v0, float v1) {
+    store_pair(h_hi, h_lo, row * IP + col, fmaxf(v0 + ldg_f(b1 + col), 0.f),
+               fmaxf(v1 + ldg_f(b1 + col + 1), 0.f));
+  });
+  zero_acc(acc);
+  conv_mma<EXT, EXT, 1, CH, IP, 9, MT>(acc, av1::smem_addr(h_hi), av1::smem_addr(h_lo), zero,
+                                       row0, n0, stream, ring, c0 + PER_CONV, lane);
+  for_each_pair(acc, row0, n0, lane, [&](int row, int col, float v0, float v1) {
+    const float2 res = load_pair(a_hi, a_lo, row * IP + col);
+    store_pair(a_hi, a_lo, row * IP + col, fmaxf(v0 + ldg_f(b2 + col) + res.x, 0.f),
+               fmaxf(v1 + ldg_f(b2 + col + 1) + res.y, 0.f));
+  });
+  __syncthreads();
+}
+
+// The SE gates of SPB samples of PS positions x CH channels at pitch IP:
+// gate[s][c] = sigmoid(d1 . relu(d0 . mean_p a[s][p])). `hid` is SPB x HID.
+template <int PS, int CH, int HID, int SPB, int IP>
+__device__ void se_gate_mma(const bf16* a_hi, const bf16* a_lo, const bf16* d0, const bf16* d1,
+                            float* gate, float* hid) {
+  constexpr int ITEMS = SPB * CH;
+  constexpr int PARTS = ITEMS >= THREADS ? 1 : THREADS / ITEMS;  // splits of the positions
+  static_assert(PS % PARTS == 0, "positions must split evenly");
+  for (int i = threadIdx.x; i < ITEMS; i += THREADS) gate[i] = 0.f;
+  __syncthreads();
+  for (int i = threadIdx.x; i < ITEMS * PARTS; i += THREADS) {
+    const int item = i % ITEMS, part = i / ITEMS;
+    const int base = ((item / CH) * PS + part * (PS / PARTS)) * IP + item % CH;
+    float sum = 0.f;
+    for (int p = 0; p < PS / PARTS; ++p)
+      sum += __bfloat162float(a_hi[base + p * IP]) + __bfloat162float(a_lo[base + p * IP]);
+    if (PARTS == 1) gate[item] = sum; else atomicAdd(gate + item, sum);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < SPB * HID; i += THREADS) {
+    const float* gs = gate + (i / HID) * CH;
+    const bf16* w = d0 + (i % HID) * CH;
+    float v = 0.f;
+    for (int k = 0; k < CH; ++k) v = fmaf(ldg_f(w + k), gs[k] * (1.f / PS), v);
+    hid[i] = fmaxf(v, 0.f);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < ITEMS; i += THREADS) {
+    const float* hs = hid + (i / CH) * HID;
+    const bf16* w = d1 + (i % CH) * HID;
+    float e = 0.f;
+    for (int r = 0; r < HID; ++r) e = fmaf(ldg_f(w + r), hs[r], e);
+    gate[i] = 1.f / (1.f + expf(-e));
+  }
+  __syncthreads();
+}
+
+template <int E>
+__global__ void __launch_bounds__(THREADS)
+fused_group12_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ stream,
+                         Weights wt, bf16* __restrict__ out, int batch) {
+  constexpr int E2 = E / 2, PS1 = E * E, PS2 = E2 * E2, SPB = ROWS1 / PS1;
+  extern __shared__ uint4 mma_smem[];
+  bf16* a_hi = reinterpret_cast<bf16*>(mma_smem);  // group input / residual / output
+  bf16* a_lo = a_hi + PLANE;
+  bf16* h_hi = a_lo + PLANE;                       // mid-block activation; SE scratch
+  bf16* h_lo = h_hi + PLANE;
+  bf16* ring = h_lo + PLANE;
+  bf16* zero_row = ring + STAGES * SLOT;
+  float* gate = reinterpret_cast<float*>(h_hi);    // SPB x C2 at most, then SPB x SE2_H
+  const uint32_t zero = av1::smem_addr(zero_row);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int64_t b0 = int64_t(blockIdx.x) * SPB;
+  const int n = batch - b0 < SPB ? int(batch - b0) : SPB;  // samples to store
+
+  // ---- x into the hi plane (bf16 is exact: lo = 0), samples past the batch 0
+  const bf16* xb = x + b0 * PS1 * C1;
+  for (int i = threadIdx.x; i < ROWS1 * (C1 / 8); i += THREADS) {
+    const int row = i / (C1 / 8), col = (i % (C1 / 8)) * 8;
+    const bool ok = row < n * PS1;
+    av1::cp_async16(av1::smem_addr(a_hi + row * PITCH1 + col), ok ? xb + row * C1 + col : xb,
+                    ok ? 16 : 0);
+  }
+  av1::cp_async_commit();
+  fetch_chunk(stream, ring, 0);
+  fetch_chunk(stream, ring, 1);
+  for (int i = threadIdx.x; i < PLANE / 8; i += THREADS)
+    reinterpret_cast<uint4*>(a_lo)[i] = make_uint4(0, 0, 0, 0);
+  for (int i = threadIdx.x; i < ZERO_ROW / 2; i += THREADS)
+    reinterpret_cast<uint32_t*>(zero_row)[i] = 0;
+
+  // ---- layer group 1 and SE1, in place on a: each warp 32 rows x 64 columns
+  {
+    const int row0 = warp * 32;
+    block_s1_mma<E, C1, PITCH1, 2>(a_hi, a_lo, h_hi, h_lo, zero, wp<bf16>(wt, L10_B1),
+                                   wp<bf16>(wt, L10_B2), row0, 0, stream, ring, 0, lane);
+    block_s1_mma<E, C1, PITCH1, 2>(a_hi, a_lo, h_hi, h_lo, zero, wp<bf16>(wt, L11_B1),
+                                   wp<bf16>(wt, L11_B2), row0, 0, stream, ring, 18, lane);
+  }
+  se_gate_mma<PS1, C1, SE1_H, SPB, PITCH1>(a_hi, a_lo, wp<bf16>(wt, SE1_D0),
+                                           wp<bf16>(wt, SE1_D1), gate, gate + SPB * C1);
+  for (int i = threadIdx.x; i < ROWS1 * (C1 / 2); i += THREADS) {
+    const int row = i / (C1 / 2), col = (i % (C1 / 2)) * 2;
+    const float2 v = load_pair(a_hi, a_lo, row * PITCH1 + col);
+    const float* gs = gate + (row / PS1) * C1 + col;
+    store_pair(a_hi, a_lo, row * PITCH1 + col, v.x * gs[0], v.y * gs[1]);
+  }
+  __syncthreads();
+
+  // ---- layer group 2: each warp 16 rows x 64 of the 128 columns
+  const int row0 = (warp % 4) * 16, n0 = (warp / 4) * 64;
+  {
+    // layer2_0: conv1 3x3/2 (a -> h), then conv2 + the downsample in
+    // registers; their sum replaces a once nothing reads group 1's output
+    float acc[1][8][4];
+    zero_acc(acc);
+    conv_mma<E, E2, 2, C1, PITCH1, 9, 1>(acc, av1::smem_addr(a_hi), av1::smem_addr(a_lo), zero,
+                                         row0, n0, stream, ring, CHUNKS1, lane);
+    const bf16* b1 = wp<bf16>(wt, L20_B1);
+    for_each_pair(acc, row0, n0, lane, [&](int row, int col, float v0, float v1) {
+      store_pair(h_hi, h_lo, row * PITCH2 + col, fmaxf(v0 + ldg_f(b1 + col), 0.f),
+                 fmaxf(v1 + ldg_f(b1 + col + 1), 0.f));
+    });
+    zero_acc(acc);
+    conv_mma<E2, E2, 1, C2, PITCH2, 9, 1>(acc, av1::smem_addr(h_hi), av1::smem_addr(h_lo), zero,
+                                          row0, n0, stream, ring, CHUNKS1 + 9, lane);
+    conv_mma<E, E2, 2, C1, PITCH1, 1, 1>(acc, av1::smem_addr(a_hi), av1::smem_addr(a_lo), zero,
+                                         row0, n0, stream, ring, CHUNKS1 + 27, lane);
+    __syncthreads();  // the last read of group 1's output
+    const bf16* b2 = wp<bf16>(wt, L20_B2);
+    const bf16* bd = wp<bf16>(wt, L20_DSB);
+    for_each_pair(acc, row0, n0, lane, [&](int row, int col, float v0, float v1) {
+      store_pair(a_hi, a_lo, row * PITCH2 + col,
+                 fmaxf(v0 + (ldg_f(b2 + col) + ldg_f(bd + col)), 0.f),
+                 fmaxf(v1 + (ldg_f(b2 + col + 1) + ldg_f(bd + col + 1)), 0.f));
+    });
+  }
+  block_s1_mma<E2, C2, PITCH2, 1>(a_hi, a_lo, h_hi, h_lo, zero, wp<bf16>(wt, L21_B1),
+                                  wp<bf16>(wt, L21_B2), row0, n0, stream, ring, CHUNKS1 + 28,
+                                  lane);
+  av1::cp_async_wait<0>();
+
+  // ---- SE2 and the output, scaled as it is written
+  se_gate_mma<PS2, C2, SE2_H, SPB, PITCH2>(a_hi, a_lo, wp<bf16>(wt, SE2_D0),
+                                           wp<bf16>(wt, SE2_D1), gate, gate + SPB * C2);
+  bf16* ob = out + b0 * PS2 * C2;
+  for (int i = threadIdx.x; i < ROWS2 * (C2 / 8); i += THREADS) {
+    const int row = i / (C2 / 8), col = (i % (C2 / 8)) * 8;
+    const int s = row / PS2;
+    if (s >= n) continue;
+    const uint4 h = *reinterpret_cast<const uint4*>(a_hi + row * PITCH2 + col);
+    const uint4 l = *reinterpret_cast<const uint4*>(a_lo + row * PITCH2 + col);
+    const uint32_t hw[4] = {h.x, h.y, h.z, h.w}, lw[4] = {l.x, l.y, l.z, l.w};
+    const float* gs = gate + s * C2 + col;
+    uint32_t o[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float2 hv = av1::unpack_bf16(hw[q]), lv = av1::unpack_bf16(lw[q]);
+      o[q] = av1::pack_bf16((hv.x + lv.x) * gs[2 * q], (hv.y + lv.y) * gs[2 * q + 1]);
+    }
+    *reinterpret_cast<uint4*>(ob + row * C2 + col) = make_uint4(o[0], o[1], o[2], o[3]);
+  }
+}
+
+template <int E>
+int launch_group12_mma(const void* x, const void* stream, const Weights& w, void* out,
+                       int batch, cudaStream_t st) {
+  static const cudaError_t attr =  // once per kernel, not per launch
+      cudaFuncSetAttribute(fused_group12_mma_kernel<E>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, int(MMA_SMEM));
+  if (attr != cudaSuccess) return int(attr);
+  constexpr int SPB = ROWS1 / (E * E);
+  fused_group12_mma_kernel<E><<<(batch + SPB - 1) / SPB, THREADS, MMA_SMEM, st>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(stream), w,
+      static_cast<bf16*>(out), batch);
+  return int(cudaGetLastError());
+}
+
+int dispatch_extent_mma(int hw, const void* x, const void* stream, const Weights& w, void* out,
+                        int batch, cudaStream_t st) {
+  switch (hw) {
+    case 2: return launch_group12_mma<2>(x, stream, w, out, batch, st);
+    case 4: return launch_group12_mma<4>(x, stream, w, out, batch, st);
+    case 8: return launch_group12_mma<8>(x, stream, w, out, batch, st);
+    case 16: return launch_group12_mma<16>(x, stream, w, out, batch, st);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
 template <typename T>
 int dispatch_extent(int hw, const void* x, const Weights& w, void* out, int batch,
                     cudaStream_t st) {
@@ -355,14 +735,20 @@ extern "C" {
 // Launches K5 on `stream` and returns cudaGetLastError() (0 on success); it
 // neither allocates nor synchronises. `weights` is a host array of the 22
 // device pointers in PACK_ORDER, all in the dtype of x (`bf16`: 1, else fp32).
-int av1_fused_group12(const void* x, const void* const* weights, void* out, int batch,
-                      int hw, int bf16, void* stream) {
+// With bf16, `conv_stream` is the device pointer of the nine conv kernels
+// concatenated in the order of use (kernels/resnet_group.py
+// group12_conv_stream), 16-byte aligned like x and out.
+int av1_fused_group12(const void* x, const void* const* weights, const void* conv_stream,
+                      void* out, int batch, int hw, int bf16, void* stream) {
   if (batch <= 0 || weights == nullptr) return int(cudaErrorInvalidValue);
   Weights w;
   for (int i = 0; i < N_WEIGHTS; ++i) w.p[i] = weights[i];
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch_extent<__nv_bfloat16>(hw, x, w, out, batch, st)
-              : dispatch_extent<float>(hw, x, w, out, batch, st);
+  if (!bf16) return dispatch_extent<float>(hw, x, w, out, batch, st);
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out) |
+                         reinterpret_cast<uintptr_t>(conv_stream);
+  if (conv_stream == nullptr || bits % 16) return int(cudaErrorInvalidValue);
+  return dispatch_extent_mma(hw, x, conv_stream, w, out, batch, st);
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
 """Cascade error decomposition for the hierarchical pipeline (numpy only;
-copied from ``av1tpu.eval.cascade``, whose package imports jax).
+the port's own copy of ``av1tpu.eval.cascade``).
 
 The reference's central research finding is cascade degradation: stage-3
 specialists at 68%/24% standalone collapse to ~4%/1.5% inside the pipeline
@@ -23,7 +23,7 @@ from typing import Dict, Mapping
 
 import numpy as np
 
-from av1tpu.codec.partitions import map_to_stage2_v6, raw_to_v6_final
+from av1tpu_torch.codec.partitions import map_to_stage2_v6, raw_to_v6_final
 
 
 def decompose_v6(

@@ -7,7 +7,7 @@ kernel K1, ``"g1"`` runs stem + maxpool + layer group 1 + SE1 as kernel K2;
 both are built lazily per input extent and extents above 16 px use the
 plain front, as the JAX pipeline does. ``use_pallas_groups=True`` runs layer
 groups 1 and 2 with SE1 and SE2 as kernel K5 at every block size (its
-weights packed once per stage); with ``"g1"`` at 8 and 16 px, K2 has done
+weights packed, and its conv stream built, once per stage); with ``"g1"`` at 8 and 16 px, K2 has done
 group 1 and K5 does not run, as in the JAX package. An FGVC AB stage runs
 unfolded through its own forward.
 """
@@ -18,14 +18,18 @@ from typing import Callable, Dict, Tuple
 import torch
 from torch import nn
 
-from av1tpu.data.records import NORM_10BIT
+from av1tpu_torch.data.records import NORM_10BIT
 from av1tpu_torch.eval.hierarchy import PipelineModels, assemble_v6_predict, on_device
 from av1tpu_torch.kernels.fused_front import (
     make_fused_front,
     make_fused_front_g1,
     supports_extent,
 )
-from av1tpu_torch.kernels.resnet_group import fused_group12, pack_group12_weights
+from av1tpu_torch.kernels.resnet_group import (
+    fused_group12,
+    group12_conv_stream,
+    pack_group12_weights,
+)
 from av1tpu_torch.quant.ptq import (
     _backbone_apply,
     _head_apply,
@@ -45,9 +49,10 @@ def _folded_stage_fn(model: nn.Module, float_dtype, use_fused_front,
     group12_fn = None
     if use_pallas_groups:
         weights = pack_group12_weights(folded32, float_dtype)
+        conv_stream = group12_conv_stream(weights)  # built once, not per call
 
         def group12_fn(x):
-            return fused_group12(x, weights)
+            return fused_group12(x, weights, conv_stream)
 
     fronts: Dict[int, Tuple] = {}
 

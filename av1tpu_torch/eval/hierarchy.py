@@ -17,7 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from av1tpu.data.records import NORM_10BIT
+from av1tpu_torch.data.records import NORM_10BIT
 
 
 @dataclass
@@ -81,7 +81,7 @@ def make_v6_pipeline(
     stage1_threshold: float = 0.45,
     norm_scale: float = NORM_10BIT,
     input_dtype=torch.float32,
-    device="cpu",
+    device="cuda",
     tta: bool = False,
     tta_align_ab: bool = False,
     ab_ensemble_vars=None,
@@ -89,7 +89,8 @@ def make_v6_pipeline(
     mesh=None,
 ) -> Callable:
     """The plain v6 pipeline over the stage models' own forwards:
-    ``predict(images_u16) -> dict`` on ``device``."""
+    ``predict(images_u16) -> dict`` on ``device``: the card unless the
+    caller passes ``"cpu"``; ``"cuda"`` without a card raises."""
     if tta or tta_align_ab:
         raise NotImplementedError("TTA is not ported yet (ROADMAP M2)")
     if ab_ensemble_vars:
@@ -135,10 +136,11 @@ def run_pipeline_batched(
     predict_fn: Callable,
     samples,
     batch_size: int = 4096,
-    device="cpu",
+    device="cuda",
 ) -> Dict[str, np.ndarray]:
     """Stream a dataset through ``predict_fn`` in batches of ``batch_size``
-    on one device. ``samples`` is host numpy or a tensor; the last batch
+    on one device (the card unless the caller passes ``"cpu"``; ``"cuda"``
+    without a card raises). ``samples`` is host numpy or a tensor; the last batch
     runs at its own size. Outputs stay on the device until the end and
     come back to the host once, as numpy."""
     device = torch.device(device)

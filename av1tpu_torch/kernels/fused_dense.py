@@ -2,7 +2,10 @@
 
 Counterpart of ``av1tpu.kernels.fused_dense``. The forward is the CUDA
 kernel: products summed in fp32, bias and activation in fp32, the output in
-x's dtype. The backward mirrors the JAX custom VJP ``_fused_dense_bwd`` in
+x's dtype. Rows that are 16-byte aligned (K and N multiples of 8 in bf16, of
+4 in fp32) take the tensor-core kernel: one bf16 MMA pass for bf16 inputs,
+a split-precision product (bf16 triples) that keeps fp32 accuracy for fp32
+inputs. Every other shape takes the general SIMT kernel of the same file. The backward mirrors the JAX custom VJP ``_fused_dense_bwd`` in
 plain torch ops (silu recomputes ``z``), as the JAX package computes it
 outside Pallas. The TPU kernel's ``tile_m`` (its VMEM row tile) and
 ``interpret`` (Pallas interpreter) have no counterpart here.
@@ -52,6 +55,18 @@ def _check(x, w, b, act):
         raise ValueError(f"devices x {x.device}, w {w.device}, b {b.device}")
 
 
+def takes_fast_path(x, w, out=None) -> bool:
+    """True where the tensor-core kernel takes ``x @ w``: contiguous x, w
+    (and out) that start on a 16-byte boundary, with K and N multiples of
+    one 16-byte chunk (8 values in bf16, 4 in fp32). Otherwise the general
+    kernel runs."""
+    per_chunk = 16 // x.element_size()
+    k, n = int(w.shape[0]), int(w.shape[1])
+    tensors = (x, w) if out is None else (x, w, out)
+    return (k % per_chunk == 0 and n % per_chunk == 0
+            and all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors))
+
+
 def _forward(x, w, b, act):
     if x.device.type == "cpu":
         return fused_dense_reference(x, w, b, act)
@@ -62,7 +77,8 @@ def _forward(x, w, b, act):
     if m:
         _build.launch("fused_dense", x.data_ptr(), w.data_ptr(), b.data_ptr(),
                       out.data_ptr(), m, k, n, _ACT_CODE[act],
-                      int(x.dtype == torch.bfloat16), _build.stream_of(x))
+                      int(x.dtype == torch.bfloat16),
+                      int(takes_fast_path(x, w, out)), _build.stream_of(x))
     return out
 
 
@@ -101,4 +117,4 @@ def fused_dense(x, w, b, act: str = "relu"):
     return FusedDense.apply(x, w, b, act)
 
 
-__all__ = ["ACTS", "fused_dense", "fused_dense_reference"]
+__all__ = ["ACTS", "fused_dense", "fused_dense_reference", "takes_fast_path"]

@@ -7,7 +7,11 @@ and a 1x1/2 downsample), layer2_1 and SE2 on BN-folded weights: NHWC
 ``(B, E, E, 64)`` -> ``(B, E/2, E/2, 128)`` for E in {2, 4, 8, 16}, the
 extents after the stem of 8 to 64 px blocks. The input and the 22 packed
 weights share the serving dtype (fp32 or bf16); inside, everything is
-widened to fp32 and only the output is rounded, as the TPU kernel does.
+kept beyond that dtype and only the output is rounded, as the TPU kernel
+does. In bf16 the CUDA kernel runs every conv on the tensor cores, with each
+fp32 activation carried as a pair of bf16 values (16 bits); its conv weights
+come as one stream in the order of use, :func:`group12_conv_stream`, which a
+pipeline builds once. In fp32 it runs on the CUDA cores.
 
 The TPU kernel's ``tile`` (its VMEM batch tile) and ``interpret`` (Pallas
 interpreter mode) have no counterpart here: the CUDA kernel picks its own
@@ -23,6 +27,7 @@ layouts).
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, Tuple
 
 import torch
@@ -81,6 +86,31 @@ def pack_group12_weights(folded, float_dtype=torch.bfloat16) -> Tuple[torch.Tens
         flat[f"{se}.d0"] = folded[se]["d0"].detach().float()
         flat[f"{se}.d1"] = folded[se]["d1"].detach().float()
     return tuple(flat[k].to(float_dtype).contiguous() for k in PACK_ORDER)
+
+
+# The nine conv kernels in the order the bf16 kernel uses them. ``[tap][ci][co]``
+# is k-major already, so the stream is each array flattened, end to end.
+CONV_STREAM_ORDER = (
+    "layer1_0.conv1.k", "layer1_0.conv2.k", "layer1_1.conv1.k", "layer1_1.conv2.k",
+    "layer2_0.conv1.k", "layer2_0.conv2.k", "layer2_0.ds.k",
+    "layer2_1.conv1.k", "layer2_1.conv2.k",
+)
+CONV_STREAM_SIZE = sum(math.prod(PACKED_SHAPES[name]) for name in CONV_STREAM_ORDER)
+
+
+def group12_conv_stream(weights) -> torch.Tensor:
+    """The conv kernels of ``weights`` (22 arrays in ``PACK_ORDER``) as one
+    contiguous 1-D tensor in ``CONV_STREAM_ORDER``: a permutation of their
+    values, which :func:`split_conv_stream` undoes."""
+    by_name = dict(zip(PACK_ORDER, weights))
+    return torch.cat([by_name[name].reshape(-1) for name in CONV_STREAM_ORDER])
+
+
+def split_conv_stream(stream) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`group12_conv_stream`: name -> packed array."""
+    sizes = [math.prod(PACKED_SHAPES[name]) for name in CONV_STREAM_ORDER]
+    return {name: part.reshape(PACKED_SHAPES[name])
+            for name, part in zip(CONV_STREAM_ORDER, torch.split(stream, sizes))}
 
 
 # ---------------------------------------------------------------------------
@@ -148,26 +178,48 @@ def _check(x, weights):
             raise ValueError(f"{name}: must be contiguous")
 
 
-def fused_group12(x, weights):
+def _conv_stream_pointer(x, conv_stream):
+    """The bf16 kernel's third operand; the fp32 kernel takes none."""
+    if x.dtype != torch.bfloat16:
+        return None
+    if conv_stream is None:
+        raise ValueError("conv_stream: the bf16 kernel needs group12_conv_stream(weights), "
+                         "built once by the caller")
+    if (conv_stream.shape != (CONV_STREAM_SIZE,) or conv_stream.dtype != x.dtype
+            or conv_stream.device != x.device or not conv_stream.is_contiguous()):
+        raise ValueError(f"conv_stream: expected a contiguous ({CONV_STREAM_SIZE},) "
+                         f"{x.dtype} tensor on {x.device}")
+    return conv_stream.data_ptr()
+
+
+def fused_group12(x, weights, conv_stream=None):
     """K5 on ``x`` ``(B, E, E, 64)`` with ``weights`` from
-    :func:`pack_group12_weights` in x's dtype; returns ``(B, E/2, E/2, 128)``."""
+    :func:`pack_group12_weights` in x's dtype; returns ``(B, E/2, E/2, 128)``.
+    A bf16 tensor on the card also needs ``conv_stream``,
+    :func:`group12_conv_stream` of the same weights, which the caller builds
+    once (``eval/folded.py`` does, per stage); without it the call raises.
+    The fp32 kernel and the plain version on the CPU do not read it."""
     weights = tuple(weights)
     _check(x, weights)
     if x.device.type == "cpu":
         return fused_group12_reference(x, weights)
+    stream_ptr = _conv_stream_pointer(x, conv_stream)
     e = int(x.shape[1])
     out = torch.empty((x.shape[0], e // 2, e // 2, C2), dtype=x.dtype, device=x.device)
     ptrs = (ctypes.c_void_p * len(weights))(*(t.data_ptr() for t in weights))
-    _build.launch("fused_group12", x.data_ptr(), ptrs, out.data_ptr(),
-                  int(x.shape[0]), e, int(x.dtype == torch.bfloat16),
-                  _build.stream_of(x))
+    _build.launch("fused_group12", x.data_ptr(), ptrs, stream_ptr, out.data_ptr(),
+                  int(x.shape[0]), e, int(x.dtype == torch.bfloat16), _build.stream_of(x))
     return out
 
 
 __all__ = [
+    "CONV_STREAM_ORDER",
+    "CONV_STREAM_SIZE",
     "EXTENTS",
     "PACK_ORDER",
     "fused_group12",
     "fused_group12_reference",
+    "group12_conv_stream",
     "pack_group12_weights",
+    "split_conv_stream",
 ]

@@ -9,9 +9,13 @@ Run from the root of a checkout. Phases, one JSON line each:
      per source, all started together;
   3. kernel checks, each kernel against its plain PyTorch version on the
      card, fp32 (TF32 off) and bf16: K1 and K2 at 8 and 16 px and K5 at
-     extents 2-16 (8-64 px blocks), batch 4099; K3a on three padded 1080p
-     frames at bs 16 and 64 and K3b on 4099 blocks (bit-exact); K4 forward
-     for each activation at (4099, 512) x (512, 256) and K4 backward;
+     extents 2-16 (8-64 px blocks), batch 4099, with the share of output
+     elements that differ at all; K3a on three padded 1080p frames at bs 16
+     and 64 and K3b on 4099 blocks (bit-exact); K4 forward for each
+     activation at (4099, 512) x (512, 256), at a head's second layer
+     (256, 8), at an unaligned (500, 250) that takes the general kernel and
+     at K = 4096, with the fp32 error against a float64 product beside the
+     library's (cuBLAS fp32), and K4 backward against float64 autograd;
   4. reference: the folded fp32 pipeline on the card (fronts off/on/g1, and
      K5 with fronts off/on) against the plain nn.Module pipeline on the CPU;
   5. three main paths, each driven with the launch counts set to 0 just
@@ -29,8 +33,20 @@ Run from the root of a checkout. Phases, one JSON line each:
           from K4 on the stage-1 embeddings of 4096 blocks;
      each run prints blocks/s (or its own rate), its launches, and its
      agreement with path a's ``off`` run;
-  6. timing: each kernel and its plain version in turns at the main paths'
-     shapes.
+  6. predict: the CUDA-event time of one 4,096-block bf16 predict on a
+     batch already on the card, for fronts off / on / g1 and K5 with fronts
+     off / on, in ABCDE EDCBA turns, and from a ``torch.profiler`` trace the
+     kernels launched per predict, the device's busy time and idle share;
+  7. timing: each kernel, its plain version and, for K4, one library call
+     (``torch.addmm`` + ``relu_``) in turns at the main paths' shapes, K4 in
+     fp32 and bf16, K5 at all four extents. ``ms`` is device time: the calls
+     are captured in a CUDA graph and the graph is replayed, so Python's
+     per-call overhead (larger than K4's run time) stays out; ``eager_ms``
+     is the same call launched from Python. ``bound_ms`` is the least time
+     the card could take: the larger of the bytes (each input read once,
+     each output written once) over 3.35 TB/s and the operations over the
+     peak for the input type (989 TFLOP/s bf16 on the tensor cores,
+     67 TFLOP/s fp32).
 Then the card's ``nvidia-smi`` line, a ``{"kernels": [...]}`` line, and as the
 last line ``{"ok": true, "device": {...}}``. Any failed phase raises and the
 script exits non-zero; without a CUDA device it fails before printing.
@@ -38,12 +54,14 @@ script exits non-zero; without a CUDA device it fails before printing.
 from __future__ import annotations
 
 import copy
+import itertools
 import json
 import math
 import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -54,7 +72,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 from av1tpu_torch.cli import run_pipeline_eval  # noqa: E402
-from av1tpu_torch.cli.common import Bundle, save_split  # noqa: E402
+from av1tpu_torch.data.bundles import Bundle, save_split  # noqa: E402
 from av1tpu_torch.eval import (  # noqa: E402
     PipelineModels,
     make_v6_pipeline,
@@ -66,8 +84,10 @@ from av1tpu_torch.kernels import fused_front as ff  # noqa: E402
 from av1tpu_torch.kernels import preprocess as pp  # noqa: E402
 from av1tpu_torch.kernels import resnet_group as rg  # noqa: E402
 from av1tpu_torch.kernels.fused_dense import (  # noqa: E402
+    ACTS,
     fused_dense,
     fused_dense_reference,
+    takes_fast_path,
 )
 from av1tpu_torch.models import (  # noqa: E402
     FGVCModel,
@@ -91,7 +111,14 @@ HEAD = (512, 256, 8)      # a v6 head's widths: embedding, hidden, classes
 FP32_TOL = {"fused_front": 1e-5, "fused_front_g1": 5e-5}  # absolute
 FP32_REL_TOL = {"fused_group12": 2e-5, "fused_dense": 1e-5}  # of max(1, max|plain|)
 BF16_REL_TOL = 1e-2  # of max(1, max|plain|): ~1 bf16 ulp of the largest output
-GRAD_TOL = {"rtol": 1e-3, "atol": 1e-4}  # K4 backward, as tests/test_kernels.py
+GRAD_RTOL = 1e-3  # K4 backward against float64 autograd (tests/test_kernels.py)
+# dW is a torch fp32 product over 4099 rows in either path: at entries near 0
+# that sum alone is up to 2.4e-4 from float64 (`atol_needed` below prints it)
+GRAD_ATOL = {"x": 1e-4, "w": 5e-4, "b": 1e-4}
+# Published peaks of an H100 SXM (NVIDIA's data sheet, dense rates)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+FORBIDDEN_MODULES = ("jax", "flax", "av1tpu")  # the port imports none of them
 WORK = ROOT / "build" / "chip_smoke"
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "fused_front": ("av1tpu_torch/csrc/fused_front.cu",
@@ -166,6 +193,7 @@ def host_tile(frames: np.ndarray, bs: int) -> np.ndarray:
 
 
 def time_ms(fn, iters: int = 50) -> float:
+    """Per-call time of ``fn`` launched from Python (CUDA events)."""
     for _ in range(5):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -178,6 +206,58 @@ def time_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Per-call device time of ``fn``: ``iters`` calls captured in a CUDA
+    graph, the graph replayed ``replays`` times between two events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the default stream
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: int, flops: float, dtype) -> tuple:
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rate for ``dtype``."""
+    by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def front_flops(hw: int, with_g1: bool) -> float:
+    """Per sample: the 7x7/2 stem conv, and layer group 1 at extent hw/4."""
+    stem = 2.0 * (hw // 2) ** 2 * 49 * 64
+    return stem + (group12_flops(hw // 4, groups=(1,)) if with_g1 else 0.0)
+
+
+def group12_flops(e: int, groups=(1, 2)) -> float:
+    """Per sample: the convs of layer groups 1 and 2 at input extent ``e``
+    (each product once; SE, biases and pooling are not counted)."""
+    g1 = 2.0 * 4 * e * e * 576 * 64
+    g2 = 2.0 * (e // 2) ** 2 * (576 * 128 + 3 * 1152 * 128 + 64 * 128)
+    return (g1 if 1 in groups else 0.0) + (g2 if 2 in groups else 0.0)
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: every kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -188,10 +268,11 @@ def compare(name, got, want, tol, **fields) -> float:
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{name}: {got.shape}/{got.dtype} "
                              f"vs {want.shape}/{want.dtype}")
-    err = (got.float() - want.float()).abs().max().item()
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
     scale = want.float().abs().max().item()
     emit("kernel_check", kernel=name, max_abs_err=err, tol=tol,
-         max_abs_out=scale, **fields)
+         max_abs_out=scale, share_differing=(diff > 0).float().mean().item(), **fields)
     if not (err <= tol and math.isfinite(scale)):
         raise AssertionError(f"{name} {fields}: err {err} > {tol}")
     return err
@@ -245,7 +326,8 @@ def check_kernels(folded, gen, dev) -> dict:
         for dtype in (f32, bf16):
             x = x32.to(dtype)
             w = tuple(t.to(dev) for t in rg.pack_group12_weights(folded, dtype))
-            got = rg.fused_group12(x, w)
+            stream = rg.group12_conv_stream(w) if dtype == bf16 else None
+            got = rg.fused_group12(x, w, stream)
             torch.cuda.synchronize()
             want = rg.fused_group12_reference(x, w)
             err = compare("fused_group12", got, want, rel_tol("fused_group12", dtype, want),
@@ -273,32 +355,73 @@ def check_kernels(folded, gen, dev) -> dict:
             if layout == "aligned" and dtype == bf16:
                 errors["normalize_blocks"] = err
 
-    d_in, d_hid, _ = HEAD  # K4 forward at a head's first layer, ragged M
-    data = (torch.randn(RAGGED, d_in, generator=gen),
-            torch.randn(d_in, d_hid, generator=gen) / math.sqrt(d_in),
-            torch.randn(d_hid, generator=gen))
-    for dtype in (f32, bf16):
-        x, w = data[0].to(dev, dtype), data[1].to(dev, dtype)
-        b = data[2].to(dev)
-        for act in ("linear", "relu", "silu", "sigmoid"):
-            got = fused_dense(x, w, b, act)
-            torch.cuda.synchronize()
-            want = fused_dense_reference(x, w, b, act)
-            err = compare("fused_dense", got, want, rel_tol("fused_dense", dtype, want),
-                          shape=[RAGGED, d_in, d_hid], act=act, dtype=str(dtype))
-            if act == "relu" and dtype == f32:
-                errors["fused_dense"] = err
-    for act in ("relu", "silu"):  # K4 backward: the custom VJP vs autograd
+    # K4 forward, ragged M: a head's two layers (tensor-core kernel; the
+    # second is 8 columns of a 64-wide tile), a (K, N) off the 16-byte rows
+    # (general kernel), and a long K
+    d_in, d_hid, d_out = HEAD
+    for k, n, acts in ((d_in, d_hid, ("linear", "relu", "silu", "sigmoid")),
+                       (d_hid, d_out, ("linear",)),
+                       (500, 250, ("linear", "relu", "silu", "sigmoid")),
+                       (4096, d_hid, ("linear",))):
+        shape = (RAGGED, k, n)
+        cpu = (torch.randn(RAGGED, k, generator=gen),
+               torch.randn(k, n, generator=gen) / math.sqrt(k),
+               torch.randn(n, generator=gen))
+        if shape == (RAGGED, d_in, d_hid):
+            data = cpu  # the backward check below reuses it
+        for dtype in (f32, bf16):
+            x, w = cpu[0].to(dev, dtype), cpu[1].to(dev, dtype)
+            b = cpu[2].to(dev)
+            fast = takes_fast_path(x, w)
+            if fast != (k % 8 == 0 and n % 8 == 0):
+                raise AssertionError(f"fused_dense {shape}: fast path {fast}")
+            for act in acts:
+                got = fused_dense(x, w, b, act)
+                torch.cuda.synchronize()
+                want = fused_dense_reference(x, w, b, act)
+                err = compare("fused_dense", got, want,
+                              rel_tol("fused_dense", dtype, want), shape=list(shape),
+                              act=act, dtype=str(dtype), tensor_cores=fast)
+                if act == "relu" and dtype == f32 and k == d_in:
+                    errors["fused_dense"] = err
+                if act == "linear" and dtype == f32:
+                    # both against a float64 product; `want` is cuBLAS fp32
+                    exact = x.double() @ w.double() + b.double()
+                    ours = (got.double() - exact).abs().max().item()
+                    library = (want.double() - exact).abs().max().item()
+                    emit("kernel_check", kernel="fused_dense_vs_float64",
+                         shape=list(shape), tensor_cores=fast, max_abs_err=ours,
+                         library_max_abs_err=library,
+                         max_abs_out=exact.abs().max().item())
+                    if fast and k == d_in and ours > library:
+                        raise AssertionError(
+                            f"fused_dense fp32 {shape}: {ours} from float64, "
+                            f"the library {library}")
+    # K4 backward: the custom VJP, and autograd through the plain version
+    # beside it, against float64 autograd, on two draws of the head's first
+    # layer. `atol_needed` is the least atol with which each would pass at
+    # GRAD_RTOL, and `between_atol_needed` what holding one to the other needs.
+    second = torch.Generator().manual_seed(SEED + 4)
+    draws = (data, (torch.randn(RAGGED, d_in, generator=second),
+                    torch.randn(d_in, d_hid, generator=second) * 0.05,
+                    torch.randn(d_hid, generator=second)))
+    for (draw, cpu), act in itertools.product(enumerate(draws), ACTS):
         grads = []
-        for fn in (fused_dense, fused_dense_reference):
-            params = [t.to(dev).requires_grad_() for t in data]
+        for fn, dtype in ((fused_dense, f32), (fused_dense_reference, f32),
+                          (lambda x, w, b, a: ACTS[a](x @ w + b), torch.float64)):
+            params = [t.to(dev, dtype).requires_grad_() for t in cpu]
             (fn(*params, act) ** 2).sum().backward()
-            grads.append([p.grad for p in params])
-        for arg, got, want in zip("xwb", *grads):
-            err = (got - want).abs().max().item()
-            emit("kernel_check", kernel="fused_dense_backward", act=act, grad=arg,
-                 max_abs_err=err, max_abs_out=want.abs().max().item(), **GRAD_TOL)
-            torch.testing.assert_close(got, want, **GRAD_TOL)
+            grads.append([p.grad.double() for p in params])
+        for arg, got, plain_grad, exact in zip("xwb", *grads):
+            def needed(grad, ref=exact):
+                return ((grad - ref).abs() - GRAD_RTOL * ref.abs()).max().item()
+            emit("kernel_check", kernel="fused_dense_backward", draw=draw, act=act,
+                 grad=arg, max_abs_err=(got - exact).abs().max().item(),
+                 plain_max_abs_err=(plain_grad - exact).abs().max().item(),
+                 atol_needed=needed(got), plain_atol_needed=needed(plain_grad),
+                 between_atol_needed=needed(got, plain_grad),
+                 max_abs_out=exact.abs().max().item(), rtol=GRAD_RTOL, atol=GRAD_ATOL[arg])
+            torch.testing.assert_close(got, exact, rtol=GRAD_RTOL, atol=GRAD_ATOL[arg])
     return errors
 
 
@@ -313,7 +436,7 @@ def check_reference(models: PipelineModels, samples: np.ndarray, dev) -> None:
     within 1e-4 and every label equal where the decision margin exceeds
     1e-3."""
     images = torch.from_numpy(samples)
-    want = make_v6_pipeline(models, stage1_threshold=THRESHOLD)(images)
+    want = make_v6_pipeline(models, stage1_threshold=THRESHOLD, device="cpu")(images)
     with torch.inference_mode():
         x = images.float() / 1023.0
         s1 = torch.sigmoid(models.stage1(x))
@@ -492,44 +615,174 @@ def kernel_api_path(models, val: Bundle, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: timing
+# Phase 6: one predict per mode
+# ---------------------------------------------------------------------------
+
+PREDICT_MODES = {  # name: (use_fused_front, use_pallas_groups)
+    "off": (False, False), "on": (True, False), "g1": ("g1", False),
+    "groups_off": (False, True), "groups_on": (True, True),
+}
+
+
+def trace_predict(predict, batch, repeats: int = 3) -> dict:
+    """Kernels per predict, device busy ms per predict (the union of the
+    kernels' intervals) and the host's launch calls per predict from a
+    ``torch.profiler`` trace of ``repeats`` predicts. The device fields are
+    None if the trace shows no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(repeats):
+            predict(batch)
+        torch.cuda.synchronize()
+    events = prof.events()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == DeviceType.CUDA)
+    launch_calls = sum(e.device_type == DeviceType.CPU and "LaunchKernel" in e.name
+                       for e in events) / repeats
+    if not spans:
+        return {"kernels_per_predict": None, "device_busy_ms": None,
+                "host_launch_calls_per_predict": launch_calls}
+    busy, (lo, hi) = 0.0, spans[0]
+    for start, end in spans[1:]:
+        if start > hi:
+            busy, lo, hi = busy + hi - lo, start, end
+        else:
+            hi = max(hi, end)
+    busy += hi - lo
+    return {"kernels_per_predict": len(spans) / repeats,
+            "device_busy_ms": busy / 1e3 / repeats,
+            "host_launch_calls_per_predict": launch_calls}
+
+
+def predict_phase(models: PipelineModels, samples: np.ndarray, dev, smi: str) -> None:
+    """CUDA-event ms of one 4,096-block bf16 predict on a batch on the card:
+    six samples per mode in ABCDE EDCBA turns (each the mean of 10 predicts;
+    ``predict_ms`` is their median), with the port's kernels launched per
+    predict and the trace's kernel count, busy time and idle share."""
+    batch = torch.from_numpy(samples[:BATCH]).to(dev)
+    predicts = {
+        name: make_v6_pipeline_folded(models, THRESHOLD, float_dtype=torch.bfloat16,
+                                      use_fused_front=front, use_pallas_groups=groups,
+                                      device=dev)
+        for name, (front, groups) in PREDICT_MODES.items()
+    }
+    for _ in range(2):  # warm-up: cuDNN plans, the allocator, the clocks
+        for predict in predicts.values():
+            for _ in range(10):
+                predict(batch)
+    names = list(predicts)
+    samples_ms = {name: [] for name in names}
+    for name in (names + names[::-1]) * 3:
+        samples_ms[name].append(time_ms(lambda: predicts[name](batch), iters=10))
+    for name in names:
+        before = dict(_build.launch_counts)
+        predicts[name](batch)
+        launched = {k: v - before[k] for k, v in _build.launch_counts.items()
+                    if v - before[k]}
+        trace = trace_predict(predicts[name], batch)
+        ms = float(np.median(samples_ms[name]))
+        busy = trace["device_busy_ms"]
+        emit("predict", mode=name, batch=BATCH, hw=HW, dtype="bfloat16", predict_ms=ms,
+             samples_ms=samples_ms[name], port_kernels_per_predict=launched,
+             idle_share=None if busy is None else max(0.0, 1.0 - busy / ms),
+             nvidia_smi=smi, **trace)
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: timing
 # ---------------------------------------------------------------------------
 
 
-def timing_cases(folded, gen, dev) -> dict:
-    """name -> (kernel call, plain call, shape note) at the main paths' shapes."""
-    bf16 = torch.bfloat16
-    cases = {}
+class TimingCase(NamedTuple):
+    kernel: str                   # a name of KERNELS
+    run: Callable                 # the kernel's wrapper
+    plain: Callable               # its plain PyTorch version
+    library: Optional[Callable]   # one PyTorch call for the same function, if any
+    n_bytes: int                  # inputs read once + outputs written once
+    flops: float                  # the function's operations on these inputs
+    dtype: torch.dtype            # the inputs' type, which picks the peak rate
+    shape: dict
+    main: bool                    # the case of the main path: the `kernels` line
+
+
+def timing_cases(folded, gen, dev) -> list:
+    """Every kernel at its main path's shape, K4 also in bf16 and K5 at the
+    other extents."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = []
     x = (torch.randint(0, 1024, (BATCH, HW, HW, 1), generator=gen).float()
          / 1023.0).to(dev, bf16)
     for name in ("fused_front", "fused_front_g1"):
         kern, plain, args = front_args(name, folded, bf16, dev)
-        cases[name] = (lambda k=kern, a=args: k(x, *a), lambda p=plain, a=args: p(x, *a),
-                       {"batch": BATCH, "hw": HW, "dtype": "bfloat16"})
-    xg = stem_output(folded, gen, BATCH, HW, dev).to(bf16)
+        cases.append(TimingCase(
+            name, lambda k=kern, a=args: k(x, *a), lambda p=plain, a=args: p(x, *a), None,
+            tensor_bytes(x, *args, kern(x, *args)),
+            BATCH * front_flops(HW, with_g1=name == "fused_front_g1"), bf16,
+            {"batch": BATCH, "hw": HW, "dtype": "bfloat16"}, True))
     wg = tuple(t.to(dev) for t in rg.pack_group12_weights(folded, bf16))
-    cases["fused_group12"] = (lambda: rg.fused_group12(xg, wg),
-                              lambda: rg.fused_group12_reference(xg, wg),
-                              {"batch": BATCH, "extent": HW // 4, "dtype": "bfloat16"})
+    stream = rg.group12_conv_stream(wg)
+    for e in (HW // 4,) + tuple(e for e in rg.EXTENTS if e != HW // 4):
+        xg = stem_output(folded, gen, BATCH, 4 * e, dev).to(bf16)
+        cases.append(TimingCase(
+            "fused_group12", lambda xg=xg: rg.fused_group12(xg, wg, stream),
+            lambda xg=xg: rg.fused_group12_reference(xg, wg), None,
+            tensor_bytes(xg, *wg, rg.fused_group12(xg, wg, stream)),
+            BATCH * group12_flops(e), bf16,
+            {"batch": BATCH, "extent": e, "dtype": "bfloat16"}, e == HW // 4))
     rng = np.random.default_rng(SEED + 2)
     frames = torch.from_numpy(pp.pad_frames(codes(rng, FRAMES), HW)).to(dev)
-    cases["tile_normalize_frames"] = (
-        lambda: pp.tile_normalize_frames(frames, HW, bf16),
-        lambda: pp.tile_normalize_reference(frames, HW, bf16),
-        {"frames": list(frames.shape), "block_size": HW, "dtype": "bfloat16"})
+    cases.append(TimingCase(
+        "tile_normalize_frames", lambda: pp.tile_normalize_frames(frames, HW, bf16),
+        lambda: pp.tile_normalize_reference(frames, HW, bf16), None,
+        tensor_bytes(frames, pp.tile_normalize_frames(frames, HW, bf16)),
+        float(frames.numel()), f32,  # one fp32 divide per value
+        {"frames": list(frames.shape), "block_size": HW, "dtype": "bfloat16"}, True))
     blocks = torch.from_numpy(codes(rng, (N_VAL, HW, HW, 1))).to(dev)
-    cases["normalize_blocks"] = (lambda: pp.normalize_blocks(blocks, bf16),
-                                 lambda: pp.normalize_blocks_reference(blocks, bf16),
-                                 {"shape": list(blocks.shape), "dtype": "bfloat16"})
+    cases.append(TimingCase(
+        "normalize_blocks", lambda: pp.normalize_blocks(blocks, bf16),
+        lambda: pp.normalize_blocks_reference(blocks, bf16), None,
+        tensor_bytes(blocks, pp.normalize_blocks(blocks, bf16)), float(blocks.numel()), f32,
+        {"shape": list(blocks.shape), "dtype": "bfloat16"}, True))
     d_in, d_hid, _ = HEAD
-    xd = torch.randn(BATCH, d_in, generator=gen).to(dev)
-    wd = (torch.randn(d_in, d_hid, generator=gen) / math.sqrt(d_in)).to(dev)
-    bd = torch.randn(d_hid, generator=gen).to(dev)
-    cases["fused_dense"] = (lambda: fused_dense(xd, wd, bd, "relu"),
-                            lambda: fused_dense_reference(xd, wd, bd, "relu"),
-                            {"shape": [BATCH, d_in, d_hid], "act": "relu",
-                             "dtype": "float32"})
+    cpu = (torch.randn(BATCH, d_in, generator=gen),
+           torch.randn(d_in, d_hid, generator=gen) / math.sqrt(d_in),
+           torch.randn(d_hid, generator=gen))
+    for dtype in (f32, bf16):  # fp32 is path c's dtype
+        xd, wd, bd = cpu[0].to(dev, dtype), cpu[1].to(dev, dtype), cpu[2].to(dev)
+        bias = bd.to(dtype)  # addmm wants one dtype
+        cases.append(TimingCase(
+            "fused_dense", lambda xd=xd, wd=wd: fused_dense(xd, wd, bd, "relu"),
+            lambda xd=xd, wd=wd: fused_dense_reference(xd, wd, bd, "relu"),
+            lambda xd=xd, wd=wd, bias=bias: torch.addmm(bias, xd, wd).relu_(),
+            tensor_bytes(xd, wd, bd, fused_dense(xd, wd, bd, "relu")),
+            2.0 * BATCH * d_in * d_hid, dtype,
+            {"shape": [BATCH, d_in, d_hid], "act": "relu",
+             "dtype": str(dtype).replace("torch.", "")}, dtype == f32))
     return cases
+
+
+def time_case(case: TimingCase, smi: str) -> dict:
+    """The case's calls in turns (plain, library, kernel, kernel, library,
+    plain), device time through a CUDA graph; the wrapper also from Python."""
+    order = [case.plain, case.library, case.run, case.run, case.library, case.plain]
+    slow = case.shape.get("extent", 0) >= 8
+    t = [None if fn is None else device_ms(fn, iters=4 if slow else 20,
+                                           replays=2 if slow else 5) for fn in order]
+    bound_ms, bound_by = bound(case.n_bytes, case.flops, case.dtype)
+    result = {
+        "ms": (t[2] + t[3]) / 2, "plain_ms": (t[0] + t[5]) / 2,
+        "library_ms": None if case.library is None else (t[1] + t[4]) / 2,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    emit("timing", kernel=case.kernel, **result, share_of_bound=bound_ms / result["ms"],
+         eager_ms=time_ms(case.run, iters=10 if slow else 50), samples_ms=t[2:4],
+         plain_samples_ms=[t[0], t[5]],
+         library_samples_ms=None if case.library is None else [t[1], t[4]],
+         bytes=case.n_bytes, flops=case.flops, nvidia_smi=smi, **case.shape)
+    return result
 
 
 def main() -> int:
@@ -544,8 +797,10 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     emit("device", nvidia_smi=smi, kind=kind, count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda)
-    if "jax" in sys.modules or "av1tpu.kernels" in sys.modules:
-        raise AssertionError("the port must not import jax or the JAX kernels")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN_MODULES)
+    if loaded:
+        raise AssertionError(f"the port must import nothing of {FORBIDDEN_MODULES}; "
+                             f"loaded: {loaded[:5]}")
 
     t0 = time.perf_counter()
     lib = _build.build_kernels()
@@ -602,17 +857,18 @@ def main() -> int:
         if launches[name] == 0:
             raise AssertionError(f"{name} was never launched by a main path")
 
+    predict_phase(plain, val.samples, dev, smi)
+
     kernels = []
-    for name, (kern, plain_fn, shape) in timing_cases(folded, gen, dev).items():
-        order = (plain_fn, kern, kern, plain_fn)  # in turns
-        t = [time_ms(fn) for fn in order]
-        ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
-        emit("timing", kernel=name, ms=ms, plain_ms=plain_ms, samples_ms=t[1:3],
-             plain_samples_ms=[t[0], t[3]], nvidia_smi=smi, **shape)
-        source, replaces = KERNELS[name]
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": errors[name], "ms": ms, "plain_ms": plain_ms})
+    for case in timing_cases(folded, gen, dev):
+        result = time_case(case, smi)
+        if case.main:
+            source, replaces = KERNELS[case.kernel]
+            kernels.append({"name": case.kernel, "route": "cuda", "source": source,
+                            "replaces": replaces, "launches": launches[case.kernel],
+                            "max_abs_err": errors[case.kernel], **result})
+    if sorted(k["name"] for k in kernels) != sorted(KERNELS):
+        raise AssertionError("the kernels line must list every kernel once")
 
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -15,7 +15,12 @@ from av1tpu_torch.kernels import _build
 from av1tpu_torch.kernels import fused_front as ff
 from av1tpu_torch.kernels import preprocess as pp
 from av1tpu_torch.kernels import resnet_group as rg
-from av1tpu_torch.kernels.fused_dense import fused_dense, fused_dense_reference
+from av1tpu_torch.kernels.fused_dense import (
+    ACTS,
+    fused_dense,
+    fused_dense_reference,
+    takes_fast_path,
+)
 from av1tpu_torch.models import Stage1Model
 from av1tpu_torch.quant.ptq import fold_backbone
 
@@ -123,7 +128,8 @@ def test_group12_matches_plain_version(card, folded, e, dtype):
                            torch.float32)
     x = ff.fused_front_reference(img, *(t.to(card) for t in stem)).to(dtype)
     weights = tuple(w.to(card) for w in rg.pack_group12_weights(folded, dtype))
-    got = _counted("fused_group12", rg.fused_group12, x, weights)
+    stream = rg.group12_conv_stream(weights) if dtype == torch.bfloat16 else None
+    got = _counted("fused_group12", rg.fused_group12, x, weights, stream)
     want = rg.fused_group12_reference(x, weights)
     tol = FP32_REL_TOL["fused_group12"] if dtype == torch.float32 else BF16_REL_TOL
     _close(got, want, tol)
@@ -163,7 +169,7 @@ def test_normalize_blocks_matches_plain_version_exactly(card, layout, dtype):
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("act", ["linear", "relu", "silu", "sigmoid"])
 def test_fused_dense_matches_plain_version(card, act, dtype):
-    """A ragged M and a K and N off the kernel's 16/64 tiles."""
+    """A ragged M and a K and N off the 16-byte rows: the general kernel."""
     gen = torch.Generator().manual_seed(3)
     x = torch.randn(RAGGED, 500, generator=gen).to(card, dtype)
     w = (torch.randn(500, 250, generator=gen) * 0.05).to(card, dtype)
@@ -174,21 +180,76 @@ def test_fused_dense_matches_plain_version(card, act, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("k, n, fast", [(512, 256, True), (4096, 256, True),
+                                        (40, 24, True), (500, 250, False),
+                                        (512, 250, False)])
+def test_fused_dense_kernels_match_plain_version(card, k, n, fast, dtype):
+    """Aligned (K, N) take the tensor-core kernel, others the general one;
+    both match the plain version at a ragged M. fp32 on the tensor cores is
+    also held to the library's distance from a float64 product."""
+    gen = torch.Generator().manual_seed(k + n)
+    x = torch.randn(RAGGED, k, generator=gen).to(card, dtype)
+    w = (torch.randn(k, n, generator=gen) / k ** 0.5).to(card, dtype)
+    b = torch.randn(n, generator=gen).to(card)
+    assert takes_fast_path(x, w) is fast
+    got = _counted("fused_dense", fused_dense, x, w, b, "linear")
+    want = fused_dense_reference(x, w, b, "linear")
+    tol = FP32_REL_TOL["fused_dense"] if dtype == torch.float32 else BF16_REL_TOL
+    _close(got, want, tol)
+    if fast and dtype == torch.float32:
+        exact = x.double() @ w.double() + b.double()
+        ours = (got.double() - exact).abs().max().item()
+        library = (want.double() - exact).abs().max().item()
+        assert ours <= 1.25 * library, (ours, library)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e", [2, 4, 8, 16])
+def test_group12_bf16_with_a_prebuilt_conv_stream(card, folded, e):
+    """The serving call: bf16, the conv stream built once. Few outputs differ
+    from the plain version at all, and none by more than the tolerance."""
+    gen = torch.Generator().manual_seed(20 + e)
+    img = (torch.randint(0, 1024, (RAGGED, 4 * e, 4 * e, 1), generator=gen).float()
+           / 1023.0).to(card)
+    stem = ff.stem_weights(folded["stem"]["weight"], folded["stem"]["bias"],
+                           torch.float32)
+    x = ff.fused_front_reference(img, *(t.to(card) for t in stem)).bfloat16()
+    weights = tuple(w.to(card) for w in rg.pack_group12_weights(folded, torch.bfloat16))
+    stream = rg.group12_conv_stream(weights)
+    got = _counted("fused_group12", rg.fused_group12, x, weights, stream)
+    want = rg.fused_group12_reference(x, weights)
+    _close(got, want, BF16_REL_TOL)
+    assert (got != want).float().mean().item() < 0.02
+    for bad in (None, stream[:-8]):
+        with pytest.raises(ValueError, match="conv_stream"):
+            rg.fused_group12(x, weights, bad)
+
+
+GRAD_ATOL = {"x": 1e-4, "w": 5e-4, "b": 1e-4}
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("act", ["linear", "relu", "silu", "sigmoid"])
 def test_fused_dense_gradients_match_autograd(card, act):
-    """Gradients of sum(out ** 2), fp32: the custom backward against
-    autograd through the plain version (tolerances of tests/test_kernels.py)."""
+    """Gradients of sum(out ** 2), fp32: the custom backward against float64
+    autograd, at rtol 1e-3 / atol 1e-4 (tests/test_kernels.py). dW alone gets
+    atol 5e-4: it is a torch fp32 product over 4099 rows in both paths, and
+    at entries near zero that sum alone is 0.9e-4 (this path) to 2.4e-4
+    (autograd through the plain version) from float64 on an H100."""
     gen = torch.Generator().manual_seed(4)
     data = (torch.randn(RAGGED, 512, generator=gen),
             torch.randn(512, 256, generator=gen) * 0.05,
             torch.randn(256, generator=gen))
     grads = []
-    for fn in (fused_dense, fused_dense_reference):
-        params = [t.to(card).requires_grad_() for t in data]
+    for fn, dtype in ((fused_dense, torch.float32),
+                      (lambda x, w, b, a: ACTS[a](x @ w + b), torch.float64)):
+        params = [t.to(card, dtype).requires_grad_() for t in data]
         (fn(*params, act) ** 2).sum().backward()
-        grads.append([p.grad for p in params])
-    for got, want in zip(*grads):
-        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
+        grads.append([p.grad.double() for p in params])
+    for arg, got, exact in zip("xwb", *grads):
+        torch.testing.assert_close(got, exact, rtol=1e-3, atol=GRAD_ATOL[arg])
 
 
 @pytest.mark.cuda

@@ -1,0 +1,183 @@
+"""The port stands alone: it imports nothing of jax, flax or the JAX package
+``av1tpu``, keeps its own copies of the codec tables and the dataset bundles
+(equal to the JAX package's, and readable by it), and runs on the card
+unless the caller asks for the CPU.
+"""
+import inspect
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from av1tpu.codec import partitions as jax_partitions
+from av1tpu.data import bundles as jax_bundles
+from av1tpu_torch.codec import partitions as port_partitions
+from av1tpu_torch.data import bundles as port_bundles
+from av1tpu.data.records import BlockSet as JaxBlockSet
+from av1tpu_torch.data.records import NORM_10BIT
+from av1tpu_torch.eval import make_v6_pipeline, make_v6_pipeline_folded, run_pipeline_batched
+
+ROOT = Path(__file__).resolve().parents[1]
+
+PROBE = """
+import importlib, json, pkgutil, sys
+sys.path.insert(0, {root!r})
+import av1tpu_torch
+names = ["av1tpu_torch"] + [m.name for m in pkgutil.walk_packages(
+    av1tpu_torch.__path__, "av1tpu_torch.")]
+for name in names + ["chip_smoke"]:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "av1tpu"))
+print(json.dumps({{"imported": len(names) + 1, "bad": bad}}))
+"""
+
+
+def test_fresh_interpreter_imports_the_port_without_jax_or_av1tpu():
+    """Every module under ``av1tpu_torch`` and ``chip_smoke`` (not run)."""
+    out = subprocess.run([sys.executable, "-c", PROBE.format(root=str(ROOT))],
+                         capture_output=True, text=True, cwd=ROOT, timeout=600)
+    assert out.returncode == 0, out.stderr[-2000:]
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report["imported"] >= 25
+    assert report["bad"] == []
+
+
+def test_no_source_line_imports_jax_or_av1tpu():
+    pattern = re.compile(r"^\s*(from|import)\s+(av1tpu\b|jax|flax)")
+    files = sorted((ROOT / "av1tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) >= 25
+    hits = [f"{f.relative_to(ROOT)}:{i}" for f in files
+            for i, line in enumerate(f.read_text().splitlines(), 1) if pattern.match(line)]
+    assert hits == []
+
+
+MAPS = ["map_to_stage1", "map_to_stage2_v5", "map_to_stage2_v6", "map_to_stage3_v5",
+        "map_to_stage3_v6", "map_to_flatten", "raw_to_v6_final"]
+
+
+def _same(got, want):
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want)
+        for key in want:
+            _same(got[key], want[key])
+    elif isinstance(want, tuple):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            _same(g, w)
+    else:
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("name", MAPS)
+def test_partition_maps_equal_the_jax_package(name):
+    """On every raw label value, and on a seeded array of them."""
+    every = np.arange(port_partitions.NUM_PARTITION_MODES)
+    seeded = np.random.default_rng(11).integers(0, 10, size=(257,))
+    for ids in (every, seeded):
+        _same(getattr(port_partitions, name)(ids), getattr(jax_partitions, name)(ids))
+
+
+def test_flatten_to_raw_equals_the_jax_package():
+    ids = np.random.default_rng(12).integers(0, 7, size=(100,))
+    _same(port_partitions.flatten_to_raw(ids), jax_partitions.flatten_to_raw(ids))
+
+
+def test_partition_maps_take_torch_tensors():
+    import torch
+
+    ids = np.random.default_rng(13).integers(0, 10, size=(64,))
+    got = port_partitions.raw_to_v6_final(torch.from_numpy(ids))
+    assert isinstance(got, torch.Tensor)
+    np.testing.assert_array_equal(got.numpy(), port_partitions.raw_to_v6_final(ids))
+
+
+def test_partition_tables_and_names_equal_the_jax_package():
+    assert port_partitions.__all__ == jax_partitions.__all__
+    for name in port_partitions.__all__:
+        got, want = getattr(port_partitions, name), getattr(jax_partitions, name)
+        if callable(want):
+            continue
+        if isinstance(want, np.ndarray):
+            _same(got, want)
+        elif isinstance(want, dict) and want and isinstance(
+                next(iter(want.values())), np.ndarray):
+            _same(got, want)
+        else:
+            assert got == want, name
+
+
+def _record(seed, n=48, bs=16):
+    rng = np.random.default_rng(seed)
+    return dict(samples=rng.integers(0, 1024, size=(n, bs, bs, 1), dtype=np.uint16),
+                labels=rng.integers(0, 10, size=n).astype(np.int32),
+                qps=rng.integers(20, 200, size=n).astype(np.int32))
+
+
+def _v6_bundle(seed, n=48):
+    """A port Bundle with the label views of the JAX package's ``build_v6_bundle``."""
+    built = jax_bundles.build_v6_bundle(JaxBlockSet(**_record(seed, n)))
+    return port_bundles.Bundle(samples=built.samples, qps=built.qps,
+                               labels=dict(built.labels))
+
+
+def test_v6_bundle_equals_the_jax_package():
+    """The v6 label views made with the port's maps equal ``build_v6_bundle``'s."""
+    rec = _record(21)
+    want = jax_bundles.build_v6_bundle(JaxBlockSet(**rec))
+    stage2, _ = port_partitions.map_to_stage2_v6(rec["labels"])
+    stage3 = port_partitions.map_to_stage3_v6(rec["labels"])
+    views = {"stage0": rec["labels"], "stage1": port_partitions.map_to_stage1(rec["labels"]),
+             "stage2": stage2, "stage3_RECT": stage3["RECT"], "stage3_AB": stage3["AB"]}
+    got = port_bundles.Bundle(samples=rec["samples"], qps=rec["qps"],
+                              labels={k: v.astype(np.int32) for k, v in views.items()})
+    assert sorted(got.labels) == sorted(want.labels)
+    for key in want.labels:
+        _same(got.labels[key], want.labels[key])
+    _same(got.samples, want.samples)
+    _same(got.qps, want.qps)
+    assert NORM_10BIT == 1023.0
+
+
+@pytest.mark.parametrize("writer, reader", [("port", "jax"), ("jax", "port")])
+def test_split_saved_by_one_package_loads_in_the_other(tmp_path, writer, reader):
+    mods = {"port": port_bundles, "jax": jax_bundles}
+    train, val = _v6_bundle(31), _v6_bundle(32, n=24)
+    w, r = mods[writer], mods[reader]
+    as_w = lambda b: w.Bundle(samples=b.samples, qps=b.qps, labels=dict(b.labels))
+    root = w.save_split(tmp_path, 16, as_w(train), as_w(val), "v6")
+    for name, want in (("train", train), ("val", val)):
+        got = r.Bundle.load(root / f"{name}.npz")
+        assert len(got) == len(want)
+        _same(got.samples, want.samples)
+        _same(got.qps, want.qps)
+        assert sorted(got.labels) == sorted(want.labels)
+        for key in want.labels:
+            _same(got.labels[key], want.labels[key])
+        _same(got.take(np.arange(5)).samples, want.samples[:5])
+    meta = json.loads((root / "metadata.json").read_text())
+    as_r = lambda b: r.Bundle(samples=b.samples, qps=b.qps, labels=dict(b.labels))
+    assert meta == json.loads(json.dumps(
+        r.bundle_metadata(as_r(train), as_r(val), "v6", 16), sort_keys=True))
+
+
+@pytest.mark.parametrize("fn", [make_v6_pipeline, run_pipeline_batched,
+                                make_v6_pipeline_folded],
+                         ids=lambda f: f.__name__)
+def test_entry_points_default_to_the_card(fn):
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_asking_for_the_card_without_one_raises():
+    """Nothing carries on on the CPU."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    predict = lambda x: {"final": x}
+    with pytest.raises((RuntimeError, AssertionError)):
+        run_pipeline_batched(predict, np.zeros((4, 16, 16, 1), np.uint16), batch_size=2)

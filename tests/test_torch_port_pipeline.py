@@ -79,7 +79,8 @@ BUILDERS = {
     "plain": (
         lambda m: jax_plain(m, stage1_threshold=STAGE1_THRESHOLD,
                             input_dtype=jnp.float32),
-        lambda m: make_v6_pipeline(m, stage1_threshold=STAGE1_THRESHOLD),
+        lambda m: make_v6_pipeline(m, stage1_threshold=STAGE1_THRESHOLD,
+                                   device="cpu"),
     ),
     **{
         f"folded_{name}{'_groups' if groups else ''}": (
@@ -113,8 +114,8 @@ def test_batched_run_with_ragged_tail_equals_one_batch(setup):
     _, port_models, images, _ = setup
     predict = make_v6_pipeline_folded(port_models, float_dtype=torch.float32,
                                       use_fused_front="g1", device="cpu")
-    whole = run_pipeline_batched(predict, images, batch_size=N)
-    parts = run_pipeline_batched(predict, images, batch_size=100)
+    whole = run_pipeline_batched(predict, images, batch_size=N, device="cpu")
+    parts = run_pipeline_batched(predict, images, batch_size=100, device="cpu")
     for key in whole:
         np.testing.assert_allclose(parts[key], whole[key], atol=1e-6, rtol=0)
 
@@ -126,7 +127,7 @@ def test_batched_run_with_ragged_tail_equals_one_batch(setup):
 ])
 def test_unported_pipeline_options_raise(setup, option, item):
     with pytest.raises(NotImplementedError, match=item):
-        make_v6_pipeline(setup[1], **option)
+        make_v6_pipeline(setup[1], device="cpu", **option)
 
 
 def test_unported_folded_options_raise(setup):
