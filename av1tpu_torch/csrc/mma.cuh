@@ -1,5 +1,5 @@
-// Tensor-core building blocks shared by K4 (fused_dense.cu) and K5
-// (resnet_group.cu): cp.async 16-byte copies with commit/wait groups,
+// Tensor-core building blocks shared by K1 and K2 (fused_front.cu), K4
+// (fused_dense.cu) and K5 (resnet_group.cu): cp.async 16-byte copies with commit/wait groups,
 // ldmatrix fragment loads, the bf16 mma.sync.m16n8k16 with fp32 accumulators,
 // and the split of an fp32 value into bf16 pieces.
 //

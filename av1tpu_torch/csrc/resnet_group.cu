@@ -21,7 +21,8 @@
 // not fit in shared memory and every block streams them from L2.
 //
 // bf16 (the serving dtype): fused_group12_mma_kernel, tensor cores.
-//   * Every conv is an implicit GEMM on mma.sync.m16n8k16 (mma.cuh; picked
+//   * Every conv is an implicit GEMM on mma.sync.m16n8k16 (conv_mma.cuh, the
+//     routine K2 shares, over mma.cuh; picked
 //     over wgmma because its A operand comes from ldmatrix with one address
 //     per row, which is what the shifted windows need, and because layer 2
 //     has only 64 rows a block, one wgmma tile). Rows are (sample, output
@@ -74,15 +75,21 @@
 //     registers as layer2_0's second conv.
 
 #include "common.cuh"
-#include "mma.cuh"
+#include "conv_mma.cuh"
 
 namespace {
 
 using av1::from_f;
 using av1::ldg_f;
 using av1::to_f;
+using av1::conv::bf16;
+using av1::conv::conv_mma;
+using av1::conv::fetch_chunk;
+using av1::conv::for_each_pair;
+using av1::conv::KC;
+using av1::conv::THREADS;
+using av1::conv::zero_acc;
 
-constexpr int THREADS = 256;
 constexpr int C1 = 64, C2 = 128;  // layer-1 and layer-2 widths
 constexpr int SE1_H = C1 / 16, SE2_H = C2 / 16;
 constexpr int MAX_RT = 16;        // rows per tile
@@ -375,135 +382,38 @@ int launch_group12(const void* x, const Weights& w, void* out, int batch,
 // bf16: the tensor-core kernel
 // ---------------------------------------------------------------------------
 
-using bf16 = __nv_bfloat16;
-
 constexpr int ROWS1 = 256, ROWS2 = 64;  // output rows of a block in layers 1 and 2
 constexpr int PITCH1 = C1 + 8;          // plane row pitch in layer 1 (elements)
 constexpr int PITCH2 = C2 + 8;          // ... in layer 2
 constexpr int PLANE = ROWS1 * PITCH1;   // elements of one plane
-constexpr int KC = 64;                  // k rows of a weight chunk
-constexpr int WPITCH = C2 + 8;          // ring row pitch
-constexpr int SLOT = KC * WPITCH;       // elements of a ring slot
-constexpr int STAGES = 3;
-constexpr int CHUNKS1 = 4 * 9;                  // layer 1: four 576 x 64 convs
-constexpr int CHUNKS = CHUNKS1 + 9 + 19 + 36;   // + layer 2: 100 in all
-constexpr int ZERO_ROW = PITCH2;                // elements of the shared zero row
-constexpr size_t MMA_SMEM = sizeof(bf16) * (4 * PLANE + STAGES * SLOT + ZERO_ROW);
+constexpr int CHUNKS1 = 4 * 9;          // layer 1: four 576 x 64 convs
+
+// The conv stream (kernels/resnet_group.py group12_conv_stream) as the conv
+// routine's schedule: 36 chunks of 64 columns, then layer 2's 64 of 128.
+struct Stream12 {
+  static constexpr int STAGES = 3;
+  static constexpr int CHUNKS = CHUNKS1 + 9 + 19 + 36;  // 100 in all
+  static constexpr int WPITCH = C2 + 8;                 // ring row pitch
+  static constexpr int SLOT = KC * WPITCH;              // elements of a ring slot
+  __device__ static constexpr int cols(int c) { return c < CHUNKS1 ? C1 : C2; }
+  __device__ static constexpr int offset(int c) {
+    return c < CHUNKS1 ? c * KC * C1 : CHUNKS1 * KC * C1 + (c - CHUNKS1) * KC * C2;
+  }
+};
+constexpr int ZERO_ROW = PITCH2;  // elements of the shared zero row
+constexpr size_t MMA_SMEM =
+    sizeof(bf16) * (4 * PLANE + Stream12::STAGES * Stream12::SLOT + ZERO_ROW);
 static_assert(ROWS2 * PITCH2 <= PLANE, "layer 2 reuses layer 1's planes");
 
-// Chunk c of the weight stream into its ring slot, as one cp.async group
-// (an empty group past the end, so that the group count stays in step).
-__device__ __forceinline__ void fetch_chunk(const bf16* __restrict__ stream, bf16* ring,
-                                            int c) {
-  if (c < CHUNKS) {
-    const int n = c < CHUNKS1 ? C1 : C2;
-    const bf16* src = stream + (c < CHUNKS1 ? c * KC * C1
-                                            : CHUNKS1 * KC * C1 + (c - CHUNKS1) * KC * C2);
-    bf16* dst = ring + (c % STAGES) * SLOT;
-    const int per_row = n / 8;
-    for (int i = threadIdx.x; i < KC * per_row; i += THREADS) {
-      const int row = i / per_row, col = (i % per_row) * 8;
-      av1::cp_async16(av1::smem_addr(dst + row * WPITCH + col), src + row * n + col);
-    }
-  }
-  av1::cp_async_commit();
-}
-
-// The shared-memory addresses (hi and lo plane) of the input row that tap
-// (dy, dx) of output row r reads: input extent IE at pitch IP, output extent
-// OE, stride S. A tap outside the image reads the zero row.
-template <int IE, int OE, int S, int IP>
-__device__ __forceinline__ void tap_row(int r, int dy, int dx, uint32_t in_hi, uint32_t in_lo,
-                                        uint32_t zero, uint32_t& hi, uint32_t& lo) {
-  constexpr int OP = OE * OE;
-  const int s = r / OP, p = r % OP;
-  const int iy = (p / OE) * S + dy, ix = (p % OE) * S + dx;
-  const bool inside = unsigned(iy) < unsigned(IE) && unsigned(ix) < unsigned(IE);
-  const uint32_t off = uint32_t((s * IE * IE + iy * IE + ix) * IP) * sizeof(bf16);
-  hi = inside ? in_hi + off : zero;
-  lo = inside ? in_lo + off : zero;
-}
-
-// acc += a conv with TAPS taps of CI input channels, for this warp's MT
-// m-tiles from output row `row0` and its 64 columns from `n0`; its weights
-// are chunks c0 .. c0 + TAPS * CI / 64 - 1 of the stream. Every thread of the
-// block calls this with the same c0: the chunk loop holds the barriers.
+// A conv on the two planes (hi, lo) of an activation, weights from Stream12.
 template <int IE, int OE, int S, int CI, int IP, int TAPS, int MT>
-__device__ __forceinline__ void conv_mma(float (&acc)[MT][8][4], uint32_t in_hi,
-                                         uint32_t in_lo, uint32_t zero, int row0, int n0,
-                                         const bf16* __restrict__ stream, bf16* ring, int c0,
-                                         int lane) {
-  constexpr int PER_TAP = CI / KC;
-  const int r16 = lane % 16;
-  const uint32_t kb = 16 * (lane / 16);  // bytes: 8 elements along k (A) or n (B)
-#pragma unroll 1
-  for (int j = 0; j < TAPS * PER_TAP; ++j) {
-    const int c = c0 + j;
-    av1::cp_async_wait<STAGES - 2>();  // chunk c has landed
-    __syncthreads();                   // ... for every thread; chunk c-1 is consumed
-    fetch_chunk(stream, ring, c + STAGES - 1);
-    const int tap = j / PER_TAP;
-    const int dy = TAPS == 1 ? 0 : tap / 3 - (S == 1 ? 1 : 0);
-    const int dx = TAPS == 1 ? 0 : tap % 3 - (S == 1 ? 1 : 0);
-    uint32_t a_hi[MT], a_lo[MT];
-#pragma unroll
-    for (int mi = 0; mi < MT; ++mi) {
-      tap_row<IE, OE, S, IP>(row0 + mi * 16 + r16, dy, dx, in_hi, in_lo, zero, a_hi[mi],
-                             a_lo[mi]);
-      const uint32_t k_off = uint32_t((j % PER_TAP) * KC) * sizeof(bf16) + kb;
-      a_hi[mi] += k_off;
-      a_lo[mi] += k_off;
-    }
-    const uint32_t w = av1::smem_addr(ring + (c % STAGES) * SLOT) +
-                       uint32_t(r16 * WPITCH + n0) * sizeof(bf16) + kb;
-#pragma unroll
-    for (int kk = 0; kk < KC / 16; ++kk) {
-      uint32_t ah[MT][4], al[MT][4];
-#pragma unroll
-      for (int mi = 0; mi < MT; ++mi) {
-        av1::ldmatrix_x4(ah[mi], a_hi[mi] + kk * 32);
-        av1::ldmatrix_x4(al[mi], a_lo[mi] + kk * 32);
-      }
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        uint32_t b[4];
-        av1::ldmatrix_x4_trans(b, w + uint32_t(kk * 16 * WPITCH + nj * 16) * sizeof(bf16));
-#pragma unroll
-        for (int mi = 0; mi < MT; ++mi) {
-          av1::mma_bf16(acc[mi][2 * nj], al[mi], b[0], b[1]);
-          av1::mma_bf16(acc[mi][2 * nj], ah[mi], b[0], b[1]);
-          av1::mma_bf16(acc[mi][2 * nj + 1], al[mi], b[2], b[3]);
-          av1::mma_bf16(acc[mi][2 * nj + 1], ah[mi], b[2], b[3]);
-        }
-      }
-    }
-  }
-}
-
-// f(row, col, v0, v1) for every pair of neighbouring columns this thread
-// holds of its warp's accumulators.
-template <int MT, class F>
-__device__ __forceinline__ void for_each_pair(const float (&acc)[MT][8][4], int row0, int n0,
-                                              int lane, F f) {
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        f(row0 + mi * 16 + g + 8 * h, n0 + ni * 8 + 2 * t, acc[mi][ni][2 * h],
-          acc[mi][ni][2 * h + 1]);
-}
-
-template <int MT>
-__device__ __forceinline__ void zero_acc(float (&acc)[MT][8][4]) {
-#pragma unroll
-  for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0.f;
+__device__ __forceinline__ void conv12(float (&acc)[MT][8][4], const bf16* in_hi,
+                                       const bf16* in_lo, uint32_t zero, int row0, int n0,
+                                       const bf16* __restrict__ stream, bf16* ring, int c0,
+                                       int lane) {
+  const uint32_t in[2] = {av1::smem_addr(in_hi), av1::smem_addr(in_lo)};
+  conv_mma<Stream12, IE, OE, S, CI, IP, TAPS, MT, 2>(acc, in, zero, row0, n0, stream, ring, c0,
+                                                     lane);
 }
 
 // the pair at element `idx` of an activation: hi + lo
@@ -530,15 +440,14 @@ __device__ __forceinline__ void block_s1_mma(bf16* a_hi, bf16* a_lo, bf16* h_hi,
   constexpr int PER_CONV = 9 * CH / KC;
   float acc[MT][8][4];
   zero_acc(acc);
-  conv_mma<EXT, EXT, 1, CH, IP, 9, MT>(acc, av1::smem_addr(a_hi), av1::smem_addr(a_lo), zero,
-                                       row0, n0, stream, ring, c0, lane);
+  conv12<EXT, EXT, 1, CH, IP, 9, MT>(acc, a_hi, a_lo, zero, row0, n0, stream, ring, c0, lane);
   for_each_pair(acc, row0, n0, lane, [&](int row, int col, float v0, float v1) {
     store_pair(h_hi, h_lo, row * IP + col, fmaxf(v0 + ldg_f(b1 + col), 0.f),
                fmaxf(v1 + ldg_f(b1 + col + 1), 0.f));
   });
   zero_acc(acc);
-  conv_mma<EXT, EXT, 1, CH, IP, 9, MT>(acc, av1::smem_addr(h_hi), av1::smem_addr(h_lo), zero,
-                                       row0, n0, stream, ring, c0 + PER_CONV, lane);
+  conv12<EXT, EXT, 1, CH, IP, 9, MT>(acc, h_hi, h_lo, zero, row0, n0, stream, ring,
+                                     c0 + PER_CONV, lane);
   for_each_pair(acc, row0, n0, lane, [&](int row, int col, float v0, float v1) {
     const float2 res = load_pair(a_hi, a_lo, row * IP + col);
     store_pair(a_hi, a_lo, row * IP + col, fmaxf(v0 + ldg_f(b2 + col) + res.x, 0.f),
@@ -595,7 +504,7 @@ fused_group12_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ st
   bf16* h_hi = a_lo + PLANE;                       // mid-block activation; SE scratch
   bf16* h_lo = h_hi + PLANE;
   bf16* ring = h_lo + PLANE;
-  bf16* zero_row = ring + STAGES * SLOT;
+  bf16* zero_row = ring + Stream12::STAGES * Stream12::SLOT;
   float* gate = reinterpret_cast<float*>(h_hi);    // SPB x C2 at most, then SPB x SE2_H
   const uint32_t zero = av1::smem_addr(zero_row);
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -611,8 +520,8 @@ fused_group12_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ st
                     ok ? 16 : 0);
   }
   av1::cp_async_commit();
-  fetch_chunk(stream, ring, 0);
-  fetch_chunk(stream, ring, 1);
+  fetch_chunk<Stream12>(stream, ring, 0);
+  fetch_chunk<Stream12>(stream, ring, 1);
   for (int i = threadIdx.x; i < PLANE / 8; i += THREADS)
     reinterpret_cast<uint4*>(a_lo)[i] = make_uint4(0, 0, 0, 0);
   for (int i = threadIdx.x; i < ZERO_ROW / 2; i += THREADS)
@@ -643,18 +552,18 @@ fused_group12_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ st
     // registers; their sum replaces a once nothing reads group 1's output
     float acc[1][8][4];
     zero_acc(acc);
-    conv_mma<E, E2, 2, C1, PITCH1, 9, 1>(acc, av1::smem_addr(a_hi), av1::smem_addr(a_lo), zero,
-                                         row0, n0, stream, ring, CHUNKS1, lane);
+    conv12<E, E2, 2, C1, PITCH1, 9, 1>(acc, a_hi, a_lo, zero, row0, n0, stream, ring, CHUNKS1,
+                                       lane);
     const bf16* b1 = wp<bf16>(wt, L20_B1);
     for_each_pair(acc, row0, n0, lane, [&](int row, int col, float v0, float v1) {
       store_pair(h_hi, h_lo, row * PITCH2 + col, fmaxf(v0 + ldg_f(b1 + col), 0.f),
                  fmaxf(v1 + ldg_f(b1 + col + 1), 0.f));
     });
     zero_acc(acc);
-    conv_mma<E2, E2, 1, C2, PITCH2, 9, 1>(acc, av1::smem_addr(h_hi), av1::smem_addr(h_lo), zero,
-                                          row0, n0, stream, ring, CHUNKS1 + 9, lane);
-    conv_mma<E, E2, 2, C1, PITCH1, 1, 1>(acc, av1::smem_addr(a_hi), av1::smem_addr(a_lo), zero,
-                                         row0, n0, stream, ring, CHUNKS1 + 27, lane);
+    conv12<E2, E2, 1, C2, PITCH2, 9, 1>(acc, h_hi, h_lo, zero, row0, n0, stream, ring,
+                                        CHUNKS1 + 9, lane);
+    conv12<E, E2, 2, C1, PITCH1, 1, 1>(acc, a_hi, a_lo, zero, row0, n0, stream, ring,
+                                       CHUNKS1 + 27, lane);
     __syncthreads();  // the last read of group 1's output
     const bf16* b2 = wp<bf16>(wt, L20_B2);
     const bf16* bd = wp<bf16>(wt, L20_DSB);

@@ -6,6 +6,21 @@ K2 ``fused_front_g1`` replaces ``make_fused_front_g1``: K1, then both
 layer-1 blocks and SE1. Both map NHWC ``(B, hw, hw, 1)`` to
 ``(B, hw/4, hw/4, 64)`` for hw in {8, 16}, in fp32 or bf16.
 
+On an H100 K2 is bound by operations (four 64x64 3x3 convs per pooled
+position, ~2000 FLOP per byte of device memory) and K1 by bytes (its output).
+In bf16, the serving dtype, both CUDA kernels therefore run on the tensor
+cores: the stem as an implicit GEMM whose K axis is the 7x7 window laid out as
+8 rows of 8 taps (:func:`stem_gemm_weight`, :func:`stem_gemm_index`), and K2's
+four convs through the conv routine it shares with K5 (``csrc/conv_mma.cuh``),
+reading ``conv_w`` as a stream of 36 chunks of 64 k-rows. In fp32, the parity
+mode, both run direct convolutions on the CUDA cores.
+
+Numerics follow the TPU kernels: every sum and every bias add is fp32. K2
+keeps fp32 between its stages and rounds to the weight dtype wherever the TPU
+kernel casts a matmul operand: each conv input, and in SE1 the block output
+before the spatial mean, the mean, the hidden vector, the gate, and the two SE
+matrices. In fp32 each of those casts is the identity.
+
 Each wrapper runs its plain PyTorch twin (``*_reference``) only for a
 tensor on the CPU; for a CUDA tensor it launches the kernel or raises. A
 launch adds one to ``launch_counts[name]`` (a view of ``_build.launch_counts``).
@@ -13,7 +28,8 @@ launch adds one to ``launch_counts[name]`` (a view of ``_build.launch_counts``).
 Weight layouts the kernels take: stem ``(49, 64)`` tap-major, in the
 activation dtype; layer-1 convs ``(4, 9, 64, 64)`` as [conv][tap][ci][co]
 in the activation dtype; biases ``(64,)`` / ``(4, 64)`` fp32; SE1 ``d0``
-``(4, 64)`` and ``d1`` ``(64, 4)`` fp32 (Linear layouts).
+``(4, 64)`` and ``d1`` ``(64, 4)`` fp32 (Linear layouts) holding values of
+the activation dtype (:func:`g1_weights` rounds them once).
 """
 from __future__ import annotations
 
@@ -59,21 +75,25 @@ def fused_front_reference(x, stem_w, stem_b):
 
 
 def fused_front_g1_reference(x, stem_w, stem_b, conv_w, conv_b, se_d0, se_d1):
-    """Plain K2: K1, layer1_0, layer1_1, SE1. fp32 between stages; each
-    conv input rounded to the weight dtype."""
+    """Plain K2: K1, layer1_0, layer1_1, SE1. fp32 between stages and in every
+    sum; each matmul operand rounded to the weight dtype, as the TPU kernel
+    casts it."""
     z = _stem_pool_f32(x, stem_w, stem_b)
+
+    def rnd(a):
+        return a.to(conv_w.dtype).float()
 
     def conv(a, i):
         w = conv_w[i].float().reshape(3, 3, C, C).permute(3, 2, 0, 1)
-        a = a.to(conv_w.dtype).float()
-        return F.conv2d(a, w, padding=1) + conv_b[i].float()[None, :, None, None]
+        return F.conv2d(rnd(a), w, padding=1) + conv_b[i].float()[None, :, None, None]
 
     for first in (0, 2):
         h = torch.relu(conv(z, first))
         z = torch.relu(conv(h, first + 1) + z)
-    s = torch.relu(z.mean(dim=(2, 3)) @ se_d0.float().T)
-    s = torch.sigmoid(s @ se_d1.float().T)
-    z = z * s[:, :, None, None]
+    mean = rnd(z).mean(dim=(2, 3))
+    s = torch.relu(rnd(mean) @ rnd(se_d0).T)
+    s = torch.sigmoid(rnd(s) @ rnd(se_d1).T)
+    z = z * rnd(s)[:, :, None, None]
     return z.permute(0, 2, 3, 1).to(x.dtype).contiguous()
 
 
@@ -178,9 +198,30 @@ def g1_weights(folded, float_dtype):
     return (
         *stem_weights(folded["stem"]["weight"], folded["stem"]["bias"], float_dtype),
         conv_w, conv_b,
-        se["d0"].detach().float().contiguous(),
-        se["d1"].detach().float().contiguous(),
+        # fp32 arrays of float_dtype values: the TPU kernel holds them in float_dtype
+        se["d0"].detach().to(float_dtype).float().contiguous(),
+        se["d1"].detach().to(float_dtype).float().contiguous(),
     )
+
+
+def stem_gemm_weight(stem_w):
+    """The ``(49, 64)`` stem kernel as the 64 x 64 B operand that the bf16
+    kernels build in shared memory: the 7x7 window as 8 rows of 8 taps, row
+    ``8 * dy + dx + 1`` holding tap ``(dy, dx)``; the 15 rows with
+    ``dx + 1 == 0`` or ``dy == 7`` are zero."""
+    w = stem_w.new_zeros(8, 8, C)
+    w[:7, 1:] = stem_w.reshape(7, 7, C)
+    return w.reshape(64, C)
+
+
+def stem_gemm_index(hw: int):
+    """``(hw/2 * hw/2, 64)`` int64: for conv position ``(cy, cx)`` (row) and
+    GEMM column ``k``, the element ``(2 * cy + k // 8, 2 * cx + k % 8)`` of a
+    sample's tile that the bf16 kernels read. The tile is ``hw + 6`` rows of
+    ``hw + 8`` values: the pixels from row 3, column 4, inside zeros."""
+    co = hw // 2
+    pos, k = torch.arange(co * co)[:, None], torch.arange(64)[None, :]
+    return (2 * (pos // co) + k // 8) * (hw + 8) + 2 * (pos % co) + k % 8
 
 
 def _for_extent(fn, hw, float_dtype, args) -> Callable:
@@ -218,6 +259,8 @@ __all__ = [
     "make_fused_front",
     "make_fused_front_g1",
     "reset_launch_counts",
+    "stem_gemm_index",
+    "stem_gemm_weight",
     "stem_weights",
     "supports_extent",
 ]

@@ -6,11 +6,14 @@
 Run from the root of a checkout. Phases, one JSON line each:
   1. device: ``nvidia-smi`` name and power limit, the torch device name;
   2. build: nvcc builds the kernels from ``av1tpu_torch/csrc``, one process
-     per source, all started together;
+     per source, all started together; the registers and spill bytes ptxas
+     reports for each fused kernel;
   3. kernel checks, each kernel against its plain PyTorch version on the
-     card, fp32 (TF32 off) and bf16: K1 and K2 at 8 and 16 px and K5 at
-     extents 2-16 (8-64 px blocks), batch 4099, with the share of output
-     elements that differ at all; K3a on three padded 1080p frames at bs 16
+     card, fp32 (TF32 off) and bf16, with the share of output elements that
+     differ at all: K1 and K2 at 8 and 16 px on batches of 1, 255 and 4099
+     and on a 4099-block view that starts one value into its buffer (off the
+     16-byte grid of the bf16 kernels' loads); K5 at extents 2-16 (8-64 px
+     blocks), batch 4099; K3a on three padded 1080p frames at bs 16
      and 64 and K3b on 4099 blocks (bit-exact); K4 forward for each
      activation at (4099, 512) x (512, 256), at a head's second layer
      (256, 8), at an unaligned (500, 250) that takes the general kernel and
@@ -38,9 +41,10 @@ Run from the root of a checkout. Phases, one JSON line each:
      off / on, in ABCDE EDCBA turns, and from a ``torch.profiler`` trace the
      kernels launched per predict, the device's busy time and idle share;
   7. timing: each kernel, its plain version and, for K4, one library call
-     (``torch.addmm`` + ``relu_``) in turns at the main paths' shapes, K4 in
-     fp32 and bf16, K5 at all four extents. ``ms`` is device time: the calls
-     are captured in a CUDA graph and the graph is replayed, so Python's
+     (``torch.addmm`` + ``relu_``) in turns at the main paths' shapes, K1 and
+     K2 also at 8 px, K4 in fp32 and bf16, K5 at all four extents. ``ms`` is
+     device time: the calls are captured in a CUDA graph and the graph is
+     replayed, so Python's
      per-call overhead (larger than K4's run time) stays out; ``eager_ms``
      is the same call launched from Python. ``bound_ms`` is the least time
      the card could take: the larger of the bytes (each input read once,
@@ -57,6 +61,7 @@ import copy
 import itertools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -306,19 +311,25 @@ def check_kernels(folded, gen, dev) -> dict:
     errors = {}
     bf16, f32 = torch.bfloat16, torch.float32
     for hw in (8, 16):  # K1, K2
-        x_u16 = torch.randint(0, 1024, (RAGGED, hw, hw, 1), generator=gen)
+        size = hw * hw
+        u16 = torch.randint(0, 1024, (RAGGED, hw, hw, 1), generator=gen).view(-1)
+        u16 = torch.cat([u16, u16[:1]])  # one value more, for the view that starts at 1
         for dtype in (f32, bf16):
-            x = (x_u16.float() / 1023.0).to(dev, dtype)
-            for name in ("fused_front", "fused_front_g1"):
+            flat = (u16.float() / 1023.0).to(dev, dtype)
+            views = [(batch, "aligned", flat[:batch * size]) for batch in (1, 255, RAGGED)]
+            views.append((RAGGED, "offset_by_one", flat[1:]))
+            for (batch, layout, view), name in itertools.product(
+                    views, ("fused_front", "fused_front_g1")):
+                x = view.view(batch, hw, hw, 1)
                 kern, plain, args = front_args(name, folded, dtype, dev)
                 got = kern(x, *args)
                 torch.cuda.synchronize()
                 want = plain(x, *args)
                 tol = (FP32_TOL[name] if dtype == f32
                        else BF16_REL_TOL * max(1.0, want.float().abs().max().item()))
-                err = compare(name, got, want, tol, hw=hw, batch=RAGGED,
+                err = compare(name, got, want, tol, hw=hw, batch=batch, layout=layout,
                               dtype=str(dtype))
-                if hw == HW and dtype == bf16:
+                if (hw, dtype, batch, layout) == (HW, bf16, RAGGED, "aligned"):
                     errors[name] = err
 
     for e in rg.EXTENTS:  # K5 on the stem's output of 4e px blocks
@@ -709,19 +720,21 @@ class TimingCase(NamedTuple):
 
 
 def timing_cases(folded, gen, dev) -> list:
-    """Every kernel at its main path's shape, K4 also in bf16 and K5 at the
-    other extents."""
+    """Every kernel at its main path's shape, K1 and K2 also at 8 px, K4 also
+    in bf16 and K5 at the other extents."""
     bf16, f32 = torch.bfloat16, torch.float32
     cases = []
-    x = (torch.randint(0, 1024, (BATCH, HW, HW, 1), generator=gen).float()
-         / 1023.0).to(dev, bf16)
-    for name in ("fused_front", "fused_front_g1"):
+    inputs = {hw: (torch.randint(0, 1024, (BATCH, hw, hw, 1), generator=gen).float()
+                   / 1023.0).to(dev, bf16) for hw in (HW, 8)}
+    for (hw, x), name in itertools.product(inputs.items(),
+                                           ("fused_front", "fused_front_g1")):
         kern, plain, args = front_args(name, folded, bf16, dev)
         cases.append(TimingCase(
-            name, lambda k=kern, a=args: k(x, *a), lambda p=plain, a=args: p(x, *a), None,
+            name, lambda k=kern, x=x, a=args: k(x, *a),
+            lambda p=plain, x=x, a=args: p(x, *a), None,
             tensor_bytes(x, *args, kern(x, *args)),
-            BATCH * front_flops(HW, with_g1=name == "fused_front_g1"), bf16,
-            {"batch": BATCH, "hw": HW, "dtype": "bfloat16"}, True))
+            BATCH * front_flops(hw, with_g1=name == "fused_front_g1"), bf16,
+            {"batch": BATCH, "hw": hw, "dtype": "bfloat16"}, hw == HW))
     wg = tuple(t.to(dev) for t in rg.pack_group12_weights(folded, bf16))
     stream = rg.group12_conv_stream(wg)
     for e in (HW // 4,) + tuple(e for e in rg.EXTENTS if e != HW // 4):
@@ -785,6 +798,22 @@ def time_case(case: TimingCase, smi: str) -> dict:
     return result
 
 
+def ptxas_report(lib: Path) -> dict:
+    """Registers and spill bytes (stores, loads) of every fused kernel, from
+    the ``-Xptxas -v`` lines in nvcc's logs beside the library."""
+    entry = re.compile(
+        r"Compiling entry function '\S*?(?<=\d)(fused_[a-z0-9_]+?_kernel)I(\S*?)Ev\S*'.*?"
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?Used (\d+) registers", re.S)
+    report = {}
+    for log in sorted(lib.parent.glob("*.nvcc.log")):
+        for kernel, targs, stores, loads, regs in entry.findall(log.read_text()):
+            args = [a or b or c for a, b, c in
+                    re.findall(r"Li(\d+)E|(f)|13__nv_(bfloat16)", targs)]
+            report[f"{kernel}<{', '.join(args)}>"] = {
+                "registers": int(regs), "spill_bytes": [int(stores), int(loads)]}
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
@@ -806,7 +835,8 @@ def main() -> int:
     lib = _build.build_kernels()
     _build.load_kernels()
     emit("build", seconds=time.perf_counter() - t0, library=str(lib.relative_to(ROOT)),
-         sources=[str(s.relative_to(ROOT)) for s in _build.SOURCES])
+         sources=[str(s.relative_to(ROOT)) for s in _build.SOURCES],
+         ptxas=ptxas_report(lib))
 
     torch.manual_seed(SEED)  # dropout during BN calibration
     gen = torch.Generator().manual_seed(SEED)

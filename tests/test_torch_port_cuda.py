@@ -66,12 +66,22 @@ def _args(name, folded, dtype, card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
+@pytest.mark.parametrize("batch, layout", [(1, "aligned"), (255, "aligned"),
+                                           (RAGGED, "aligned"), (RAGGED, "offset_by_one")])
 @pytest.mark.parametrize("hw", [8, 16])
 @pytest.mark.parametrize("name", ["fused_front", "fused_front_g1"])
-def test_kernel_matches_plain_version(card, folded, name, hw, dtype):
+def test_kernel_matches_plain_version(card, folded, name, hw, batch, layout, dtype):
+    """One sample, one short of a bf16 K1/K2 block's multiple, and a ragged
+    batch; and a contiguous view that starts one value into its buffer, off the
+    16-byte grid of the bf16 kernels' vector loads. In bf16 few outputs differ
+    from the plain version at all (measured on an H100: K1 under 0.001%, K2
+    up to 1.6%, each by one bf16 step)."""
     gen = torch.Generator().manual_seed(hw)
-    x = (torch.randint(0, 1024, (RAGGED, hw, hw, 1), generator=gen).float()
+    x = (torch.randint(0, 1024, (batch * hw * hw + 1,), generator=gen).float()
          / 1023.0).to(card, dtype)
+    x = x[1:] if layout == "offset_by_one" else x[:-1]
+    x = x.view(batch, hw, hw, 1)
+    assert x.is_contiguous() and (x.data_ptr() % 16 != 0) == (layout == "offset_by_one")
     kernel, plain, args = _args(name, folded, dtype, card)
     before = ff.launch_counts[name]
     got = kernel(x, *args)
@@ -83,6 +93,8 @@ def test_kernel_matches_plain_version(card, folded, name, hw, dtype):
     assert want.float().std().item() >= 1e-2
     tol = FP32_TOL[name] if dtype == torch.float32 else BF16_REL_TOL * max(1.0, scale)
     assert (got.float() - want.float()).abs().max().item() <= tol
+    if dtype == torch.bfloat16:
+        assert (got != want).float().mean().item() < 0.05
 
 
 @pytest.mark.cuda

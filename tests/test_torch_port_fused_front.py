@@ -1,6 +1,13 @@
 """Port parity: the plain versions of kernels K1 and K2 against the JAX
 Pallas kernels in interpret mode, and the wrappers' checks, on the CPU.
 
+fp32 is held to 1e-5 (K1) and 5e-5 (K2). In bf16, the serving dtype, plain K1
+equals the Pallas kernel bit for bit; plain K2 rounds where that kernel casts
+(each conv input, and five places in SE1) and is held to one bf16 step of the
+largest output on at most 1% of the output elements: the two sum in fp32 in
+different orders, and an intermediate that rounds the other way moves what
+follows by one step.
+
 The CUDA kernels themselves run only on a card: ``test_torch_port_cuda.py``
 and ``chip_smoke.py`` hold them against these plain versions there.
 """
@@ -8,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from av1tpu import models as jm
 from av1tpu.kernels.fused_front import make_fused_front as jax_front
@@ -76,6 +84,71 @@ def test_plain_fused_front_g1_matches_pallas(folded, hw):
     assert got.shape == want.shape == (BATCH, hw // 4, hw // 4, 64)
     _guard(want, 5e-5)
     np.testing.assert_allclose(got, want, atol=5e-5, rtol=0)
+
+
+def _bf16_step(v: float) -> float:
+    """The spacing of bf16 values at magnitude ``v``."""
+    return 2.0 ** (np.floor(np.log2(v)) - 7)
+
+
+@pytest.mark.parametrize("hw", [16, 8])
+def test_plain_fused_front_bf16_equals_pallas(folded, hw):
+    """bf16: plain K1 == JAX make_fused_front(interpret=True), bit for bit
+    (products of two bf16 values are exact in fp32, and rounding commutes
+    with the max-pool)."""
+    jf, pf = folded(hw)
+    x = _input(hw)
+    want = np.asarray(jax_front(jf["stem"]["kernel"], jf["stem"]["bias"], hw,
+                                float_dtype=jnp.bfloat16, tile=16,
+                                interpret=True)(x)).astype(np.float32)
+    got = ff.make_fused_front(pf["stem"]["weight"], pf["stem"]["bias"], hw,
+                              float_dtype=torch.bfloat16)(torch.from_numpy(x))
+    assert got.dtype == torch.bfloat16
+    _guard(want, 1e-5)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def _g1_with_fp32_se(x, stem_w, stem_b, conv_w, conv_b, se_d0, se_d1):
+    """Plain K2 with each conv input rounded but SE1 left in fp32: what the
+    port computed before it rounded where the TPU kernel casts."""
+    z = ff._stem_pool_f32(x, stem_w, stem_b)
+    for i in range(4):
+        w = conv_w[i].float().reshape(3, 3, 64, 64).permute(3, 2, 0, 1)
+        a = (z if i % 2 == 0 else h).to(conv_w.dtype).float()
+        y = F.conv2d(a, w, padding=1) + conv_b[i][None, :, None, None]
+        if i % 2 == 0:
+            h = torch.relu(y)
+        else:
+            z = torch.relu(y + z)
+    s = torch.relu(z.mean(dim=(2, 3)) @ se_d0.T)
+    z = z * torch.sigmoid(s @ se_d1.T)[:, :, None, None]
+    return z.permute(0, 2, 3, 1).to(x.dtype)
+
+
+@pytest.mark.parametrize("hw", [16, 8])
+def test_plain_fused_front_g1_bf16_matches_pallas(folded, hw):
+    """bf16: plain K2 against JAX make_fused_front_g1(interpret=True). No
+    element is more than one bf16 step of the largest output away, and at
+    most 1% of the elements differ at all. With SE1 left in fp32 a third of
+    the elements differ: the guard that this test sees the roundings."""
+    jf, pf = folded(hw)
+    x = _input(hw)
+    want = np.asarray(jax_front_g1(jf, hw, float_dtype=jnp.bfloat16, tile=16,
+                                   interpret=True)(x)).astype(np.float32)
+    got = ff.make_fused_front_g1(pf, hw, float_dtype=torch.bfloat16)(
+        torch.from_numpy(x))
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    assert got.shape == want.shape == (BATCH, hw // 4, hw // 4, 64)
+    _guard(want, 5e-5)
+    step = _bf16_step(float(np.abs(want).max()))
+    np.testing.assert_allclose(got, want, atol=step, rtol=0)
+    assert (got != want).mean() <= 0.01
+    xb = torch.from_numpy(x).bfloat16()
+    unrounded = ff.g1_weights(pf, torch.bfloat16)[:4] + tuple(
+        pf["se1"][k].detach().float() for k in ("d0", "d1"))
+    old = _g1_with_fp32_se(xb, *unrounded).float().numpy()
+    assert (old != want).mean() >= 0.2
 
 
 @pytest.mark.parametrize("bad", [
