@@ -3,17 +3,23 @@
 The JAX package ``av1tpu`` stays the reference; this package mirrors its
 layout module by module and imports nothing of it, nor jax or flax. What it
 needs of the jax-free modules of ``av1tpu`` it keeps as its own copies, under
-the same names: ``codec.partitions``, ``data.bundles`` and ``data.records``.
+the same names: ``codec.partitions``, ``codec.tree``, ``data.bundles``,
+``data.records``, ``ingest.yuv``, ``ingest.tiler`` and ``eval.tree_metrics``.
 
 Layer map:
     codec.partitions  partition ids, names and the label maps (numpy)
+    codec.tree        (N, 85) partition-tree assembly (numpy or torch)
+    ingest            yuv420p10le luma reading and superblock tiling (numpy)
     data              split bundles (npz + metadata.json) and the sample norm
     train.checkpoint  flat npz variable files (the JAX package's format)
-    models            nn.Module v6 stage models + FGVC, and the JAX weight bridge
+    models            nn.Module v6 stage models, UnifiedV6Model, FGVC, and the
+                      JAX weight bridge
+    train.augment     the test-time-augmentation views and their AB alignment
     quant.ptq         BN folding and the folded float forward
     kernels           hand-written CUDA kernels (csrc/) with their plain twins
-    eval              pipelines, batching, metrics, report writers
-    cli               run_pipeline_eval
+    eval              per-stage and unified pipelines, batching, the
+                      64->32->16->8 tree cascade, metrics, report writers
+    cli               run_pipeline_eval, predict_trees
 """
 
 __version__ = "0.1.0"

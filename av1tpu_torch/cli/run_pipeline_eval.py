@@ -26,7 +26,11 @@ import numpy as np
 import torch
 
 from av1tpu_torch.codec.partitions import V6_EVAL_CLASS_NAMES, raw_to_v6_final
-from av1tpu_torch.cli.common import load_model_variables, load_split
+from av1tpu_torch.cli.common import (
+    add_not_ported_flags,
+    load_model_variables,
+    load_split,
+)
 from av1tpu_torch.eval import (
     PipelineModels,
     compute_binary_metrics,
@@ -63,15 +67,6 @@ VARIANTS_NOT_PORTED = {"unified": "M3", "v5": "M8", "flatten": "M8"}
 FUSED_FRONT = {"off": False, "on": True, "g1": "g1"}
 
 
-class _NotPorted(argparse.Action):
-    def __init__(self, option_strings, dest, **kwargs):
-        super().__init__(option_strings, dest, nargs="*", **kwargs)
-
-    def __call__(self, parser, namespace, values, option_string=None):
-        parser.error(f"{option_string} is not ported yet "
-                     f"(ROADMAP {NOT_PORTED[option_string]})")
-
-
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--variant", default="v6",
@@ -105,8 +100,7 @@ def build_parser() -> argparse.ArgumentParser:
                         default="off",
                         help="with --folded: stem+maxpool as kernel K1 (on) "
                         "or stem+maxpool+layer group 1+SE1 as kernel K2 (g1)")
-    for flag in NOT_PORTED:
-        parser.add_argument(flag, action=_NotPorted, help=argparse.SUPPRESS)
+    add_not_ported_flags(parser, NOT_PORTED)
     return parser
 
 

@@ -1,4 +1,4 @@
-"""Pipelines, batching, metrics and report writers of the port."""
+"""Pipelines, batching, the tree cascade, metrics and report writers of the port."""
 from av1tpu_torch.eval.cascade import decompose_v6  # noqa: F401
 from av1tpu_torch.eval.folded import make_v6_pipeline_folded  # noqa: F401
 from av1tpu_torch.eval.hierarchy import (  # noqa: F401
@@ -18,4 +18,14 @@ from av1tpu_torch.eval.report import (  # noqa: F401
     write_predictions_csv,
     write_predictions_npz,
     write_text_report,
+)
+from av1tpu_torch.eval.tree_infer import (  # noqa: F401
+    predict_frame_trees,
+    predict_partition_trees,
+    quad_tile_on_device,
+)
+from av1tpu_torch.eval.tree_metrics import tree_accuracy  # noqa: F401
+from av1tpu_torch.eval.unified import (  # noqa: F401
+    make_unified_pipeline,
+    make_unified_pipeline_folded,
 )

@@ -40,6 +40,34 @@ from av1tpu_torch.quant.ptq import (
 )
 
 
+def check_fused_front_option(use_fused_front) -> None:
+    if use_fused_front not in (False, True, "g1"):
+        raise ValueError(f"use_fused_front must be False, True or 'g1', "
+                         f"got {use_fused_front!r}")
+
+
+def front_selector(folded32, use_fused_front, float_dtype) -> Callable:
+    """``fronts_for(hw) -> (front_fn, front_g1_fn)`` for ``_backbone_apply``:
+    K1 (``True``) or K2 (``"g1"``) over the fp32 folded tree, built at the
+    first call for each extent; ``(None, None)``, the plain front, when the
+    option is off or the kernels do not support the extent."""
+    fronts: Dict[int, Tuple] = {}
+
+    def fronts_for(hw: int):
+        if not use_fused_front or not supports_extent(hw):
+            return None, None
+        if hw not in fronts:
+            if use_fused_front == "g1":
+                fronts[hw] = (None, make_fused_front_g1(folded32, hw, float_dtype))
+            else:
+                stem = folded32["stem"]
+                fronts[hw] = (make_fused_front(stem["weight"], stem["bias"], hw,
+                                               float_dtype), None)
+        return fronts[hw]
+
+    return fronts_for
+
+
 def _folded_stage_fn(model: nn.Module, float_dtype, use_fused_front,
                      use_pallas_groups, device) -> Callable:
     """``x -> logits`` for one plain stage: folded backbone + dense head."""
@@ -54,24 +82,10 @@ def _folded_stage_fn(model: nn.Module, float_dtype, use_fused_front,
         def group12_fn(x):
             return fused_group12(x, weights, conv_stream)
 
-    fronts: Dict[int, Tuple] = {}
-
-    def front_for(hw: int):
-        if not supports_extent(hw):
-            return None, None
-        if hw not in fronts:
-            if use_fused_front == "g1":
-                fronts[hw] = (None, make_fused_front_g1(folded32, hw, float_dtype))
-            else:
-                stem = folded32["stem"]
-                fronts[hw] = (make_fused_front(stem["weight"], stem["bias"], hw,
-                                               float_dtype), None)
-        return fronts[hw]
+    fronts_for = front_selector(folded32, use_fused_front, float_dtype)
 
     def forward(x):
-        front_fn, front_g1_fn = (
-            front_for(int(x.shape[1])) if use_fused_front else (None, None)
-        )
+        front_fn, front_g1_fn = fronts_for(int(x.shape[1]))
         feats = _backbone_apply(folded, x, float_dtype=float_dtype,
                                 front_fn=front_fn, front_g1_fn=front_g1_fn,
                                 group12_fn=group12_fn)
@@ -94,9 +108,7 @@ def make_v6_pipeline_folded(
     ``make_v6_pipeline``. ``use_fused_front`` is False, True (K1) or
     ``"g1"`` (K2). ``use_pallas_groups`` (the JAX package's name) selects
     kernel K5 for layer groups 1 and 2 with their SE gates."""
-    if use_fused_front not in (False, True, "g1"):
-        raise ValueError(f"use_fused_front must be False, True or 'g1', "
-                         f"got {use_fused_front!r}")
+    check_fused_front_option(use_fused_front)
     device = torch.device(device)
     fns = [
         _folded_stage_fn(m, float_dtype, use_fused_front, use_pallas_groups, device)
@@ -111,4 +123,4 @@ def make_v6_pipeline_folded(
                                float_dtype=float_dtype)
 
 
-__all__ = ["make_v6_pipeline_folded"]
+__all__ = ["check_fused_front_option", "front_selector", "make_v6_pipeline_folded"]

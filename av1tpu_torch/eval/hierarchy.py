@@ -11,13 +11,15 @@ from __future__ import annotations
 
 import copy
 from dataclasses import dataclass
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
 from av1tpu_torch.data.records import NORM_10BIT
+from av1tpu_torch.models.jax_import import load_jax_variables
+from av1tpu_torch.train.augment import align_tta_ab_logits, tta_views
 
 
 @dataclass
@@ -76,6 +78,26 @@ def on_device(model: nn.Module, device, dtype) -> nn.Module:
     return copy.deepcopy(model).to(device=device, dtype=dtype).eval()
 
 
+def _mean_over_axis0(t: torch.Tensor) -> torch.Tensor:
+    """Mean over axis 0, summed in fp32 and rounded once to ``t``'s dtype (what
+    ``jnp.mean`` does for bf16)."""
+    return t.float().mean(dim=0).to(t.dtype)
+
+
+def tta_mean_logits(forward: Callable, x: torch.Tensor, align_ab: bool = False):
+    """Mean of ``forward``'s logits over the four TTA views of ``x`` (NHWC),
+    computed as one forward of the views stacked on the batch axis: in eval
+    mode every layer works per sample. ``align_ab`` first re-expresses each
+    view's AB logits (the last four columns) in the original frame's class
+    order."""
+    views = tta_views(x)
+    logits = forward(views.flatten(0, 1)).unflatten(0, views.shape[:2])
+    if align_ab:
+        ab = align_tta_ab_logits(logits[..., -4:])
+        logits = torch.cat([logits[..., :-4], ab], dim=-1)
+    return _mean_over_axis0(logits)
+
+
 def make_v6_pipeline(
     models: PipelineModels,
     stage1_threshold: float = 0.45,
@@ -84,29 +106,52 @@ def make_v6_pipeline(
     device="cuda",
     tta: bool = False,
     tta_align_ab: bool = False,
-    ab_ensemble_vars=None,
+    ab_ensemble_vars: Optional[Sequence[Mapping]] = None,
     stacked: bool = False,
     mesh=None,
 ) -> Callable:
     """The plain v6 pipeline over the stage models' own forwards:
     ``predict(images_u16) -> dict`` on ``device``: the card unless the
-    caller passes ``"cpu"``; ``"cuda"`` without a card raises."""
-    if tta or tta_align_ab:
-        raise NotImplementedError("TTA is not ported yet (ROADMAP M2)")
-    if ab_ensemble_vars:
-        raise NotImplementedError("AB ensembles are not ported yet (ROADMAP M2)")
+    caller passes ``"cpu"``; ``"cuda"`` without a card raises.
+
+    ``tta`` averages each stage's logits over the four test-time-augmentation
+    views (original/hflip/vflip/rot180). ``tta_align_ab`` (read only with
+    ``tta``) gathers each flipped view's AB logits through its training
+    swap-table permutation before the mean, so that HORZ_A/HORZ_B and
+    VERT_A/VERT_B evidence pools instead of cancelling. ``ab_ensemble_vars``
+    replaces the single AB model with soft voting (the mean of the members'
+    softmax) over checkpoint variable trees of ``models.stage3_ab``'s class,
+    in the layout ``cli.common.load_model_variables`` returns."""
     if stacked:
         raise NotImplementedError(
             "stacked backbones are not ported (ROADMAP Queue 1, 'Drop, don't port')"
         )
     if mesh is not None:
         raise NotImplementedError("multi-device inference waits for ROADMAP M11")
-    stages = [on_device(m, device, input_dtype) for m in (
+    s1, s2, s3r, s3a = (on_device(m, device, input_dtype) for m in (
         models.stage1, models.stage2, models.stage3_rect, models.stage3_ab
-    )]
-    s1 = stages[0]
+    ))
+
+    def stage_fn(model, align_ab=False):
+        if not tta:
+            return model
+        return lambda x: tta_mean_logits(model, x, align_ab)
+
+    if ab_ensemble_vars:
+        members = [
+            stage_fn(on_device(load_jax_variables(copy.deepcopy(models.stage3_ab), v),
+                               device, input_dtype), tta_align_ab)
+            for v in ab_ensemble_vars
+        ]
+
+        def ab_fn(x):  # mean member probabilities; the caller takes their argmax
+            return _mean_over_axis0(
+                torch.stack([torch.softmax(m(x), dim=-1) for m in members]))
+    else:
+        ab_fn = stage_fn(s3a, tta_align_ab)
+    s1_fn = stage_fn(s1)
     return assemble_v6_predict(
-        lambda x: s1(x)[:, None], stages[1], stages[2], stages[3],
+        lambda x: s1_fn(x)[:, None], stage_fn(s2), stage_fn(s3r), ab_fn,
         stage1_threshold, norm_scale, float_dtype=input_dtype,
     )
 
@@ -137,12 +182,16 @@ def run_pipeline_batched(
     samples,
     batch_size: int = 4096,
     device="cuda",
+    as_numpy: bool = True,
 ) -> Dict[str, np.ndarray]:
     """Stream a dataset through ``predict_fn`` in batches of ``batch_size``
     on one device (the card unless the caller passes ``"cpu"``; ``"cuda"``
-    without a card raises). ``samples`` is host numpy or a tensor; the last batch
-    runs at its own size. Outputs stay on the device until the end and
-    come back to the host once, as numpy."""
+    without a card raises). ``samples`` is host numpy or a tensor; a tensor
+    already on ``device`` is sliced there and never visits the host. The last
+    batch runs at its own size. Outputs stay on the device until the end and
+    come back to the host once, as numpy; ``as_numpy=False`` returns the
+    device tensors instead and does not synchronise, so that a caller can
+    overlap host work with the device's."""
     device = torch.device(device)
     n = int(samples.shape[0])
     staging = None
@@ -160,7 +209,10 @@ def run_pipeline_batched(
             chunk = chunk.to(device)
         for key, value in predict_fn(chunk).items():
             outputs.setdefault(key, []).append(value)
-    return {k: torch.cat(v).cpu().numpy() for k, v in outputs.items()}
+    gathered = {k: torch.cat(v) for k, v in outputs.items()}
+    if not as_numpy:
+        return gathered
+    return {k: v.cpu().numpy() for k, v in gathered.items()}
 
 
 __all__ = [
@@ -169,5 +221,6 @@ __all__ = [
     "make_v6_pipeline",
     "on_device",
     "run_pipeline_batched",
+    "tta_mean_logits",
     "v6_route",
 ]

@@ -19,4 +19,8 @@ from av1tpu_torch.models.v6 import (  # noqa: F401
     Stage2Model,
     Stage3ABModel,
     Stage3RectModel,
+    UNIFIED_LOGIT_DIM,
+    UNIFIED_LOGIT_SLICES,
+    UnifiedV6Model,
+    split_unified_logits,
 )

@@ -11,9 +11,11 @@ weights (out, in), BatchNorm ``scale/bias/mean/var`` <->
 ``weight/bias/running_mean/running_var``. Names: ``layer2_0`` <->
 ``layer2.0``, ``downsample_conv|bn`` <-> ``downsample.0|1``,
 ``se*/Dense_0|1`` <-> ``se*.excitation.0|2``, ``spatial_attn/Conv_0`` <->
-``spatial_attn.conv``, ``head/Dense_i`` <-> ``head.head.<3i>``,
+``spatial_attn.conv``, ``head/Dense_i`` <-> ``head.head.<3i>`` (and the
+unified model's ``head_stage1|head_stage2|head_rect|head_ab`` likewise),
 ``proj_dense<l>|proj_bn<l>`` <-> ``feat_proj.<4l>|<4l+1>``, the stage-1
-``temperature`` <-> ``head.temperature``.
+``temperature`` <-> ``head.temperature``, the unified model's top-level
+``temperature`` <-> ``temperature`` (the tree that has no ``head`` module).
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ _TO_TORCH = (
     (r"(se\d)/Dense_0", r"\1/excitation.0"),
     (r"(se\d)/Dense_1", r"\1/excitation.2"),
     (r"spatial_attn/Conv_0", "spatial_attn/conv"),
-    (r"^head/Dense_(\d+)", lambda m: f"head/head.{3 * int(m[1])}"),
+    (r"^(head\w*)/Dense_(\d+)", lambda m: f"{m[1]}/head.{3 * int(m[2])}"),
     (r"^proj_dense(\d+)", lambda m: f"feat_proj.{4 * int(m[1])}"),
     (r"^proj_bn(\d+)", lambda m: f"feat_proj.{4 * int(m[1]) + 1}"),
 )
@@ -44,7 +46,7 @@ _TO_JAX = (
     (r"(se\d)\.excitation\.0", r"\1.Dense_0"),
     (r"(se\d)\.excitation\.2", r"\1.Dense_1"),
     (r"spatial_attn\.conv", "spatial_attn.Conv_0"),
-    (r"^head\.head\.(\d+)", lambda m: f"head.Dense_{int(m[1]) // 3}"),
+    (r"^(head\w*)\.head\.(\d+)", lambda m: f"{m[1]}.Dense_{int(m[2]) // 3}"),
     (r"^feat_proj\.(\d+)", lambda m: (
         f"proj_dense{int(m[1]) // 4}" if int(m[1]) % 4 == 0
         else f"proj_bn{int(m[1]) // 4}"
@@ -58,7 +60,8 @@ _BN_LEAVES = {  # JAX (collection, leaf) -> torch leaf
     ("batch_stats", "var"): "running_var",
 }
 _BN_LEAVES_INV = {v: k for k, v in _BN_LEAVES.items()}
-_TEMPERATURE = "head.temperature"
+_TEMPERATURE = "head.temperature"  # Stage1Model keeps it under its head
+_UNIFIED_TEMPERATURE = "temperature"  # UnifiedV6Model has four heads and no ``head``
 
 
 def _rewrite(path: str, rules) -> str:
@@ -90,11 +93,13 @@ def _kernel_to_jax(w: np.ndarray) -> np.ndarray:
 def from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX ``{"params", "batch_stats"}`` tree -> torch state dict."""
     sd: Dict[str, torch.Tensor] = {}
+    temperature = (_TEMPERATURE if "head" in variables.get("params", {})
+                   else _UNIFIED_TEMPERATURE)
     for col in ("params", "batch_stats"):
         for path, value in _leaves(variables.get(col, {})):
             value = np.asarray(value)
             if col == "params" and path == ("temperature",):
-                sd[_TEMPERATURE] = torch.from_numpy(np.array(value))
+                sd[temperature] = torch.from_numpy(np.array(value))
                 continue
             module, leaf = path[:-1], path[-1]
             tmod = _rewrite("/".join(module), _TO_TORCH).replace("/", ".")
@@ -117,7 +122,7 @@ def to_jax_variables(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
         if key.endswith("num_batches_tracked"):
             continue
         value = tensor.detach().cpu().numpy()
-        if key == _TEMPERATURE:
+        if key in (_TEMPERATURE, _UNIFIED_TEMPERATURE):
             out["params"]["temperature"] = value.copy()
             continue
         tmod, tleaf = key.rsplit(".", 1)

@@ -1,7 +1,7 @@
 """v6 stage models: ResNet-18 + SE + spatial attention, then an MLP head.
 
-Counterpart of ``av1tpu.models.v6`` (ImprovedBackbone and the four stage
-models). Inputs are NHWC ``(B, H, W, 1)`` like the JAX models; the backbone
+Counterpart of ``av1tpu.models.v6`` (ImprovedBackbone, the four stage
+models and the single-trunk UnifiedV6Model). Inputs are NHWC ``(B, H, W, 1)`` like the JAX models; the backbone
 works in NCHW inside and returns the ``(B, 512)`` embedding.
 """
 from __future__ import annotations
@@ -98,6 +98,55 @@ class Stage3ABModel(_StageModel):
     hidden, dropout, num_outputs = (256, 128), (0.5, 0.5), 4
 
 
+class UnifiedV6Model(nn.Module):
+    """One shared ``ImprovedBackbone`` and all four v6 stage heads.
+
+    The head shapes are the per-stage models' (stage1 256->1 with the
+    temperature parameter, stage2 256/128->3, rect 128/64->2, AB
+    256/128->4). Returns one ``(N, 10)`` tensor of concatenated logits
+    ``[s1(1) | s2(3) | rect(2) | ab(4)]``; slice it with
+    :func:`split_unified_logits`."""
+
+    def __init__(self):
+        super().__init__()
+        self.backbone = ImprovedBackbone()
+        self.head_stage1 = MLPHead(FEATURE_DIM, (256,), 1, (0.3,))
+        self.head_stage2 = MLPHead(FEATURE_DIM, (256, 128), 3, (0.4, 0.4))
+        self.head_rect = MLPHead(FEATURE_DIM, (128, 64), 2, (0.2, 0.2))
+        self.head_ab = MLPHead(FEATURE_DIM, (256, 128), 4, (0.5, 0.5))
+        self.temperature = nn.Parameter(torch.full((1,), 1.5))
+
+    def forward(self, x, apply_temp: bool = False, from_features: bool = False):
+        feats = x if from_features else self.backbone(x)
+        s1 = self.head_stage1(feats)
+        if apply_temp:
+            s1 = s1 / self.temperature.to(s1.dtype)
+        return torch.cat([s1, self.head_stage2(feats), self.head_rect(feats),
+                          self.head_ab(feats)], dim=-1)
+
+
+# Column layout of the UnifiedV6Model output:
+# [s1 | s2 s2 s2 | rect rect | ab ab ab ab].
+UNIFIED_LOGIT_SLICES = {
+    "stage1": (0, 1),
+    "stage2": (1, 4),
+    "rect": (4, 6),
+    "ab": (6, 10),
+}
+UNIFIED_LOGIT_DIM = 10
+
+
+def split_unified_logits(logits):
+    """(..., 10) unified logits -> (s1(...,), s2(...,3), rect(...,2),
+    ab(...,4))."""
+    return (
+        logits[..., 0],
+        logits[..., 1:4],
+        logits[..., 4:6],
+        logits[..., 6:10],
+    )
+
+
 __all__ = [
     "FEATURE_DIM",
     "ImprovedBackbone",
@@ -105,4 +154,8 @@ __all__ = [
     "Stage2Model",
     "Stage3ABModel",
     "Stage3RectModel",
+    "UNIFIED_LOGIT_DIM",
+    "UNIFIED_LOGIT_SLICES",
+    "UnifiedV6Model",
+    "split_unified_logits",
 ]

@@ -13,8 +13,11 @@ from typing import Any, Dict
 import numpy as np
 
 
-def save_variables_npz(path: Path, variables: Dict[str, Any]) -> Path:
-    """Write a nested dict of arrays as one compressed npz of flat keys."""
+def save_variables_npz(path: Path, variables: Dict[str, Any],
+                       compress: bool = True) -> Path:
+    """Write a nested dict of arrays as one npz of flat keys, compressed as
+    the JAX package writes it unless ``compress`` is false (random weights do
+    not compress; both forms load the same way)."""
     flat = {}
 
     def walk(prefix, node):
@@ -27,7 +30,7 @@ def save_variables_npz(path: Path, variables: Dict[str, Any]) -> Path:
     walk((), variables)
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    np.savez_compressed(path, **flat)
+    (np.savez_compressed if compress else np.savez)(path, **flat)
     return path
 
 

@@ -34,15 +34,29 @@ Run from the root of a checkout. Phases, one JSON line each:
        c. the ``av1tpu_torch.kernels`` API: K3a and K3b ingest of eight
           1080p frames, then three training steps of a two-layer head built
           from K4 on the stage-1 embeddings of 4096 blocks;
-     each run prints blocks/s (or its own rate), its launches, and its
-     agreement with path a's ``off`` run;
+       d. the frame -> partition-tree cascade on a synthetic yuv420p10le clip
+          of eight 1920x1080 frames (510 superblocks each), every level of
+          64/32/16/8 px with its own seeded models: the port's
+          ``predict_trees --folded --bf16 --frames-per-batch 4`` with
+          ``--fused-front off`` (after a warm-up), ``on`` and ``g1``, the same
+          with ``--unified``, one run with ``--level-capacity 1 0.75 0.38
+          0.15`` (a group without overflow must agree with the dense run on
+          99.9% of its slots), and ``predict_partition_trees`` with K5
+          predictors, fronts off and on (K1 and K2 at 16 and 8 px, K5 at
+          every extent);
+     each run prints blocks/s (or frames/s and superblocks/s), its launches,
+     and its agreement with its path's ``off`` run;
   6. predict: the CUDA-event time of one 4,096-block bf16 predict on a
      batch already on the card, for fronts off / on / g1 and K5 with fronts
      off / on, in ABCDE EDCBA turns, and from a ``torch.profiler`` trace the
      kernels launched per predict, the device's busy time and idle share;
+     then the same per level of the cascade for one group of four frames
+     (``cascade_level``: per-stage off / g1 / K5+K1 and unified g1);
   7. timing: each kernel, its plain version and, for K4, one library call
      (``torch.addmm`` + ``relu_``) in turns at the main paths' shapes, K1 and
-     K2 also at 8 px, K4 in fp32 and bf16, K5 at all four extents. ``ms`` is
+     K2 also at 8 px, K4 in fp32 and bf16, K5 at all four extents and at the
+     cascade's 64 and 32 px rows (extent 16 x 510 and 2,040, extent 8 x
+     2,040). ``ms`` is
      device time: the calls are captured in a CUDA graph and the graph is
      replayed, so Python's
      per-call overhead (larger than K4's run time) stays out; ``eager_ms``
@@ -57,7 +71,9 @@ script exits non-zero; without a CUDA device it fails before printing.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
+import io
 import itertools
 import json
 import math
@@ -76,13 +92,24 @@ from torch import nn
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
-from av1tpu_torch.cli import run_pipeline_eval  # noqa: E402
+from av1tpu_torch.cli import predict_trees, run_pipeline_eval  # noqa: E402
+from av1tpu_torch.codec.tree import LEVEL_SIZES, NODES_PER_LEVEL  # noqa: E402
 from av1tpu_torch.data.bundles import Bundle, save_split  # noqa: E402
 from av1tpu_torch.eval import (  # noqa: E402
     PipelineModels,
+    make_unified_pipeline,
+    make_unified_pipeline_folded,
     make_v6_pipeline,
     make_v6_pipeline_folded,
+    predict_partition_trees,
+    quad_tile_on_device,
     run_pipeline_batched,
+    v6_route,
+)
+from av1tpu_torch.ingest import (  # noqa: E402
+    Yuv420p10Geometry,
+    read_y_frames_batch,
+    tile_frames,
 )
 from av1tpu_torch.kernels import _build  # noqa: E402
 from av1tpu_torch.kernels import fused_front as ff  # noqa: E402
@@ -100,6 +127,8 @@ from av1tpu_torch.models import (  # noqa: E402
     Stage2Model,
     Stage3ABModel,
     Stage3RectModel,
+    UnifiedV6Model,
+    split_unified_logits,
     to_jax_variables,
 )
 from av1tpu_torch.quant.ptq import fold_backbone  # noqa: E402
@@ -124,6 +153,26 @@ GRAD_ATOL = {"x": 1e-4, "w": 5e-4, "b": 1e-4}
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 FORBIDDEN_MODULES = ("jax", "flax", "av1tpu")  # the port imports none of them
+# Path d: the tree cascade on a clip of eight 1080p frames, four frames a group
+CLIP = (8, 1080, 1920)
+FRAME_SBS = 17 * 30       # 64 px superblocks of one padded 1080p frame
+FRAMES_PER_BATCH = 4
+LEVEL_CAPACITY = (1.0, 0.75, 0.38, 0.15)
+# The share of blocks on which each level's gate opens and its stage 2 says
+# SPLIT, chosen so that about 54% / 24% / 8% of the 32 / 16 / 8 px nodes are
+# alive and LEVEL_CAPACITY covers them.
+GATE_SHARE = 0.9
+SPLIT_SHARE = {64: 0.6, 32: 0.5, 16: 0.37, 8: 0.3}
+RECT_SHARE, AB_SHARE = 0.5, 0.3  # HORZ among the RECT pair, HORZ_A among the AB four
+STAGE_CKPT = {"stage1": "stage1", "stage2": "stage2", "rect": "stage3_rect",
+              "ab": "stage3_ab"}
+STAGE_CLASSES = {"stage1": Stage1Model, "stage2": Stage2Model,
+                 "rect": Stage3RectModel, "ab": Stage3ABModel}
+# Rows of one kernel call when one and four frames go through the cascade at
+# batch 4096: whole levels, full chunks and the tails they leave. By K5's
+# extent (block px / 4); K1 and K2 see the 16 and 8 px rows.
+CASCADE_ROWS = {16: (510, 2040), 8: (2040, 4096, 4064), 4: (4096, 4064, 3968),
+                2: (4096, 3968, 3584)}
 WORK = ROOT / "build" / "chip_smoke"
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "fused_front": ("av1tpu_torch/csrc/fused_front.cu",
@@ -153,10 +202,12 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def seeded_model(cls, gen: torch.Generator, calib: torch.Tensor) -> nn.Module:
-    """A model drawn from ``gen``: lecun-normal weights, BN running stats
-    set to a calibration batch's statistics and then perturbed, so that
-    the logits depend on the input."""
+def seeded_model(cls, gen: torch.Generator, calib: torch.Tensor,
+                 device="cpu") -> nn.Module:
+    """A model on the CPU drawn from ``gen``: lecun-normal weights, BN running
+    stats set to a calibration batch's statistics (the forward that takes
+    them runs on ``device``) and then perturbed, so that the logits depend on
+    the input."""
     model = cls()
     with torch.no_grad():
         for mod in model.modules():
@@ -174,9 +225,9 @@ def seeded_model(cls, gen: torch.Generator, calib: torch.Tensor) -> nn.Module:
         if hasattr(model, "classifier"):
             model.classifier.weight.copy_(
                 torch.randn(model.classifier.weight.shape, generator=gen))
-        model.train()
-        model(calib)
-        model.eval()
+        model.to(device).train()
+        model(calib.to(device))
+        model.cpu().eval()
         for mod in model.modules():
             if isinstance(mod, nn.modules.batchnorm._BatchNorm):
                 std = mod.running_var.sqrt()
@@ -190,6 +241,36 @@ def codes(rng: np.random.Generator, shape) -> np.ndarray:
     return rng.integers(0, 1024, size=shape, dtype=np.uint16)
 
 
+def structured_luma(rng: np.random.Generator, shape) -> np.ndarray:
+    """uint16 luma planes ``(..., H, W)`` (multiples of 16) with structure at
+    every scale of the 64->32->16->8 hierarchy: a random level per 16 px cell
+    plus noise whose amplitude is drawn per 8 px cell, so that blocks of every
+    size differ from their neighbours in brightness and in texture."""
+    *lead, h, w = shape
+    level = np.kron(rng.uniform(100, 900, (*lead, h // 16, w // 16)), np.ones((16, 16)))
+    amp = np.kron(rng.uniform(0, 250, (*lead, h // 8, w // 8)), np.ones((8, 8)))
+    noisy = level + amp * rng.standard_normal(level.shape, dtype=np.float32)
+    return np.clip(noisy, 0, 1023).astype(np.uint16)
+
+
+def set_first_class_share(head: nn.Module, logits: np.ndarray, share: float) -> np.ndarray:
+    """Shift the bias of an ``MLPHead``'s last Linear in place so that, on the
+    probe blocks that gave ``logits``, the share ``share`` takes the first
+    decision: the stage-1 gate opens (``(N,)`` logits, against ``THRESHOLD``)
+    or class 0, SPLIT for stage 2, wins the argmax (``(N, C)``). Returns the
+    shifted logits. A random head takes one decision on every input; a cascade
+    needs its SPLIT decisions to vary with the block."""
+    logits = np.asarray(logits, np.float64)
+    shift = np.zeros(head.head[-1].bias.shape[0])
+    if logits.ndim == 1:
+        shift[0] = math.log(THRESHOLD / (1 - THRESHOLD)) - np.quantile(logits, 1 - share)
+    else:
+        shift[0] = np.quantile(logits[:, 1:].max(axis=1) - logits[:, 0], share)
+    with torch.no_grad():
+        head.head[-1].bias += torch.as_tensor(shift, dtype=torch.float32)
+    return logits + (shift[0] if logits.ndim == 1 else shift)
+
+
 def host_tile(frames: np.ndarray, bs: int) -> np.ndarray:
     """(F, H, W) -> (F*R*C, bs, bs, 1), frame-major then row-major."""
     f, h, w = frames.shape
@@ -197,9 +278,9 @@ def host_tile(frames: np.ndarray, bs: int) -> np.ndarray:
     return np.ascontiguousarray(x.reshape(-1, bs, bs, 1))
 
 
-def time_ms(fn, iters: int = 50) -> float:
+def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     """Per-call time of ``fn`` launched from Python (CUDA events)."""
-    for _ in range(5):
+    for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -626,6 +707,262 @@ def kernel_api_path(models, val: Bundle, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Path d: the frame -> partition-tree cascade
+# ---------------------------------------------------------------------------
+
+
+def cascade_models(dev) -> dict:
+    """``{size: {"stage1" | "stage2" | "rect" | "ab" | "unified": model}}``:
+    each level of the cascade has its own seeded models, calibrated on
+    structured blocks of its own size (a random ResNet calibrated at one block
+    size saturates or dies at another; those forwards run on ``dev``), with the
+    heads shifted to ``GATE_SHARE``, ``SPLIT_SHARE``, ``RECT_SHARE`` and
+    ``AB_SHARE`` on probe blocks."""
+    sbs = structured_luma(np.random.default_rng(SEED + 3), (512, 64, 64))
+    out = {}
+    for size in LEVEL_SIZES:
+        blocks = torch.from_numpy(host_tile(sbs, size)[:512].astype(np.float32) / 1023.0)
+        calib, probe = blocks[:256], blocks[256:]
+        gen = torch.Generator().manual_seed(SEED + size)
+        out[size] = {}
+        for name, cls in (*STAGE_CLASSES.items(), ("unified", UnifiedV6Model)):
+            model = seeded_model(cls, gen, calib, dev)
+            with torch.no_grad():
+                logits = model.to(dev)(probe.to(dev)).cpu().numpy()
+            model.cpu()
+            shares = {"stage1": GATE_SHARE, "stage2": SPLIT_SHARE[size],
+                      "rect": RECT_SHARE, "ab": AB_SHARE}
+            if name == "unified":
+                parts = dict(zip(shares, split_unified_logits(logits)))
+                for head, share in shares.items():
+                    set_first_class_share(getattr(model, f"head_{head}"), parts[head], share)
+            else:
+                set_first_class_share(model.head, logits, shares[name])
+            out[size][name] = model
+    return out
+
+
+def write_clip() -> Path:
+    """Eight structured 1080p frames as a yuv420p10le file (about 50 MB)."""
+    f, h, w = CLIP
+    luma = structured_luma(np.random.default_rng(SEED + 4), (f, -(-h // 16) * 16, w))[:, :h]
+    path = WORK / f"clip_{w}x{h}_30.yuv"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    chroma = np.full(2 * (h // 2) * (w // 2), 512, "<u2").tobytes()
+    with open(path, "wb") as out:
+        for plane in luma:
+            out.write(plane.astype("<u2").tobytes())
+            out.write(chroma)
+    return path
+
+
+def write_cascade_checkpoints(models: dict) -> dict:
+    """One directory per block size under the names the CLI looks for."""
+    dirs = {}
+    for size, by_name in models.items():
+        dirs[size] = WORK / "tree_ckpt" / f"models_{size}"
+        for name, model in by_name.items():
+            stem = "unified" if name == "unified" else STAGE_CKPT[name]
+            save_variables_npz(dirs[size] / f"{stem}_best_variables.npz",
+                               to_jax_variables(model.state_dict()), compress=False)
+    return dirs
+
+
+def level_pipeline_models(models: dict, size: int) -> PipelineModels:
+    return PipelineModels(*(models[size][name] for name in STAGE_CLASSES))
+
+
+def run_tree_cli(clip: Path, dirs: dict, name: str, extra: list, dev) -> dict:
+    """The port's ``predict_trees`` CLI over the whole clip, folded bf16, four
+    frames a group. ``seconds`` is the CLI's own: each group from the upload of
+    its superblocks to its trees on the host."""
+    out = WORK / "trees" / name
+    argv = ["--yuv", str(clip), "--frames", *map(str, range(CLIP[0])),
+            "--output-dir", str(out), "--batch-size", str(BATCH),
+            "--stage1-threshold", str(THRESHOLD), "--folded", "--bf16", "--no-ab-fgvc",
+            "--frames-per-batch", str(FRAMES_PER_BATCH), "--device", dev.type, *extra]
+    for size in LEVEL_SIZES:
+        argv += [f"--models-{size}", str(dirs[size])]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):  # its stats are read from the file
+        predict_trees.main(argv)
+    wall = time.perf_counter() - t0
+    stats = json.loads((out / "tree_stats.json").read_text())
+    files = [np.load(out / f"trees_frame{i}.npz") for i in range(CLIP[0])]
+    overflow = [{k: v for k, v in stats[str(first)].items() if "overflow" in k}
+                for first in range(0, CLIP[0], FRAMES_PER_BATCH)]
+    return {"trees": np.concatenate([f["trees"] for f in files]), "frames": CLIP[0],
+            "seconds": sum(st["seconds"] for st in stats.values()),
+            "cli_wall_seconds": wall, "overflow": overflow,
+            "mean_nodes": float(np.mean([st["mean_nodes"] for st in stats.values()]))}
+
+
+def run_tree_library(models: dict, sbs: np.ndarray, front, dev) -> dict:
+    """Path d4: ``predict_partition_trees`` over four frames' superblocks with
+    K5 predictors (``use_pallas_groups=True``, no CLI flag in either package),
+    built once per level; timed on the second call."""
+    predictors = {
+        size: make_v6_pipeline_folded(
+            level_pipeline_models(models, size), THRESHOLD, float_dtype=torch.bfloat16,
+            use_fused_front=front, use_pallas_groups=True, device=dev)
+        for size in LEVEL_SIZES
+    }
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = predict_partition_trees(sbs, predictors, BATCH, device=dev)
+        seconds = time.perf_counter() - t0
+    trees = result["trees"]
+    return {"trees": trees, "frames": len(sbs) // FRAME_SBS, "seconds": seconds,
+            "cli_wall_seconds": None, "overflow": [],
+            "mean_nodes": float((trees >= 0).sum(axis=1).mean())}
+
+
+def report_tree_runs(runs: list, expect: dict) -> None:
+    """Emit each run of path d; check its trees and that the kernels
+    ``expect[name]`` launched. ``tree_slots_equal_to_off`` compares with the
+    dense ``--fused-front off`` run of the same model family (per-stage or
+    unified) on the same frames."""
+    by_name = {run["name"]: run for run in runs}
+    for run in runs:
+        trees = run["trees"]
+        n = run["frames"] * FRAME_SBS
+        base = by_name["unified_off" if run["name"].startswith("unified") else "off"]
+        equal = float((trees == base["trees"][:n]).mean()) if trees.shape[0] == n else None
+        emit("end_to_end", path="d_trees", run=run["name"], frames=run["frames"],
+             superblocks=n, seconds=run["seconds"],
+             frames_per_s=run["frames"] / run["seconds"],
+             superblocks_per_s=n / run["seconds"], cli_wall_seconds=run["cli_wall_seconds"],
+             launches=run["launches"], tree_slots_equal_to_off=equal,
+             mean_nodes_per_tree=run["mean_nodes"], overflow=run["overflow"])
+        if trees.shape != (n, 85) or trees.min() < -1 or trees.max() > 7:
+            raise AssertionError(f"{run['name']}: bad trees {trees.shape}")
+        if (trees[:, 0] < 0).any() or not 2.0 < run["mean_nodes"] < 60.0:
+            raise AssertionError(f"{run['name']}: the trees do not vary "
+                                 f"(mean nodes {run['mean_nodes']})")
+        for kernel in expect.get(run["name"], []):
+            if run["launches"].get(kernel, 0) == 0:
+                raise AssertionError(f"{run['name']}: {kernel} never launched")
+
+
+def check_gated_run(gated: dict, dense: dict) -> None:
+    """Path d3. The gate is exact when K covers the live set, but its chunks
+    hold other rows than the dense run's, and cuDNN may sum a row's bf16
+    convolution in another order in another batch: a group without overflow
+    must agree with the dense run on at least 99.9% of its slots."""
+    rows = FRAMES_PER_BATCH * FRAME_SBS
+    for g, overflow in enumerate(gated["overflow"]):
+        part = slice(g * rows, (g + 1) * rows)
+        share = float((gated["trees"][part] == dense["trees"][part]).mean())
+        covered = all(v == 0 for v in overflow.values())
+        emit("gated_cascade", group=g, level_capacity=list(LEVEL_CAPACITY), overflow=overflow,
+             k_covers_the_live_set=covered, tree_slots_equal_to_dense=share)
+        if len(overflow) != 3:
+            raise AssertionError(f"gated run, group {g}: overflow counts {overflow}")
+        if covered and share < 0.999:
+            raise AssertionError(f"gated run, group {g}: no overflow, yet only "
+                                 f"{share:.5f} of the slots equal the dense run's")
+
+
+def check_tree_reference(models: dict, sbs: np.ndarray, dev) -> None:
+    """The folded fp32 cascade on the card (fronts off/on/g1, and K5 with K1)
+    against the plain nn.Module cascade on the CPU: every tree slot equal
+    wherever each decision on the node's ancestry has a margin above 1e-3.
+    Then, per level, the unified folded fp32 pipeline on the card against
+    ``UnifiedV6Model``'s own forward on the CPU: stage-1 probability within
+    1e-4, labels equal above the margin."""
+    margins = {size: [] for size in LEVEL_SIZES}
+
+    def plain_predictor(size):
+        m = level_pipeline_models(models, size)
+
+        @torch.inference_mode()
+        def predict(images):
+            x = images.to(torch.float32) / 1023.0
+            s1 = torch.sigmoid(m.stage1(x))
+            logits = [m.stage2(x), m.stage3_rect(x), m.stage3_ab(x)]
+            tops = [lg.topk(2, dim=-1).values for lg in logits]
+            margins[size].append(torch.stack(
+                [(s1 - THRESHOLD).abs()] + [t[:, 0] - t[:, 1] for t in tops]).amin(0))
+            preds = [lg.argmax(-1).to(torch.int32) for lg in logits]
+            return {"final": v6_route((s1 >= THRESHOLD).to(torch.int32), *preds)}
+
+        return predict
+
+    want = predict_partition_trees(
+        sbs, {size: plain_predictor(size) for size in LEVEL_SIZES}, BATCH, device="cpu")
+    # a node's slot depends on its own decision and on every ancestor's
+    sure, above = [], None
+    for size, nodes in zip(LEVEL_SIZES, NODES_PER_LEVEL):
+        own = torch.cat(margins[size]).reshape(len(sbs), nodes) > 1e-3
+        above = own if above is None else own & above.repeat_interleave(4, dim=1)
+        sure.append(above)
+    sure = torch.cat(sure, dim=1).numpy()
+    for mode, groups in ((False, False), (True, False), ("g1", False), (True, True)):
+        got = predict_partition_trees(sbs, {
+            size: make_v6_pipeline_folded(
+                level_pipeline_models(models, size), THRESHOLD, float_dtype=torch.float32,
+                use_fused_front=mode, use_pallas_groups=groups, device=dev)
+            for size in LEVEL_SIZES}, BATCH, device=dev)
+        mismatches = int((got["trees"] != want["trees"])[sure].sum())
+        emit("reference", path="d_trees", fused_front=mode, pallas_groups=groups,
+             superblocks=len(sbs), guarded_share=float(sure.mean()),
+             slots_equal=float((got["trees"] == want["trees"]).mean()),
+             mismatches_above_margin=mismatches,
+             mean_nodes_per_tree=float((want["trees"] >= 0).sum(axis=1).mean()))
+        if mismatches or sure.mean() < 0.5:
+            raise AssertionError(f"folded fp32 cascade ({mode}, groups={groups}) "
+                                 "disagrees with the plain cascade")
+
+    blocks = {size: host_tile(sbs, size)[:256] for size in LEVEL_SIZES}
+    for size, mode in itertools.product(LEVEL_SIZES, (False, True, "g1")):
+        model, images = models[size]["unified"], torch.from_numpy(blocks[size])
+        want = make_unified_pipeline(model, THRESHOLD, device="cpu")(images)
+        with torch.inference_mode():
+            s1, s2, rect, ab = split_unified_logits(model(images.float() / 1023.0))
+        tops = [lg.topk(2, dim=-1).values for lg in (s2, rect, ab)]
+        sure = torch.stack([(torch.sigmoid(s1) - THRESHOLD).abs()]
+                           + [t[:, 0] - t[:, 1] for t in tops]).amin(0) > 1e-3
+        got = make_unified_pipeline_folded(
+            model, THRESHOLD, float_dtype=torch.float32, use_fused_front=mode,
+            device=dev)(images.to(dev))
+        prob_err = (got["stage1_prob"].cpu() - want["stage1_prob"]).abs().max().item()
+        mismatches = int((got["final"].cpu() != want["final"])[sure].sum())
+        emit("reference", path="d_unified", block_size=size, fused_front=mode,
+             samples=len(images), stage1_prob_max_abs_err=prob_err,
+             guarded_share=float(sure.float().mean()), mismatches_above_margin=mismatches)
+        if prob_err > 1e-4 or mismatches:
+            raise AssertionError(f"unified folded fp32 ({size} px, {mode}) disagrees "
+                                 "with the model's own forward")
+
+
+def check_kernels_at_cascade_shapes(folded, gen, dev) -> None:
+    """K1, K2 and K5 in bf16, the cascade's dtype, against their plain versions
+    at the row counts of ``CASCADE_ROWS``."""
+    bf16 = torch.bfloat16
+    wg = tuple(t.to(dev) for t in rg.pack_group12_weights(folded, bf16))
+    stream = rg.group12_conv_stream(wg)
+    for e, rows in ((e, r) for e, rs in CASCADE_ROWS.items() for r in rs):
+        hw = 4 * e
+        if ff.supports_extent(hw):
+            x = (torch.randint(0, 1024, (rows, hw, hw, 1), generator=gen).float()
+                 / 1023.0).to(dev, bf16)
+            for name in ("fused_front", "fused_front_g1"):
+                kern, plain, args = front_args(name, folded, bf16, dev)
+                got = kern(x, *args)
+                torch.cuda.synchronize()
+                want = plain(x, *args)
+                compare(name, got, want, rel_tol(name, bf16, want), hw=hw, batch=rows,
+                        shape="cascade", dtype=str(bf16))
+        x = stem_output(folded, gen, rows, hw, dev).to(bf16)
+        got = rg.fused_group12(x, wg, stream)
+        torch.cuda.synchronize()
+        want = rg.fused_group12_reference(x, wg)
+        compare("fused_group12", got, want, rel_tol("fused_group12", bf16, want),
+                extent=e, batch=rows, shape="cascade", dtype=str(bf16))
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: one predict per mode
 # ---------------------------------------------------------------------------
 
@@ -635,18 +972,18 @@ PREDICT_MODES = {  # name: (use_fused_front, use_pallas_groups)
 }
 
 
-def trace_predict(predict, batch, repeats: int = 3) -> dict:
-    """Kernels per predict, device busy ms per predict (the union of the
-    kernels' intervals) and the host's launch calls per predict from a
-    ``torch.profiler`` trace of ``repeats`` predicts. The device fields are
-    None if the trace shows no device activity."""
+def trace_calls(fn: Callable, repeats: int = 3) -> dict:
+    """Per call of ``fn``, from a ``torch.profiler`` trace of ``repeats`` calls:
+    the kernels on the device, the device's busy ms (the union of the kernels'
+    intervals) and the host's launch calls. The device fields are None if the
+    trace shows no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(repeats):
-            predict(batch)
+            fn()
         torch.cuda.synchronize()
     events = prof.events()
     spans = sorted((e.time_range.start, e.time_range.end) for e in events
@@ -654,8 +991,7 @@ def trace_predict(predict, batch, repeats: int = 3) -> dict:
     launch_calls = sum(e.device_type == DeviceType.CPU and "LaunchKernel" in e.name
                        for e in events) / repeats
     if not spans:
-        return {"kernels_per_predict": None, "device_busy_ms": None,
-                "host_launch_calls_per_predict": launch_calls}
+        return {"kernels": None, "device_busy_ms": None, "host_launch_calls": launch_calls}
     busy, (lo, hi) = 0.0, spans[0]
     for start, end in spans[1:]:
         if start > hi:
@@ -663,9 +999,15 @@ def trace_predict(predict, batch, repeats: int = 3) -> dict:
         else:
             hi = max(hi, end)
     busy += hi - lo
-    return {"kernels_per_predict": len(spans) / repeats,
-            "device_busy_ms": busy / 1e3 / repeats,
-            "host_launch_calls_per_predict": launch_calls}
+    return {"kernels": len(spans) / repeats, "device_busy_ms": busy / 1e3 / repeats,
+            "host_launch_calls": launch_calls}
+
+
+def launched_by(fn: Callable) -> dict:
+    """The port's kernels that one call of ``fn`` launches."""
+    before = dict(_build.launch_counts)
+    fn()
+    return {k: v - before[k] for k, v in _build.launch_counts.items() if v - before[k]}
 
 
 def predict_phase(models: PipelineModels, samples: np.ndarray, dev, smi: str) -> None:
@@ -689,17 +1031,61 @@ def predict_phase(models: PipelineModels, samples: np.ndarray, dev, smi: str) ->
     for name in (names + names[::-1]) * 3:
         samples_ms[name].append(time_ms(lambda: predicts[name](batch), iters=10))
     for name in names:
-        before = dict(_build.launch_counts)
-        predicts[name](batch)
-        launched = {k: v - before[k] for k, v in _build.launch_counts.items()
-                    if v - before[k]}
-        trace = trace_predict(predicts[name], batch)
+        launched = launched_by(lambda: predicts[name](batch))
+        trace = trace_calls(lambda: predicts[name](batch))
         ms = float(np.median(samples_ms[name]))
         busy = trace["device_busy_ms"]
         emit("predict", mode=name, batch=BATCH, hw=HW, dtype="bfloat16", predict_ms=ms,
              samples_ms=samples_ms[name], port_kernels_per_predict=launched,
              idle_share=None if busy is None else max(0.0, 1.0 - busy / ms),
-             nvidia_smi=smi, **trace)
+             nvidia_smi=smi, kernels_per_predict=trace["kernels"],
+             device_busy_ms=busy,
+             host_launch_calls_per_predict=trace["host_launch_calls"])
+
+
+LEVEL_MODES = {  # name: (family, use_fused_front, use_pallas_groups)
+    "off": ("stages", False, False), "g1": ("stages", "g1", False),
+    "groups_on": ("stages", True, True), "unified_g1": ("unified", "g1", False),
+}
+
+
+def cascade_levels_phase(models: dict, sbs: np.ndarray, dev, smi: str) -> None:
+    """The cascade level by level for one group of four frames (2,040
+    superblocks on the card), bf16, dense: per mode and block size the CUDA-event
+    ms of the level's ``run_pipeline_batched`` (median of three), the port's
+    kernels it launches, and from a ``torch.profiler`` trace of one run its
+    kernel count, the device's busy ms and the idle share."""
+    sbs_dev = torch.from_numpy(sbs).to(dev).view(torch.int16)
+    for mode, (family, front, groups) in LEVEL_MODES.items():
+        for size in LEVEL_SIZES:
+            if family == "unified":
+                predict = make_unified_pipeline_folded(
+                    models[size]["unified"], THRESHOLD, float_dtype=torch.bfloat16,
+                    use_fused_front=front, device=dev)
+            else:
+                predict = make_v6_pipeline_folded(
+                    level_pipeline_models(models, size), THRESHOLD,
+                    float_dtype=torch.bfloat16, use_fused_front=front,
+                    use_pallas_groups=groups, device=dev)
+            blocks = quad_tile_on_device(sbs_dev, size).view(torch.uint16)
+            rows = blocks.shape[0]
+            level_batch = min(BATCH, -(-rows // 256) * 256)  # as the cascade sets it
+
+            def run_level():
+                return run_pipeline_batched(predict, blocks, level_batch, dev,
+                                            as_numpy=False)
+
+            run_level()  # warm-up: cuDNN plans at this level's shapes
+            samples = [time_ms(run_level, iters=1, warmup=0) for _ in range(3)]
+            launched = launched_by(run_level)
+            trace = trace_calls(run_level, repeats=1)
+            ms = float(np.median(samples))
+            busy = trace["device_busy_ms"]
+            emit("cascade_level", mode=mode, block_size=size, rows=rows,
+                 chunks=-(-rows // level_batch), dtype="bfloat16", level_ms=ms,
+                 samples_ms=samples, port_kernels=launched,
+                 idle_share=None if busy is None else max(0.0, 1.0 - busy / ms),
+                 nvidia_smi=smi, **trace)
 
 
 # ---------------------------------------------------------------------------
@@ -745,6 +1131,14 @@ def timing_cases(folded, gen, dev) -> list:
             tensor_bytes(xg, *wg, rg.fused_group12(xg, wg, stream)),
             BATCH * group12_flops(e), bf16,
             {"batch": BATCH, "extent": e, "dtype": "bfloat16"}, e == HW // 4))
+    for e, rows in ((16, 510), (16, 2040), (8, 2040)):  # levels 64 and 32 px of path d
+        xg = stem_output(folded, gen, rows, 4 * e, dev).to(bf16)
+        cases.append(TimingCase(
+            "fused_group12", lambda xg=xg: rg.fused_group12(xg, wg, stream),
+            lambda xg=xg: rg.fused_group12_reference(xg, wg), None,
+            tensor_bytes(xg, *wg, rg.fused_group12(xg, wg, stream)),
+            rows * group12_flops(e), bf16,
+            {"batch": rows, "extent": e, "dtype": "bfloat16"}, False))
     rng = np.random.default_rng(SEED + 2)
     frames = torch.from_numpy(pp.pad_frames(codes(rng, FRAMES), HW)).to(dev)
     cases.append(TimingCase(
@@ -847,6 +1241,7 @@ def main() -> int:
     )}
     folded = fold_backbone(models["stage1"].backbone)
     errors = check_kernels(folded, gen, dev)
+    check_kernels_at_cascade_shapes(folded, gen, dev)
 
     dataset = make_dataset()
     val = Bundle.load(dataset / f"block_{HW}" / "val.npz")
@@ -881,13 +1276,56 @@ def main() -> int:
     _, api_launches = drive("c_kernel_api", [("ingest_and_head", None)],
                             lambda _: kernel_api_path(plain, val, dev))
 
-    launches = {k: cli_launches[k] + k5_launches[k] + api_launches[k]
+    # path d: the tree cascade on eight 1080p frames, each level with its own
+    # seeded models; first its fp32 reference check on 256 superblocks
+    t0 = time.perf_counter()
+    tree_models = cascade_models(dev)
+    clip, tree_dirs = write_clip(), write_cascade_checkpoints(tree_models)
+    clip_sbs = tile_frames(read_y_frames_batch(
+        clip, Yuv420p10Geometry(CLIP[2], CLIP[1]), range(FRAMES_PER_BATCH)), 64)[0]
+    emit("tree_setup", seconds=time.perf_counter() - t0, clip=str(clip.relative_to(ROOT)),
+         clip_bytes=clip.stat().st_size, superblocks_per_frame=FRAME_SBS,
+         models="4 stage models + 1 unified model per block size, each calibrated "
+                "at its own size")
+    check_tree_reference(tree_models, clip_sbs[:256], dev)
+
+    def run_tree(arg):
+        kind, name, extra = arg
+        if kind == "cli":
+            return run_tree_cli(clip, tree_dirs, name, extra, dev)
+        return run_tree_library(tree_models, clip_sbs, extra, dev)
+
+    fronts = [("off", ["--fused-front", "off"]), ("on", ["--fused-front", "on"]),
+              ("g1", ["--fused-front", "g1"])]
+    tree_runs, tree_launches = drive("d_trees", [
+        ("off_warmup", ("cli", "off_warmup", fronts[0][1])),
+        *((name, ("cli", name, extra)) for name, extra in fronts),
+        *((f"unified_{name}", ("cli", f"unified_{name}", ["--unified", *extra]))
+          for name, extra in fronts),
+        ("gated", ("cli", "gated", ["--fused-front", "off", "--level-capacity",
+                                    *map(str, LEVEL_CAPACITY)])),
+        ("groups_off", ("library", "groups_off", False)),
+        ("groups_on", ("library", "groups_on", True)),
+    ], run_tree)
+    by_name = {run["name"]: run for run in tree_runs}
+    report_tree_runs(tree_runs, {
+        "on": ["fused_front"], "g1": ["fused_front_g1"],
+        "unified_on": ["fused_front"], "unified_g1": ["fused_front_g1"],
+        "groups_off": ["fused_group12"], "groups_on": ["fused_group12", "fused_front"],
+    })
+    check_gated_run(by_name["gated"], by_name["off"])
+    for name in ("fused_front", "fused_front_g1", "fused_group12"):
+        if tree_launches[name] == 0:
+            raise AssertionError(f"{name} was never launched by the tree cascade")
+
+    launches = {k: cli_launches[k] + k5_launches[k] + api_launches[k] + tree_launches[k]
                 for k in _build.KERNELS}
     for name in KERNELS:
         if launches[name] == 0:
             raise AssertionError(f"{name} was never launched by a main path")
 
     predict_phase(plain, val.samples, dev, smi)
+    cascade_levels_phase(tree_models, clip_sbs, dev, smi)
 
     kernels = []
     for case in timing_cases(folded, gen, dev):

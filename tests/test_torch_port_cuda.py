@@ -1,6 +1,8 @@
 """The port's CUDA kernels on a card against their plain versions:
 K1 and K2 (fused fronts), K3a and K3b (preprocess), K4 (fused dense,
-forward and backward) and K5 (layer groups 1-2).
+forward and backward) and K5 (layer groups 1-2), also at the row counts the
+64->32->16->8 tree cascade gives them, and the cascade on the card against
+the cascade on the CPU.
 
 These tests need a card: they carry the ``cuda`` marker and skip without
 one. This file imports no jax, so it runs where jax is not installed:
@@ -21,7 +23,12 @@ from av1tpu_torch.kernels.fused_dense import (
     fused_dense_reference,
     takes_fast_path,
 )
-from av1tpu_torch.models import Stage1Model
+from av1tpu_torch.eval import (
+    PipelineModels,
+    make_v6_pipeline_folded,
+    predict_partition_trees,
+)
+from av1tpu_torch.models import Stage1Model, Stage2Model, Stage3ABModel, Stage3RectModel
 from av1tpu_torch.quant.ptq import fold_backbone
 
 RAGGED = 4099  # not a multiple of any kernel's samples per block
@@ -39,12 +46,11 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.fixture(scope="module")
-def folded():
-    """A stage-1 backbone whose BN running stats are a random batch's own
-    statistics: activations stay near unit scale, as in a trained net."""
-    torch.manual_seed(0)
-    model = Stage1Model()
+def _calibrated(cls, seed):
+    """A model whose BN running stats are a random batch's own statistics:
+    activations stay near unit scale, as in a trained net."""
+    torch.manual_seed(seed)
+    model = cls()
     for m in model.modules():
         if isinstance(m, torch.nn.BatchNorm2d):
             m.reset_running_stats()
@@ -52,7 +58,13 @@ def folded():
     with torch.no_grad():
         model.train()
         model(torch.randint(0, 1024, (256, 16, 16, 1)).float() / 1023.0)
-    return fold_backbone(model.eval().backbone)
+    return model.eval()
+
+
+@pytest.fixture(scope="module")
+def folded():
+    """The folded backbone of a calibrated stage-1 model."""
+    return fold_backbone(_calibrated(Stage1Model, 0).backbone)
 
 
 def _args(name, folded, dtype, card):
@@ -269,3 +281,72 @@ def test_kernel_launch_failure_raises(card):
     """A launch the kernel refuses raises instead of returning garbage."""
     with pytest.raises(RuntimeError, match="CUDA error"):
         _build.launch("normalize_blocks", 0, 0, 0, 0, 0)
+
+
+# Rows per kernel call when one and four 1080p frames (510 superblocks each)
+# go through the cascade at batch 4096: whole levels, full chunks and tails.
+CASCADE_ROWS = {  # K5 extent (block px / 4) -> row counts
+    16: (510, 2040), 8: (2040, 4096, 4064), 4: (4096, 4064, 3968), 2: (4096, 3968, 3584),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fused_front", "fused_front_g1"])
+@pytest.mark.parametrize("hw, rows", [(16, 4064), (16, 3968), (8, 3968), (8, 3584)])
+def test_fronts_at_the_cascade_row_counts(card, folded, name, hw, rows):
+    """K1 and K2 in bf16 on the tails that 8,160 / 32,640 blocks (one frame)
+    and four times those leave after 4,096-row chunks."""
+    gen = torch.Generator().manual_seed(rows)
+    x = (torch.randint(0, 1024, (rows, hw, hw, 1), generator=gen).float()
+         / 1023.0).to(card, torch.bfloat16)
+    kernel, plain, args = _args(name, folded, torch.bfloat16, card)
+    got = _counted(name, kernel, x, *args)
+    _close(got, plain(x, *args), BF16_REL_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e, rows", [(e, r) for e, rs in CASCADE_ROWS.items() for r in rs])
+def test_group12_at_the_cascade_row_counts(card, folded, e, rows):
+    """K5 in bf16 at every level's extent and row counts."""
+    gen = torch.Generator().manual_seed(e * rows)
+    img = (torch.randint(0, 1024, (rows, 4 * e, 4 * e, 1), generator=gen).float()
+           / 1023.0).to(card)
+    stem = ff.stem_weights(folded["stem"]["weight"], folded["stem"]["bias"],
+                           torch.float32)
+    x = ff.fused_front_reference(img, *(t.to(card) for t in stem)).bfloat16()
+    weights = tuple(w.to(card) for w in rg.pack_group12_weights(folded, torch.bfloat16))
+    got = _counted("fused_group12", rg.fused_group12, x, weights,
+                   rg.group12_conv_stream(weights))
+    _close(got, rg.fused_group12_reference(x, weights), BF16_REL_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("front, groups", [(False, False), ("g1", False), (True, True)],
+                         ids=["off", "g1", "k1_k5"])
+def test_cascade_on_the_card_matches_the_cpu(card, front, groups):
+    """fp32 folded predictors (one set of seeded models for all four levels):
+    the gated cascade over 64 superblocks on the card against the same call
+    on the CPU. Slots may differ only where a decision's margin is inside
+    fp32 noise, so at least 99% of the 85 x 64 slots agree, the overflow
+    counts stay device scalars, and the fused kernels are launched."""
+    models = PipelineModels(*(_calibrated(cls, seed) for seed, cls in enumerate(
+        (Stage1Model, Stage2Model, Stage3RectModel, Stage3ABModel))))
+    sbs = _codes(3, (64, 64, 64))
+    caps = {32: 0.9, 16: 0.8, 8: 0.7}
+    results = {}
+    for device in ("cpu", card):
+        predict = make_v6_pipeline_folded(
+            models, float_dtype=torch.float32, use_fused_front=front,
+            use_pallas_groups=groups, device=device)
+        before = dict(_build.launch_counts)
+        results[str(device)] = predict_partition_trees(
+            sbs, {s: predict for s in (64, 32, 16, 8)}, batch_size=4096,
+            level_capacities=caps, device=device, as_numpy=False)
+        launched = {k: v - before[k] for k, v in _build.launch_counts.items()}
+    got, want = results[str(card)], results["cpu"]
+    assert got["trees"].is_cuda and got["overflow_8"].is_cuda
+    assert got["overflow_8"].dim() == 0
+    assert (got["trees"].cpu() == want["trees"]).float().mean().item() >= 0.99
+    assert launched["fused_front_g1"] == (8 if front == "g1" else 0)
+    assert launched["fused_front"] == (8 if front is True else 0)
+    assert launched["fused_group12"] == (16 if groups else 0)

@@ -19,7 +19,15 @@ from av1tpu_torch.codec import partitions as port_partitions
 from av1tpu_torch.data import bundles as port_bundles
 from av1tpu.data.records import BlockSet as JaxBlockSet
 from av1tpu_torch.data.records import NORM_10BIT
-from av1tpu_torch.eval import make_v6_pipeline, make_v6_pipeline_folded, run_pipeline_batched
+from av1tpu_torch.eval import (
+    make_unified_pipeline,
+    make_unified_pipeline_folded,
+    make_v6_pipeline,
+    make_v6_pipeline_folded,
+    predict_frame_trees,
+    predict_partition_trees,
+    run_pipeline_batched,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -32,7 +40,7 @@ names = ["av1tpu_torch"] + [m.name for m in pkgutil.walk_packages(
 for name in names + ["chip_smoke"]:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "av1tpu"))
-print(json.dumps({{"imported": len(names) + 1, "bad": bad}}))
+print(json.dumps({{"imported": names + ["chip_smoke"], "bad": bad}}))
 """
 
 
@@ -42,14 +50,18 @@ def test_fresh_interpreter_imports_the_port_without_jax_or_av1tpu():
                          capture_output=True, text=True, cwd=ROOT, timeout=600)
     assert out.returncode == 0, out.stderr[-2000:]
     report = json.loads(out.stdout.strip().splitlines()[-1])
-    assert report["imported"] >= 25
+    assert len(report["imported"]) >= 36
+    for module in ("codec.tree", "ingest.yuv", "ingest.tiler", "train.augment",
+                   "eval.unified", "eval.tree_infer", "eval.tree_metrics",
+                   "cli.predict_trees"):
+        assert f"av1tpu_torch.{module}" in report["imported"]
     assert report["bad"] == []
 
 
 def test_no_source_line_imports_jax_or_av1tpu():
     pattern = re.compile(r"^\s*(from|import)\s+(av1tpu\b|jax|flax)")
     files = sorted((ROOT / "av1tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) >= 25
+    assert len(files) >= 36
     hits = [f"{f.relative_to(ROOT)}:{i}" for f in files
             for i, line in enumerate(f.read_text().splitlines(), 1) if pattern.match(line)]
     assert hits == []
@@ -166,7 +178,9 @@ def test_split_saved_by_one_package_loads_in_the_other(tmp_path, writer, reader)
 
 
 @pytest.mark.parametrize("fn", [make_v6_pipeline, run_pipeline_batched,
-                                make_v6_pipeline_folded],
+                                make_v6_pipeline_folded, make_unified_pipeline,
+                                make_unified_pipeline_folded, predict_partition_trees,
+                                predict_frame_trees],
                          ids=lambda f: f.__name__)
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"

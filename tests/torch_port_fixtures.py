@@ -3,15 +3,34 @@
 Weights are flax inits whose BatchNorm running stats are first set to the
 batch statistics of a calibration batch and then perturbed, so that every
 layer sees unit-scale activations and the logits depend on the input (the
-F2 guard of ROADMAP Queue 3). Inputs come from numpy seeds.
+F2 guard of ROADMAP Queue 3). Inputs come from numpy seeds. The cascade
+tests need sixteen models (four stages at four block sizes): those are drawn
+and calibrated in torch (:func:`cascade_stage_models`, no jax compile) and
+carried to the JAX package through ``to_jax_variables``.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
+from av1tpu import models as jm
 from av1tpu.utils.initialization import init_on_cpu
+from av1tpu_torch import models as tm
+from av1tpu_torch.models import to_jax_variables
+from chip_smoke import seeded_model, set_first_class_share, structured_luma
 
 STAGE1_THRESHOLD = 0.45
+LEVEL_SIZES = (64, 32, 16, 8)
+STAGE_CLASSES = {  # name -> (flax class, port class)
+    "stage1": (jm.Stage1Model, tm.Stage1Model),
+    "stage2": (jm.Stage2Model, tm.Stage2Model),
+    "rect": (jm.Stage3RectModel, tm.Stage3RectModel),
+    "ab": (jm.Stage3ABModel, tm.Stage3ABModel),
+}
+# The share of probe blocks on which a cascade model takes its first decision:
+# the gate opens and stage 2 says SPLIT (its class 0) on most blocks but not
+# all, so that trees reach every level and stop at every level.
+FIRST_CLASS_SHARE = {"stage1": 0.85, "stage2": 0.65, "rect": 0.5, "ab": 0.35}
 MOMENTUM = 0.9  # flax BatchNorm default
 
 
@@ -49,6 +68,85 @@ def calibrated_variables(model, seed: int, hw: int, n: int = 128):
         return {k: perturb(val) for k, val in node.items()}
 
     return {"params": v["params"], "batch_stats": perturb(batch)}
+
+
+def superblocks_u16(seed: int, n: int) -> np.ndarray:
+    """``(n, 64, 64)`` uint16 luma superblocks with structure at every scale
+    of the 64->32->16->8 hierarchy (``chip_smoke.structured_luma``)."""
+    return structured_luma(np.random.default_rng(seed), (n, 64, 64))
+
+
+def blocks_of_every_size(sbs: np.ndarray) -> dict:
+    """``{size: (N, size, size, 1)}``: every aligned 64/32/16/8 px block of
+    ``(n, 64, 64)`` superblocks (row-major; the order does not matter here)."""
+    out = {}
+    for size in (64, 32, 16, 8):
+        f = 64 // size
+        out[size] = (sbs.reshape(-1, f, size, f, size).transpose(0, 1, 3, 2, 4)
+                     .reshape(-1, size, size, 1))
+    return out
+
+
+def seeded_torch_model(cls, seed: int, calib_u16: np.ndarray):
+    """A port model drawn from ``seed`` whose BN running stats are those of
+    ``calib_u16`` (uint16 NHWC blocks of the size it will serve), perturbed:
+    ``chip_smoke.seeded_model``, the twin of :func:`calibrated_variables`
+    that needs no jax compile. Carry it to the JAX package with
+    :func:`jax_variables`."""
+    torch.manual_seed(seed)  # dropout during the calibration forward
+    calib = torch.from_numpy(calib_u16.astype(np.float32) / 1023.0)
+    return seeded_model(cls, torch.Generator().manual_seed(seed), calib)
+
+
+def jax_variables(model) -> dict:
+    """The JAX package's ``{"params", "batch_stats"}`` tree of a port model."""
+    return to_jax_variables(model.state_dict())
+
+
+def _as_input(blocks_u16: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(blocks_u16.astype(np.float32) / 1023.0)
+
+
+def cascade_stage_models(seed: int, sizes=LEVEL_SIZES) -> dict:
+    """``{size: {name: port model}}``: the stage models of each level of the
+    cascade, each calibrated on blocks of its own size (a random ResNet
+    calibrated at one size saturates or dies at another), every head shifted to
+    ``FIRST_CLASS_SHARE`` on probe blocks. Every model
+    passes the F2 guard."""
+    calib = blocks_of_every_size(superblocks_u16(seed, 16))
+    probe = blocks_of_every_size(superblocks_u16(seed + 1, 48))
+    out = {}
+    for size in sizes:
+        x = _as_input(probe[size][:256])
+        out[size] = {}
+        for i, name in enumerate(STAGE_CLASSES):
+            model = seeded_torch_model(STAGE_CLASSES[name][1], seed + size + i,
+                                       calib[size][:128])
+            with torch.no_grad():
+                logits = model(x).numpy()
+            logits = set_first_class_share(model.head, logits, FIRST_CLASS_SHARE[name])
+            assert_input_sensitive(logits, 1e-4)
+            out[size][name] = model
+    return out
+
+
+def cascade_unified_models(seed: int) -> dict:
+    """``{size: UnifiedV6Model}``, the single-trunk twin of
+    :func:`cascade_stage_models`."""
+    calib = blocks_of_every_size(superblocks_u16(seed, 16))
+    probe = blocks_of_every_size(superblocks_u16(seed + 1, 48))
+    out = {}
+    for size in LEVEL_SIZES:
+        model = seeded_torch_model(tm.UnifiedV6Model, seed + size, calib[size][:128])
+        with torch.no_grad():
+            logits = model(_as_input(probe[size][:256])).numpy()
+        for name, (lo, hi) in tm.UNIFIED_LOGIT_SLICES.items():
+            part = logits[:, lo] if name == "stage1" else logits[:, lo:hi]
+            part = set_first_class_share(getattr(model, f"head_{name}"), part,
+                                         FIRST_CLASS_SHARE[name])
+            assert_input_sensitive(part, 1e-4)
+        out[size] = model
+    return out
 
 
 def assert_input_sensitive(logits: np.ndarray, tol: float) -> None:
