@@ -1,5 +1,5 @@
-"""Shared CLI plumbing: dataset splits, checkpoint loading, and the flags
-of the JAX CLIs that are not ported yet.
+"""Shared CLI plumbing: dataset splits, checkpoint and model loading, one
+model's outputs over a split, and the flags of the JAX CLIs that are not ported yet.
 
 Dataset bundles are ``av1tpu_torch.data.bundles``, the port's own copy of
 the JAX package's format (same npz keys and ``metadata.json``)."""
@@ -8,9 +8,16 @@ from __future__ import annotations
 import argparse
 import json
 from pathlib import Path
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Callable, Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+from torch import nn
 
 from av1tpu_torch.data.bundles import Bundle
+from av1tpu_torch.data.records import NORM_10BIT
+from av1tpu_torch.eval.hierarchy import on_device, run_pipeline_batched
+from av1tpu_torch.models.jax_import import load_jax_variables
 from av1tpu_torch.train.checkpoint import load_variables_npz
 
 
@@ -37,6 +44,28 @@ def load_model_variables(path: Path) -> Dict[str, Any]:
     raise ValueError(f"unsupported checkpoint format: {path}")
 
 
+def load_model(path: Path, model_cls) -> nn.Module:
+    """``model_cls()`` holding the npz checkpoint at ``path``, in eval mode
+    (an FGVC checkpoint's class ``centers`` are training state and dropped)."""
+    variables = load_model_variables(path)
+    variables.pop("centers", None)
+    return load_jax_variables(model_cls(), variables).eval()
+
+
+def model_outputs(model: nn.Module, head: Callable, samples: np.ndarray,
+                  batch_size: int, device, dtype) -> np.ndarray:
+    """``head(model, x)`` over uint16 NHWC ``samples`` divided by 1023, in
+    batches on ``device`` with the model cast to ``dtype``, as numpy."""
+    model = on_device(model, device, dtype)
+
+    @torch.inference_mode()
+    def predict(images):
+        x = (images.to(torch.float32) / NORM_10BIT).to(dtype)
+        return {"out": head(model, x)}
+
+    return run_pipeline_batched(predict, samples, batch_size, device)["out"]
+
+
 def add_not_ported_flags(parser: argparse.ArgumentParser,
                          flags: Mapping[str, str]) -> None:
     """Register each flag of ``flags`` (flag -> ROADMAP item that ports it)
@@ -54,4 +83,5 @@ def add_not_ported_flags(parser: argparse.ArgumentParser,
         parser.add_argument(flag, action=NotPorted, help=argparse.SUPPRESS)
 
 
-__all__ = ["add_not_ported_flags", "load_model_variables", "load_split"]
+__all__ = ["add_not_ported_flags", "load_model", "load_model_variables", "load_split",
+           "model_outputs"]

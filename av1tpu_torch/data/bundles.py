@@ -5,8 +5,9 @@ the same npz keys (``samples``, ``qps``, ``label__<view>``) and the same
 ``metadata.json``, so a dataset written by either package loads in the other.
 Bundles are compressed ``.npz`` with uint16 NHWC samples (normalized once, on
 the device; see :mod:`av1tpu_torch.data.records`) and every hierarchical
-label view precomputed. The functions that make those views from block records
-are not ported yet (ROADMAP M6).
+label view precomputed, and the stage-2 filter ``analyze_confusion`` uses. The
+functions that make those views from block records are not ported yet
+(ROADMAP M13).
 """
 from __future__ import annotations
 
@@ -97,6 +98,11 @@ def bundle_metadata(
     return meta
 
 
+def filter_stage2_v6(bundle: Bundle) -> Bundle:
+    """Keep only samples with a valid 3-way stage-2 label (SPLIT/RECT/AB)."""
+    return bundle.take(np.flatnonzero(bundle.labels["stage2"] >= 0))
+
+
 def save_split(
     out_dir: Path,
     block_size: int,
@@ -119,5 +125,6 @@ __all__ = [
     "Bundle",
     "bundle_metadata",
     "class_counts",
+    "filter_stage2_v6",
     "save_split",
 ]

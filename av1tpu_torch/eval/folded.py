@@ -102,6 +102,7 @@ def make_v6_pipeline_folded(
     use_fused_front=False,
     device="cuda",
     use_pallas_groups: bool = False,
+    mesh=None,
 ) -> Callable:
     """The v6 pipeline over BN-folded weights on ``device``:
     ``predict(images_u16) -> dict``, the output contract of
@@ -109,6 +110,8 @@ def make_v6_pipeline_folded(
     ``"g1"`` (K2). ``use_pallas_groups`` (the JAX package's name) selects
     kernel K5 for layer groups 1 and 2 with their SE gates."""
     check_fused_front_option(use_fused_front)
+    if mesh is not None:
+        raise NotImplementedError("multi-device inference waits for ROADMAP M11")
     device = torch.device(device)
     fns = [
         _folded_stage_fn(m, float_dtype, use_fused_front, use_pallas_groups, device)

@@ -177,6 +177,18 @@ class _Staging:
         return out
 
 
+def _pad_rows(chunk: torch.Tensor, rows: int) -> torch.Tensor:
+    """``chunk`` padded to ``rows`` rows with copies of its first row, on its
+    device (through the int16 view of uint16 codes: not every torch build
+    concatenates uint16)."""
+    pad = rows - chunk.shape[0]
+    if pad <= 0:
+        return chunk
+    view = chunk.view(torch.int16) if chunk.dtype == torch.uint16 else chunk
+    padded = torch.cat([view, view[:1].expand(pad, *view.shape[1:])])
+    return padded.view(chunk.dtype)
+
+
 def run_pipeline_batched(
     predict_fn: Callable,
     samples,
@@ -187,13 +199,21 @@ def run_pipeline_batched(
     """Stream a dataset through ``predict_fn`` in batches of ``batch_size``
     on one device (the card unless the caller passes ``"cpu"``; ``"cuda"``
     without a card raises). ``samples`` is host numpy or a tensor; a tensor
-    already on ``device`` is sliced there and never visits the host. The last
-    batch runs at its own size. Outputs stay on the device until the end and
-    come back to the host once, as numpy; ``as_numpy=False`` returns the
-    device tensors instead and does not synchronise, so that a caller can
-    overlap host work with the device's."""
+    already on ``device`` is sliced there and never visits the host.
+
+    A per-sample predictor runs the last batch at its own size. A predictor
+    that declares ``accepts_valid`` (the capacity-gated pipeline, whose K
+    depends on the batch) gets every batch at ``batch_size`` rows, the tail
+    padded on the device with copies of its first row, and the count of real
+    rows as its second argument; as in the JAX package. Per-sample outputs
+    are trimmed to the dataset; a 0-d output (``overflow``) comes back as one
+    entry per batch. Outputs stay on the device until the end and come back
+    to the host once, as numpy; ``as_numpy=False`` returns the device
+    tensors instead and does not synchronise, so that a caller can overlap
+    host work with the device's."""
     device = torch.device(device)
     n = int(samples.shape[0])
+    accepts_valid = getattr(predict_fn, "accepts_valid", False)
     staging = None
     if isinstance(samples, np.ndarray) and device.type == "cuda":
         staging = _Staging((min(batch_size, n),) + samples.shape[1:],
@@ -207,9 +227,15 @@ def run_pipeline_batched(
             chunk = torch.from_numpy(np.ascontiguousarray(chunk)).to(device)
         else:
             chunk = chunk.to(device)
-        for key, value in predict_fn(chunk).items():
+        if accepts_valid:
+            valid = int(chunk.shape[0])
+            result = predict_fn(_pad_rows(chunk, batch_size), valid)
+        else:
+            result = predict_fn(chunk)
+        for key, value in result.items():
             outputs.setdefault(key, []).append(value)
-    gathered = {k: torch.cat(v) for k, v in outputs.items()}
+    gathered = {k: torch.cat([torch.atleast_1d(t) for t in v])[:n]
+                for k, v in outputs.items()}
     if not as_numpy:
         return gathered
     return {k: v.cpu().numpy() for k, v in gathered.items()}

@@ -1,12 +1,12 @@
-"""Evaluation metrics the pipeline CLI reports (numpy only).
+"""Evaluation metrics, threshold sweeps and temperature calibration (numpy
+only).
 
-Copied from ``av1tpu.eval.metrics``, limited to what
-``cli.run_pipeline_eval`` calls: the JAX package's ``eval/__init__`` imports
-jax, so the module cannot be imported from there.
+Copied from ``av1tpu.eval.metrics``: the JAX package's ``eval/__init__``
+imports jax, so the module cannot be imported from there.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -149,6 +149,41 @@ def roc_auc(y_true: np.ndarray, probs: np.ndarray) -> float:
     )
 
 
+def find_optimal_threshold(
+    y_true: np.ndarray,
+    probs: np.ndarray,
+    metric: str = "f1",
+    thresholds: Optional[np.ndarray] = None,
+) -> Tuple[float, Dict[str, float]]:
+    """Fine 81-point sweep in [0.1, 0.9] (parity: metrics.py:113-163)."""
+    if thresholds is None:
+        thresholds = np.linspace(0.1, 0.9, 81)
+    best_th, best_val, best_metrics = 0.5, -1.0, {}
+    for th in thresholds:
+        m = compute_binary_metrics(y_true, probs, float(th))
+        if m[metric] > best_val:
+            best_th, best_val, best_metrics = float(th), m[metric], m
+    return best_th, best_metrics
+
+
+def threshold_sweep(
+    y_true: np.ndarray,
+    probs: np.ndarray,
+    start: float = 0.40,
+    stop: float = 0.70,
+    step: float = 0.05,
+) -> List[Dict[str, float]]:
+    """Coarse stage-1 calibration grid (parity:
+    007_optimize_thresholds.py:154-166 — [0.4, 0.7] step 0.05)."""
+    thresholds = np.arange(start, stop + step / 2, step)
+    return [compute_binary_metrics(y_true, probs, float(t)) for t in thresholds]
+
+
+def best_by(sweep: List[Dict[str, float]], keys=("f1", "precision", "recall", "accuracy")):
+    """Best operating point per metric (parity: 007:169-244 summary)."""
+    return {k: max(sweep, key=lambda m: m[k]) for k in keys}
+
+
 def classification_report_text(
     metrics: Dict[str, object], digits: int = 4
 ) -> str:
@@ -166,10 +201,67 @@ def classification_report_text(
     return "\n".join(lines)
 
 
+def expected_calibration_error(
+    labels: np.ndarray, probs: np.ndarray, bins: int = 15
+) -> float:
+    """Binary ECE: |accuracy - confidence| averaged over equal-width
+    probability bins, weighted by bin mass (Guo et al. 2017)."""
+    labels = np.asarray(labels).astype(np.float64)
+    probs = np.asarray(probs, dtype=np.float64)
+    edges = np.linspace(0.0, 1.0, bins + 1)
+    which = np.clip(np.digitize(probs, edges[1:-1]), 0, bins - 1)
+    ece = 0.0
+    n = len(probs)
+    for b in range(bins):
+        mask = which == b
+        if not mask.any():
+            continue
+        ece += mask.sum() / n * abs(labels[mask].mean() - probs[mask].mean())
+    return float(ece)
+
+
+def fit_temperature(
+    logits: np.ndarray, labels: np.ndarray,
+    grid=(0.05, 10.0, 200),
+) -> float:
+    """Fit a scalar temperature minimizing binary NLL on held-out logits.
+
+    Coarse log-spaced grid then golden-section refinement: the NLL is
+    smooth in log T. Returns T (divide logits by it)."""
+    logits = np.asarray(logits, dtype=np.float64)
+    labels = np.asarray(labels).astype(np.float64)
+
+    def nll(temp: float) -> float:
+        z = logits / temp
+        # stable log-sigmoid formulation
+        return float(np.mean(np.logaddexp(0.0, -z) + (1.0 - labels) * z))
+
+    lo, hi, num = grid
+    ts = np.geomspace(lo, hi, int(num))
+    losses = [nll(t) for t in ts]
+    i = int(np.argmin(losses))
+    a = ts[max(i - 1, 0)]
+    b = ts[min(i + 1, len(ts) - 1)]
+    phi = (np.sqrt(5.0) - 1.0) / 2.0
+    for _ in range(40):
+        c = b - phi * (b - a)
+        d = a + phi * (b - a)
+        if nll(c) < nll(d):
+            b = d
+        else:
+            a = c
+    return float((a + b) / 2.0)
+
+
 __all__ = [
+    "best_by",
     "classification_report_text",
     "compute_binary_metrics",
     "compute_metrics",
     "confusion",
+    "expected_calibration_error",
+    "find_optimal_threshold",
+    "fit_temperature",
     "roc_auc",
+    "threshold_sweep",
 ]

@@ -21,7 +21,7 @@ Run from the root of a checkout. Phases, one JSON line each:
      library's (cuBLAS fp32), and K4 backward against float64 autograd;
   4. reference: the folded fp32 pipeline on the card (fronts off/on/g1, and
      K5 with fronts off/on) against the plain nn.Module pipeline on the CPU;
-  5. three main paths, each driven with the launch counts set to 0 just
+  5. the main paths, each driven with the launch counts set to 0 just
      before it and read just after, on a synthetic 65,536-block 16 px
      dataset and four seeded stage models (plus an FGVC AB model) at the
      published v6 widths:
@@ -44,11 +44,29 @@ Run from the root of a checkout. Phases, one JSON line each:
           99.9% of its slots), and ``predict_partition_trees`` with K5
           predictors, fronts off and on (K1 and K2 at 16 and 8 px, K5 at
           every extent);
+       then path a's second part (``a_serving``), on path a's dataset, bf16,
+       batch 4096: ``optimize_thresholds`` on the stage-1 checkpoint (the
+       calibration directory of what follows); ``--folded --capacity auto
+       --capacity-margin 0.1`` and ``--folded --capacity 0.5`` (the gated
+       pipeline: its overflow summed over batches; exactly the passers
+       outside each batch's K rows are SPLIT, and every other row's label
+       equals the ``off`` run's on 99.9%); ``--variant unified
+       --folded --fused-front off|on|g1`` with path d's 16 px unified model
+       (K1, K2); ``--tta`` and ``--stage3-ab-ensemble-dir`` (three seeded AB
+       members saved with ``save_ensemble``) on the plain graph; then
+       ``certify_serving --skip-int8`` in fp32 (its folded and
+       unified(folded) rows agree with their plain graphs on 99%),
+       ``compare_thresholds`` and ``analyze_confusion``, each of which must
+       write its files; after it (phase ``stacking``, outside the path) the
+       three members' logits on 4,096 of its blocks and the stacking
+       meta-model fit on them on the card, whose objective must equal the
+       CPU fit's within 1e-4 and fall below the starting weights';
      each run prints blocks/s (or frames/s and superblocks/s), its launches,
      and its agreement with its path's ``off`` run;
   6. predict: the CUDA-event time of one 4,096-block bf16 predict on a
-     batch already on the card, for fronts off / on / g1 and K5 with fronts
-     off / on, in ABCDE EDCBA turns, and from a ``torch.profiler`` trace the
+     batch already on the card, for fronts off / on / g1, K5 with fronts
+     off / on and the gated pipeline at path a's ``auto`` capacity and at
+     0.5, in ABC...CBA turns, and from a ``torch.profiler`` trace the
      kernels launched per predict, the device's busy time and idle share;
      then the same per level of the cascade for one group of four frames
      (``cascade_level``: per-stage off / g1 / K5+K1 and unified g1);
@@ -92,7 +110,15 @@ from torch import nn
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
-from av1tpu_torch.cli import predict_trees, run_pipeline_eval  # noqa: E402
+from av1tpu_torch.cli import (  # noqa: E402
+    analyze_confusion,
+    certify_serving,
+    compare_thresholds,
+    optimize_thresholds,
+    predict_trees,
+    run_pipeline_eval,
+)
+from av1tpu_torch.codec.partitions import map_to_stage2_v6  # noqa: E402
 from av1tpu_torch.codec.tree import LEVEL_SIZES, NODES_PER_LEVEL  # noqa: E402
 from av1tpu_torch.data.bundles import Bundle, save_split  # noqa: E402
 from av1tpu_torch.eval import (  # noqa: E402
@@ -101,11 +127,17 @@ from av1tpu_torch.eval import (  # noqa: E402
     make_unified_pipeline_folded,
     make_v6_pipeline,
     make_v6_pipeline_folded,
+    make_v6_pipeline_gated,
     predict_partition_trees,
     quad_tile_on_device,
+    fit_stacking,
+    load_ensemble,
     run_pipeline_batched,
+    save_ensemble,
+    stacked_member_logits,
     v6_route,
 )
+from av1tpu_torch.eval.ensemble import _stacking_features, _stacking_objective  # noqa: E402
 from av1tpu_torch.ingest import (  # noqa: E402
     Yuv420p10Geometry,
     read_y_frames_batch,
@@ -174,6 +206,9 @@ STAGE_CLASSES = {"stage1": Stage1Model, "stage2": Stage2Model,
 CASCADE_ROWS = {16: (510, 2040), 8: (2040, 4096, 4064), 4: (4096, 4064, 3968),
                 2: (4096, 3968, 3584)}
 WORK = ROOT / "build" / "chip_smoke"
+FRONT_KERNELS = {"on": ["fused_front"], "g1": ["fused_front_g1"]}  # by --fused-front
+CAPACITY_MARGIN = 0.1     # --capacity auto's headroom over the calibrated gate rate
+ENSEMBLE_MEMBERS = 3      # seeded AB members of --stage3-ab-ensemble-dir
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "fused_front": ("av1tpu_torch/csrc/fused_front.cu",
                     "av1tpu/kernels/fused_front.py:105"),
@@ -572,7 +607,8 @@ def make_dataset() -> Path:
         return Bundle(
             samples=codes(rng, (n, HW, HW, 1)),
             qps=np.full(n, 90, np.int32),
-            labels={"stage0": stage0, "stage1": (stage0 != 0).astype(np.int32)},
+            labels={"stage0": stage0, "stage1": (stage0 != 0).astype(np.int32),
+                    "stage2": map_to_stage2_v6(stage0)[0].astype(np.int32)},
         )
 
     root = WORK / "dataset"
@@ -580,31 +616,50 @@ def make_dataset() -> Path:
     return root
 
 
-def run_cli(dataset: Path, ckpts: dict, mode: str, fgvc: bool, dev) -> dict:
-    out = WORK / "runs" / (f"{mode}_fgvc" if fgvc else mode)
-    argv = [
-        "--variant", "v6", "--dataset-dir", str(dataset), "--block-size", str(HW),
-        "--output-dir", str(out), "--batch-size", str(BATCH),
-        "--stage1-threshold", str(THRESHOLD), "--folded", "--bf16",
-        "--fused-front", mode, "--device", dev.type,
-        "--stage1-checkpoint", str(ckpts["stage1"]),
-        "--stage2-checkpoint", str(ckpts["stage2"]),
-        "--stage3-rect-checkpoint", str(ckpts["rect"]),
-        "--stage3-ab-checkpoint", str(ckpts["fgvc" if fgvc else "ab"]),
-        "--ab-fgvc" if fgvc else "--no-ab-fgvc",
-    ]
-    run_pipeline_eval.main(argv)
+def v6_checkpoints(ckpts: dict, ab: str = "ab") -> list:
+    """The per-stage checkpoint arguments of the CLIs; ``ab`` is ``"ab"``,
+    ``"fgvc"`` or ``"ensemble"`` (a ``save_ensemble`` directory)."""
+    args = ["--stage1-checkpoint", str(ckpts["stage1"]),
+            "--stage2-checkpoint", str(ckpts["stage2"]),
+            "--stage3-rect-checkpoint", str(ckpts["rect"])]
+    if ab == "ensemble":
+        return args + ["--stage3-ab-ensemble-dir", str(ckpts["ensemble"])]
+    return args + ["--stage3-ab-checkpoint", str(ckpts[ab]),
+                   "--ab-fgvc" if ab == "fgvc" else "--no-ab-fgvc"]
+
+
+def quietly(main: Callable, argv: list) -> str:
+    """Run a CLI's ``main``; return what it printed (its summary lines are
+    read, not shown)."""
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        main(argv)
+    return printed.getvalue()
+
+
+def run_cli(dataset: Path, name: str, args: list, dev) -> dict:
+    """The port's ``run_pipeline_eval`` on path a's dataset, bf16, batch 4096,
+    with ``args`` (variant, serving options, checkpoints)."""
+    out = WORK / "runs" / name
+    argv = ["--dataset-dir", str(dataset), "--block-size", str(HW),
+            "--output-dir", str(out), "--batch-size", str(BATCH),
+            "--stage1-threshold", str(THRESHOLD), "--bf16", "--device", dev.type, *args]
+    printed = quietly(run_pipeline_eval.main, argv)
+    summary = json.loads(printed[printed.rindex("{\n"):])  # the CLI's last print
     metrics = json.loads((out / "pipeline_metrics_val.json").read_text())
     preds = np.load(out / "pipeline_predictions_val.npz")
     return {"samples": metrics["samples"],
             "blocks_per_s": metrics["throughput_superblocks_per_sec"],
+            "capacity": metrics["capacity"], "overflow": summary.get("overflow"),
             "final": preds["predictions"], "stage1_prob": preds["stage1_prob"]}
 
 
 def drive(path: str, plan, run_one) -> tuple:
     """One main path: counts set to 0, each ``(name, arg)`` of ``plan``
-    run through ``run_one``, counts read. Returns (runs, launches)."""
+    run through ``run_one``, counts read (and the path's wall seconds
+    emitted). Returns (runs, launches)."""
     _build.reset_launch_counts()
+    t0 = time.perf_counter()
     runs, before = [], dict(_build.launch_counts)
     for name, arg in plan:
         run = run_one(arg)
@@ -614,7 +669,7 @@ def drive(path: str, plan, run_one) -> tuple:
         before = dict(_build.launch_counts)
         runs.append(run)
     launches = dict(_build.launch_counts)
-    emit("main_path", path=path, launches=launches)
+    emit("main_path", path=path, launches=launches, seconds=time.perf_counter() - t0)
     return runs, launches
 
 
@@ -636,6 +691,155 @@ def report_runs(path, runs, base, expect) -> None:
         for kernel in expect(run):
             if run["launches"].get(kernel, 0) == 0:
                 raise AssertionError(f"{run['name']}: {kernel} never launched")
+
+
+def serving_plan(dataset: Path, ckpts: dict, unified_ckpt: Path, dev) -> list:
+    """The second part of path a, in order: the calibration sweep, the gated
+    pipeline at ``auto`` and 0.5, the unified family with each front, the
+    plain graph with TTA and with the AB ensemble, then the tools."""
+    calibration = WORK / "calibration"
+    data = ["--dataset-dir", str(dataset), "--block-size", str(HW),
+            "--batch-size", str(BATCH), "--bf16", "--device", dev.type]
+    unified = ["--variant", "unified", "--unified-checkpoint", str(unified_ckpt), "--folded"]
+    return [
+        ("optimize_thresholds", ("tool", optimize_thresholds.main, data + [
+            "--stage1-checkpoint", str(ckpts["stage1"]), "--output-dir", str(calibration)],
+            ["threshold_sweep.csv", "threshold_summary.json",
+             "stage1_calibrated_variables.npz"])),
+        ("gated_auto", ("cli", ["--folded", "--capacity", "auto", "--capacity-margin",
+                                str(CAPACITY_MARGIN), "--calibration-dir", str(calibration),
+                                *v6_checkpoints(ckpts)])),
+        ("gated_0.5", ("cli", ["--folded", "--capacity", "0.5", *v6_checkpoints(ckpts)])),
+        *((f"unified_{mode}", ("cli", [*unified, "--fused-front", mode]))
+          for mode in ("off", "on", "g1")),
+        ("tta", ("cli", ["--tta", *v6_checkpoints(ckpts)])),
+        ("ensemble", ("cli", v6_checkpoints(ckpts, "ensemble"))),
+        # fp32: a certification of the folded graphs against the plain ones.
+        # In bf16 the seeded random heads put ~5% of the labels within one
+        # rounding of their decision boundary (94.5% agreement on 300 blocks on a CPU).
+        ("certify_serving", ("tool", certify_serving.main, [a for a in data if a != "--bf16"] + [
+            "--output-dir", str(WORK / "certify"), "--stage1-threshold", str(THRESHOLD),
+            "--skip-int8", "--calibration-dir", str(calibration),
+            "--unified-checkpoint", str(unified_ckpt), *v6_checkpoints(ckpts)],
+            ["serving_certification.json", "serving_certification.md"])),
+        ("compare_thresholds", ("tool", compare_thresholds.main, data + [
+            "--output-dir", str(WORK / "operating_points"),
+            "--thresholds", "0.45", "0.5", "0.55", *v6_checkpoints(ckpts)],
+            ["operating_points.json", "operating_points.md"])),
+        ("analyze_confusion", ("tool", analyze_confusion.main, data + [
+            "--output-dir", str(WORK / "confusion"),
+            "--stage2-checkpoint", str(ckpts["stage2"])], ["stage2_confusion.json"])),
+    ]
+
+
+def serve_one(dataset: Path, dev) -> Callable:
+    """``run_one`` of path a: a ``run_pipeline_eval`` run, or a tool CLI whose
+    files must appear (its output directory is the argument after
+    ``--output-dir``)."""
+
+    def run_one(arg):
+        name, (kind, *rest) = arg
+        if kind == "cli":
+            return {**run_cli(dataset, name, rest[0], dev), "kind": kind}
+        main, argv, files = rest
+        out = Path(argv[argv.index("--output-dir") + 1])
+        t0 = time.perf_counter()
+        quietly(main, argv)
+        missing = [f for f in files if not (out / f).exists()]
+        if missing:
+            raise AssertionError(f"{name} did not write {missing}")
+        return {"kind": kind, "seconds": time.perf_counter() - t0, "out": out}
+
+    return run_one
+
+
+def gated_overflow_rows(run: dict) -> np.ndarray:
+    """The rows the gated pipeline sent to the SPLIT fallback, from its own
+    stage-1 probabilities: per batch, the passers outside the K rows that a
+    stable descending sort puts first (``eval.gated``)."""
+    prob = run["stage1_prob"]
+    rows = np.zeros(len(prob), bool)
+    k = max(1, int(-(-run["capacity"] * BATCH // 1)))
+    for start in range(0, len(prob), BATCH):
+        p = prob[start:start + BATCH]
+        chosen = np.zeros(len(p), bool)
+        chosen[np.argsort(-p, kind="stable")[:k]] = True
+        rows[start:start + BATCH] = (p >= THRESHOLD) & ~chosen
+    return rows
+
+
+def check_serving_runs(runs: list, base: dict) -> None:
+    """Path a's second part: serving runs against ``base`` (the per-stage
+    ``off`` run) or the unified ``off`` run, the gated runs' fallback, and the
+    certification's folded rows."""
+    by_name = {run["name"]: run for run in runs}
+    cli = [run for run in runs if run["kind"] == "cli"]
+    report_runs("a_serving", [r for r in cli if not r["name"].startswith("unified")], base,
+                lambda r: [])
+    report_runs("a_serving_unified", [r for r in cli if r["name"].startswith("unified")],
+                by_name["unified_off"], lambda r: FRONT_KERNELS.get(r["name"][8:], []))
+    for name in ("gated_auto", "gated_0.5"):
+        run = by_name[name]
+        rows = gated_overflow_rows(run)
+        kept = ~rows
+        agree_kept = float((run["final"][kept] == base["final"][kept]).mean())
+        emit("gated_cli", run=name, capacity=run["capacity"], overflow=run["overflow"],
+             gate_rate=float((run["stage1_prob"] >= THRESHOLD).mean()),
+             final_agrees_with_off=float((run["final"] == base["final"]).mean()),
+             rows_outside_overflow_agree_with_off=agree_kept,
+             blocks_per_s=run["blocks_per_s"])
+        if run["overflow"] != int(rows.sum()):
+            raise AssertionError(f"{name}: overflow {run['overflow']}, but {rows.sum()} "
+                                 "passers lie outside the K rows")
+        if agree_kept < 0.999:
+            raise AssertionError(f"{name}: only {agree_kept:.5f} of the labels outside the "
+                                 "overflow rows equal the dense run's")
+        if (run["final"][rows] != 1).any():
+            raise AssertionError(f"{name}: an overflow row is not SPLIT")
+    for run in runs:
+        if run["kind"] == "tool":
+            emit("tool", run=run["name"], seconds=run["seconds"], launches=run["launches"],
+                 files=sorted(f.name for f in run["out"].iterdir()))
+    cert = json.loads((by_name["certify_serving"]["out"]
+                       / "serving_certification.json").read_text())
+    emit("certify_serving", capacity=cert["capacity"], rows=cert["rows"])
+    rows = {row["variant"]: row for row in cert["rows"]}
+    for name in ("folded", "unified(folded)"):
+        if rows[name]["agreement_vs_flax"] < 0.99:
+            raise AssertionError(f"certify_serving: the {name} row agrees with its "
+                                 f"plain graph on {rows[name]['agreement_vs_flax']:.4f}")
+    sweep = json.loads((WORK / "calibration" / "threshold_summary.json").read_text())
+    emit("calibration", temperature=sweep["calibration"]["temperature"],
+         ece_raw=sweep["calibration"]["ece_raw"],
+         ece_calibrated=sweep["calibration"]["ece_calibrated"],
+         best_f1_threshold=sweep["f1"]["threshold"])
+
+
+def stacking_phase(ensemble_dir: Path, samples: np.ndarray, dev) -> None:
+    """The AB ensemble's members on ``BATCH`` blocks, then the stacking
+    meta-model fit on the card against the same fit on the CPU (both start
+    from the same host-drawn weights), on labels that follow member 0."""
+    members, _ = load_ensemble(ensemble_dir)
+    images = samples[:BATCH].astype(np.float32) / 1023.0
+    logits = stacked_member_logits(Stage3ABModel(), members, images, batch_size=BATCH,
+                                   device=dev)
+    labels = logits[0].argmax(-1)
+    x = torch.as_tensor(_stacking_features(logits), dtype=torch.float32)
+    y = torch.as_tensor(labels, dtype=torch.int64)
+    objective = lambda w: float(_stacking_objective(torch.as_tensor(w), x, y, 1e-3))
+    t0 = time.perf_counter()
+    w_card = fit_stacking(logits, labels, steps=300, device=dev)
+    seconds = time.perf_counter() - t0
+    w_cpu = fit_stacking(logits, labels, steps=300, device="cpu")
+    start = objective(torch.randn(w_cpu.shape, generator=torch.Generator().manual_seed(0)) * 0.01)
+    fitted = {"card": objective(w_card), "cpu": objective(w_cpu)}
+    emit("stacking", logits_shape=list(logits.shape), classes=int(len(np.unique(labels))),
+         start_objective=start, fitted_objective=fitted, card_seconds=seconds)
+    if not (np.isfinite(logits).all() and np.isfinite(w_card).all()):
+        raise AssertionError("stacking: non-finite member logits or weights")
+    if abs(fitted["card"] - fitted["cpu"]) > 1e-4 or fitted["card"] >= start:
+        raise AssertionError(f"stacking: the card's fit reached {fitted['card']}, the "
+                             f"CPU's {fitted['cpu']}, from {start}")
 
 
 def serve_with_groups(models: PipelineModels, samples: np.ndarray, dev):
@@ -1010,11 +1214,14 @@ def launched_by(fn: Callable) -> dict:
     return {k: v - before[k] for k, v in _build.launch_counts.items() if v - before[k]}
 
 
-def predict_phase(models: PipelineModels, samples: np.ndarray, dev, smi: str) -> None:
+def predict_phase(models: PipelineModels, samples: np.ndarray, dev, smi: str,
+                  capacities: dict) -> None:
     """CUDA-event ms of one 4,096-block bf16 predict on a batch on the card:
-    six samples per mode in ABCDE EDCBA turns (each the mean of 10 predicts;
+    six samples per mode in ABC...CBA turns (each the mean of 10 predicts;
     ``predict_ms`` is their median), with the port's kernels launched per
-    predict and the trace's kernel count, busy time and idle share."""
+    predict and the trace's kernel count, busy time and idle share. The
+    modes are ``PREDICT_MODES`` and the folded gated pipeline at each of
+    ``capacities`` (name: capacity)."""
     batch = torch.from_numpy(samples[:BATCH]).to(dev)
     predicts = {
         name: make_v6_pipeline_folded(models, THRESHOLD, float_dtype=torch.bfloat16,
@@ -1022,6 +1229,9 @@ def predict_phase(models: PipelineModels, samples: np.ndarray, dev, smi: str) ->
                                       device=dev)
         for name, (front, groups) in PREDICT_MODES.items()
     }
+    for name, capacity in capacities.items():
+        predicts[name] = make_v6_pipeline_gated(
+            models, capacity, THRESHOLD, input_dtype=torch.bfloat16, folded=True, device=dev)
     for _ in range(2):  # warm-up: cuDNN plans, the allocator, the clocks
         for predict in predicts.values():
             for _ in range(10):
@@ -1256,13 +1466,17 @@ def main() -> int:
 
     # path a: the serving CLI. A warm-up run pays cuDNN's and the
     # allocator's first calls; then each front once.
+    def front(mode, ab="ab"):
+        return ["--folded", "--fused-front", mode, *v6_checkpoints(ckpts, ab)]
+
     cli_runs, cli_launches = drive("a_cli", [
-        ("off_warmup", ("off", False)), ("off", ("off", False)), ("on", ("on", False)),
-        ("g1", ("g1", False)), ("on_fgvc", ("on", True)),
-    ], lambda arg: dict(run_cli(dataset, ckpts, *arg, dev), mode=arg[0]))
+        (name, (name, args)) for name, args in (
+            ("off_warmup", front("off")), ("off", front("off")), ("on", front("on")),
+            ("g1", front("g1")), ("on_fgvc", front("on", "fgvc")))
+    ], lambda arg: run_cli(dataset, *arg, dev))
     base = cli_runs[1]
-    front_kernel = {"on": ["fused_front"], "g1": ["fused_front_g1"]}
-    report_runs("a_cli", cli_runs, base, lambda r: front_kernel.get(r["mode"], []))
+    report_runs("a_cli", cli_runs, base,
+                lambda r: FRONT_KERNELS.get(r["name"].split("_")[0], []))
 
     # path b: K5 serving, fronts off and on, after a warm-up, in turns
     k5_runs, k5_launches = drive("b_groups", [
@@ -1318,13 +1532,28 @@ def main() -> int:
         if tree_launches[name] == 0:
             raise AssertionError(f"{name} was never launched by the tree cascade")
 
+    # path a, second part: the rest of v6 serving on path a's dataset, with
+    # three seeded AB members as an ensemble and path d's 16 px unified model
+    ckpts["ensemble"] = WORK / "ensemble"
+    members = torch.Generator().manual_seed(SEED + 5)
+    save_ensemble(ckpts["ensemble"], [
+        to_jax_variables(seeded_model(Stage3ABModel, members, calib).state_dict())
+        for _ in range(ENSEMBLE_MEMBERS)])
+    plan = serving_plan(dataset, ckpts, tree_dirs[HW] / "unified_best_variables.npz", dev)
+    serving_runs, serving_launches = drive(
+        "a_serving", [(name, (name, spec)) for name, spec in plan], serve_one(dataset, dev))
+    check_serving_runs(serving_runs, base)
+    stacking_phase(ckpts["ensemble"], val.samples, dev)
+
     launches = {k: cli_launches[k] + k5_launches[k] + api_launches[k] + tree_launches[k]
-                for k in _build.KERNELS}
+                + serving_launches[k] for k in _build.KERNELS}
     for name in KERNELS:
         if launches[name] == 0:
             raise AssertionError(f"{name} was never launched by a main path")
 
-    predict_phase(plain, val.samples, dev, smi)
+    predict_phase(plain, val.samples, dev, smi, {
+        name: next(r["capacity"] for r in serving_runs if r["name"] == name)
+        for name in ("gated_auto", "gated_0.5")})
     cascade_levels_phase(tree_models, clip_sbs, dev, smi)
 
     kernels = []

@@ -16,72 +16,19 @@ import numpy as np
 import pytest
 import torch
 
-from av1tpu import models as jm
 from av1tpu.cli import run_pipeline_eval as jax_cli
-from av1tpu.data.bundles import Bundle, save_split
-from av1tpu.train.checkpoint import save_variables_npz
-from av1tpu_torch import models as tm
 from av1tpu_torch.cli import run_pipeline_eval as port_cli
 from av1tpu_torch.cli.common import load_model_variables
-from tests.torch_port_fixtures import (
-    STAGE1_THRESHOLD,
-    assert_input_sensitive,
-    calibrated_variables,
-    images_u16,
-    top2_margin,
-)
+from tests.torch_port_fixtures import cli_argv as _argv
+from tests.torch_port_fixtures import cli_workspace
 
 REPO = Path(__file__).resolve().parents[1]
-N_VAL = 1024
-MODELS = {  # checkpoint name -> (flax class, port class, seed)
-    "stage1": (jm.Stage1Model, tm.Stage1Model, 90),
-    "stage2": (jm.Stage2Model, tm.Stage2Model, 91),
-    "rect": (jm.Stage3RectModel, tm.Stage3RectModel, 98),
-    "ab": (jm.Stage3ABModel, tm.Stage3ABModel, 93),
-    "fgvc": (jm.FGVCModel, tm.FGVCModel, 94),
-}
-
-
-def _bundle(seed, n):
-    stage0 = np.random.default_rng(seed).integers(0, 10, size=n).astype(np.int32)
-    return Bundle(samples=images_u16(seed, n, 16), qps=np.full(n, 90, np.int32),
-                  labels={"stage0": stage0,
-                          "stage1": (stage0 != 0).astype(np.int32)})
 
 
 @pytest.fixture(scope="module")
 def setup(tmp_path_factory):
-    root = tmp_path_factory.mktemp("torch_port_cli")
-    dataset = root / "dataset"
-    save_split(dataset, 16, _bundle(95, 64), _bundle(96, N_VAL), "v6")
-    ckpts, port = {}, {}
-    for name, (jcls, tcls, seed) in MODELS.items():
-        v = calibrated_variables(jcls(), seed, 16)
-        ckpts[name] = save_variables_npz(root / f"{name}_variables.npz", v)
-        port[name] = tm.load_jax_variables(tcls(), v).eval()
-    val = Bundle.load(dataset / "block_16" / "val.npz")
-    with torch.no_grad():
-        x = torch.from_numpy(val.samples.astype(np.float32) / 1023.0)
-        logits = {name: m(x).numpy() for name, m in port.items()}
-    for lg in logits.values():
-        assert_input_sensitive(lg, 1e-4)
-    s1 = 1 / (1 + np.exp(-logits["stage1"].astype(np.float64)))
-    margins = {name: top2_margin(lg) for name, lg in logits.items() if name != "stage1"}
-    margins["stage1"] = np.abs(s1 - STAGE1_THRESHOLD)
-    return root, dataset, ckpts, margins
-
-
-def _argv(dataset, ckpts, out, fgvc, extra):
-    return [
-        "--variant", "v6", "--dataset-dir", str(dataset), "--block-size", "16",
-        "--output-dir", str(out), "--batch-size", "384",
-        "--stage1-threshold", str(STAGE1_THRESHOLD),
-        "--stage1-checkpoint", str(ckpts["stage1"]),
-        "--stage2-checkpoint", str(ckpts["stage2"]),
-        "--stage3-rect-checkpoint", str(ckpts["rect"]),
-        "--stage3-ab-checkpoint", str(ckpts["fgvc" if fgvc else "ab"]),
-        "--ab-fgvc" if fgvc else "--no-ab-fgvc", *extra,
-    ]
+    ws = cli_workspace(tmp_path_factory.mktemp("torch_port_cli"))
+    return ws["root"], ws["dataset"], ws["ckpts"], ws["margins"]
 
 
 @pytest.mark.parametrize("mode, fgvc, extra", [
@@ -142,10 +89,7 @@ def test_cli_imports_no_jax(setup, tmp_path):
 
 
 @pytest.mark.parametrize("flag, item", [
-    (["--tta"], "M2"), (["--stage3-ab-ensemble-dir", "x"], "M2"),
-    (["--capacity", "0.5"], "M7"), (["--int8"], "M9"),
-    (["--unified-checkpoint", "x"], "M3"), (["--variant", "v5"], "M8"),
-    (["--variant", "flatten"], "M8"), (["--variant", "unified"], "M3"),
+    (["--int8"], "M9"), (["--variant", "v5"], "M8"), (["--variant", "flatten"], "M8"),
 ])
 def test_unported_flags_name_their_roadmap_item(setup, tmp_path, capsys, flag, item):
     _, dataset, ckpts, _ = setup

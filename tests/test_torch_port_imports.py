@@ -20,13 +20,17 @@ from av1tpu_torch.data import bundles as port_bundles
 from av1tpu.data.records import BlockSet as JaxBlockSet
 from av1tpu_torch.data.records import NORM_10BIT
 from av1tpu_torch.eval import (
+    fit_stacking,
     make_unified_pipeline,
     make_unified_pipeline_folded,
     make_v6_pipeline,
     make_v6_pipeline_folded,
+    make_v6_pipeline_gated,
     predict_frame_trees,
     predict_partition_trees,
     run_pipeline_batched,
+    stacked_member_logits,
+    tta_logits,
 )
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -53,7 +57,9 @@ def test_fresh_interpreter_imports_the_port_without_jax_or_av1tpu():
     assert len(report["imported"]) >= 36
     for module in ("codec.tree", "ingest.yuv", "ingest.tiler", "train.augment",
                    "eval.unified", "eval.tree_infer", "eval.tree_metrics",
-                   "cli.predict_trees"):
+                   "cli.predict_trees", "eval.gated", "eval.ensemble", "eval.compare",
+                   "eval.html_report", "cli.optimize_thresholds", "cli.compare_thresholds",
+                   "cli.analyze_confusion", "cli.certify_serving"):
         assert f"av1tpu_torch.{module}" in report["imported"]
     assert report["bad"] == []
 
@@ -180,7 +186,8 @@ def test_split_saved_by_one_package_loads_in_the_other(tmp_path, writer, reader)
 @pytest.mark.parametrize("fn", [make_v6_pipeline, run_pipeline_batched,
                                 make_v6_pipeline_folded, make_unified_pipeline,
                                 make_unified_pipeline_folded, predict_partition_trees,
-                                predict_frame_trees],
+                                predict_frame_trees, make_v6_pipeline_gated,
+                                tta_logits, stacked_member_logits, fit_stacking],
                          ids=lambda f: f.__name__)
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"

@@ -8,15 +8,20 @@ tests need sixteen models (four stages at four block sizes): those are drawn
 and calibrated in torch (:func:`cascade_stage_models`, no jax compile) and
 carried to the JAX package through ``to_jax_variables``.
 """
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 
 from av1tpu import models as jm
+from av1tpu.codec.partitions import map_to_stage2_v6
+from av1tpu.data.bundles import Bundle, save_split
 from av1tpu.utils.initialization import init_on_cpu
 from av1tpu_torch import models as tm
 from av1tpu_torch.models import to_jax_variables
+from av1tpu_torch.train.checkpoint import save_variables_npz
 from chip_smoke import seeded_model, set_first_class_share, structured_luma
 
 STAGE1_THRESHOLD = 0.45
@@ -166,3 +171,69 @@ def top2_margin(logits: np.ndarray) -> np.ndarray:
     """Per-sample gap between the two largest logits."""
     top = np.sort(np.asarray(logits), axis=-1)
     return top[:, -1] - top[:, -2]
+
+
+# The CLI parity tests' checkpoints: name -> (flax class, port class, seed)
+CLI_MODELS = {
+    "stage1": (jm.Stage1Model, tm.Stage1Model, 90),
+    "stage2": (jm.Stage2Model, tm.Stage2Model, 91),
+    "rect": (jm.Stage3RectModel, tm.Stage3RectModel, 98),
+    "ab": (jm.Stage3ABModel, tm.Stage3ABModel, 93),
+    "fgvc": (jm.FGVCModel, tm.FGVCModel, 94),
+}
+
+
+def cli_bundle(seed: int, n: int) -> Bundle:
+    """A 16 px v6 split of ``n`` uniform blocks with random raw labels and
+    the stage-1 and stage-2 views the CLIs read."""
+    stage0 = np.random.default_rng(seed).integers(0, 10, size=n).astype(np.int32)
+    return Bundle(samples=images_u16(seed, n, 16), qps=np.full(n, 90, np.int32),
+                  labels={"stage0": stage0,
+                          "stage1": (stage0 != 0).astype(np.int32),
+                          "stage2": map_to_stage2_v6(stage0)[0].astype(np.int32)})
+
+
+def cli_workspace(root: Path, n_val: int = 1024, names=tuple(CLI_MODELS)) -> dict:
+    """What the CLI parity tests share: a 16 px dataset (64 train, ``n_val``
+    val blocks) under ``root/dataset``, one npz checkpoint per
+    :data:`CLI_MODELS` entry in ``names`` (uncompressed: random weights do not
+    compress, and every CLI run loads them), the port models holding the
+    same weights, and
+    each model's decision margins on the val blocks (``stage1``: distance of
+    the probability from :data:`STAGE1_THRESHOLD`; the others: top-2 logit
+    gap). Every model passes the F2 guard on the val blocks."""
+    dataset = root / "dataset"
+    save_split(dataset, 16, cli_bundle(95, 64), cli_bundle(96, n_val), "v6")
+    ckpts, port, variables = {}, {}, {}
+    for name in names:
+        jcls, tcls, seed = CLI_MODELS[name]
+        variables[name] = calibrated_variables(jcls(), seed, 16)
+        ckpts[name] = save_variables_npz(root / f"{name}_variables.npz", variables[name],
+                                         compress=False)
+        port[name] = tm.load_jax_variables(tcls(), variables[name]).eval()
+    val = Bundle.load(dataset / "block_16" / "val.npz")
+    with torch.no_grad():
+        x = torch.from_numpy(val.samples.astype(np.float32) / 1023.0)
+        logits = {name: m(x).numpy() for name, m in port.items()}
+    for lg in logits.values():
+        assert_input_sensitive(lg, 1e-4)
+    s1 = 1 / (1 + np.exp(-logits["stage1"].astype(np.float64)))
+    margins = {name: top2_margin(lg) for name, lg in logits.items() if name != "stage1"}
+    margins["stage1"] = np.abs(s1 - STAGE1_THRESHOLD)
+    return {"root": root, "dataset": dataset, "ckpts": ckpts, "port": port,
+            "variables": variables, "val": val, "margins": margins}
+
+
+def cli_argv(dataset, ckpts, out, fgvc: bool, extra) -> list:
+    """``run_pipeline_eval`` arguments of both packages for the v6 variant on
+    :func:`cli_workspace`'s files, fp32, batch 384."""
+    return [
+        "--variant", "v6", "--dataset-dir", str(dataset), "--block-size", "16",
+        "--output-dir", str(out), "--batch-size", "384",
+        "--stage1-threshold", str(STAGE1_THRESHOLD),
+        "--stage1-checkpoint", str(ckpts["stage1"]),
+        "--stage2-checkpoint", str(ckpts["stage2"]),
+        "--stage3-rect-checkpoint", str(ckpts["rect"]),
+        "--stage3-ab-checkpoint", str(ckpts["fgvc" if fgvc else "ab"]),
+        "--ab-fgvc" if fgvc else "--no-ab-fgvc", *extra,
+    ]
