@@ -1,14 +1,16 @@
 """CLI: accuracy certification of the serving paths (PyTorch port).
 
-Evaluates the same v6 checkpoints through every serving formulation the port
-has (the plain nn.Module graph, BN-folded, capacity-gated over the folded
-stages and, with ``--unified-checkpoint``, the unified family plain and
-folded) on one dataset split, and writes the accuracy / agreement table of
+Evaluates the same v6 checkpoints through every serving formulation (the
+plain nn.Module graph, BN-folded, int8, capacity-gated over the folded
+stages and, with ``--unified-checkpoint``, the unified family plain, folded
+and int8) on one dataset split, and writes the accuracy / agreement table of
 ``av1tpu.cli.certify_serving`` (``serving_certification.json`` and ``.md``).
 The plain graph's row keeps the JAX package's name, ``flax``, so that both
-packages write the same keys.
+packages write the same keys. The int8 rows calibrate on a seeded subsample
+of ``--calib-samples`` train blocks, as the JAX CLI does; ``--skip-int8``
+leaves them out.
 
-    python -m av1tpu_torch.cli.certify_serving --skip-int8 \
+    python -m av1tpu_torch.cli.certify_serving \
         --dataset-dir runs/scale_demo/v6_dataset --block-size 16 \
         --stage1-checkpoint .../stage1_best_variables.npz \
         --stage2-checkpoint .../stage2_best_variables.npz \
@@ -17,7 +19,6 @@ packages write the same keys.
         --calibration-dir runs/scale_demo/calibration \
         --output-dir runs/certify_serving --bf16
 
-The int8 rows wait for ROADMAP M9: without ``--skip-int8`` the CLI exits.
 Each timed pass follows one warm-up batch, which pays cuDNN's first calls.
 """
 from __future__ import annotations
@@ -30,7 +31,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from av1tpu_torch.cli.common import add_not_ported_flags, load_model, load_split
+from av1tpu_torch.cli.common import load_model, load_split, train_calibration_blocks
 from av1tpu_torch.codec.partitions import raw_to_v6_final
 from av1tpu_torch.eval import (
     PipelineModels,
@@ -52,6 +53,7 @@ from av1tpu_torch.models import (
     Stage3RectModel,
     UnifiedV6Model,
 )
+from av1tpu_torch.quant import make_unified_pipeline_int8, make_v6_pipeline_int8
 
 
 def _evaluate(name, predict, samples, labels, batch_size, device, reference_final):
@@ -96,8 +98,8 @@ def main(argv=None) -> None:
                         help="optimize_thresholds output; sizes the gated "
                         "row's capacity from the calibrated gate rate (else 0.5)")
     parser.add_argument("--capacity-margin", type=float, default=0.1)
-    parser.add_argument("--skip-int8", action="store_true",
-                        help="required until the int8 rows are ported (ROADMAP M9)")
+    parser.add_argument("--skip-int8", action="store_true")
+    parser.add_argument("--calib-samples", type=int, default=512)
     parser.add_argument("--single-device", action="store_true",
                         help="accepted for compatibility: one device is the "
                         "only mode until ROADMAP M11")
@@ -110,10 +112,7 @@ def main(argv=None) -> None:
     parser.add_argument("--unified-threshold", type=float, default=None,
                         help="stage-1 gate for the unified rows (default: "
                         "--stage1-threshold)")
-    add_not_ported_flags(parser, {"--calib-samples": "M9"})
     args = parser.parse_args(argv)
-    if not args.skip_int8:
-        parser.error("the int8 rows are not ported yet (ROADMAP M9); pass --skip-int8")
     if args.device == "cuda" and not torch.cuda.is_available():
         parser.error("--device cuda: no CUDA device is available")
     device = torch.device(args.device)
@@ -144,6 +143,13 @@ def main(argv=None) -> None:
         models, stage1_threshold=threshold, float_dtype=dtype, device=device),
         flax_final)
     rows.append(row)
+    calib = None if args.skip_int8 else train_calibration_blocks(train_b.samples,
+                                                                 args.calib_samples)
+    if calib is not None:
+        row, _ = evaluate("int8", make_v6_pipeline_int8(
+            models, calib, stage1_threshold=threshold, float_dtype=dtype, device=device),
+            flax_final)
+        rows.append(row)
 
     capacity = 0.5
     if args.calibration_dir is not None:
@@ -171,6 +177,12 @@ def main(argv=None) -> None:
             uni_final)
         row["agreement_reference"] = "unified flax"
         rows.append(row)
+        if calib is not None:
+            row, _ = evaluate("unified(int8)", make_unified_pipeline_int8(
+                unified, calib, stage1_threshold=uni_thr, float_dtype=dtype,
+                device=device), uni_final)
+            row["agreement_reference"] = "unified flax"
+            rows.append(row)
 
     out = Path(args.output_dir)
     out.mkdir(parents=True, exist_ok=True)

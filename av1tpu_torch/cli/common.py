@@ -1,5 +1,6 @@
 """Shared CLI plumbing: dataset splits, checkpoint and model loading, one
-model's outputs over a split, and the flags of the JAX CLIs that are not ported yet.
+model's outputs over a split, the int8 calibration subsample, and the flags
+of the JAX CLIs that are not ported yet.
 
 Dataset bundles are ``av1tpu_torch.data.bundles``, the port's own copy of
 the JAX package's format (same npz keys and ``metadata.json``)."""
@@ -66,6 +67,15 @@ def model_outputs(model: nn.Module, head: Callable, samples: np.ndarray,
     return run_pipeline_batched(predict, samples, batch_size, device)["out"]
 
 
+def train_calibration_blocks(train_samples: np.ndarray, n: int) -> np.ndarray:
+    """The int8 calibration blocks of the JAX CLIs: ``min(n, len)`` rows of
+    the train split drawn without replacement by ``default_rng(0)``, in row
+    order."""
+    idx = np.random.default_rng(0).choice(
+        len(train_samples), size=min(n, len(train_samples)), replace=False)
+    return train_samples[np.sort(idx)]
+
+
 def add_not_ported_flags(parser: argparse.ArgumentParser,
                          flags: Mapping[str, str]) -> None:
     """Register each flag of ``flags`` (flag -> ROADMAP item that ports it)
@@ -84,4 +94,4 @@ def add_not_ported_flags(parser: argparse.ArgumentParser,
 
 
 __all__ = ["add_not_ported_flags", "load_model", "load_model_variables", "load_split",
-           "model_outputs"]
+           "model_outputs", "train_calibration_blocks"]

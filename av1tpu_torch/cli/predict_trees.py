@@ -14,9 +14,10 @@ Each ``--models-<S>`` directory holds that block size's four stage
 checkpoints (stage1/stage2/stage3_rect/stage3_ab ``*_best_variables.npz``),
 or with ``--unified`` one ``unified_best_variables.npz``. Outputs, as
 ``av1tpu.cli.predict_trees`` writes them: ``trees_frame<N>.npz`` (trees +
-per-level modes + grid) and a JSON stats summary. ``--device`` and
-``--fused-front`` are the port's own; flags not ported yet exit with the
-ROADMAP item that will bring them.
+per-level modes + grid) and a JSON stats summary. ``--int8`` serves every
+level through the int8 pipelines (``quant.ptq``), each calibrated on the
+clip's own blocks of its size, drawn as the JAX CLI draws them. ``--device``
+and ``--fused-front`` are the port's own.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from av1tpu_torch.cli.common import add_not_ported_flags, load_model_variables
+from av1tpu_torch.cli.common import load_model_variables
 from av1tpu_torch.codec.tree import LEVEL_SIZES, tree_depth_stats
 from av1tpu_torch.eval import (
     PipelineModels,
@@ -51,6 +52,7 @@ from av1tpu_torch.models import (
     UnifiedV6Model,
     load_jax_variables,
 )
+from av1tpu_torch.quant import make_unified_pipeline_int8, make_v6_pipeline_int8
 
 CKPT_NAMES = {
     "stage1": (Stage1Model, "stage1_best_variables.npz"),
@@ -58,22 +60,27 @@ CKPT_NAMES = {
     "stage3_rect": (Stage3RectModel, "stage3_rect_best_variables.npz"),
 }
 UNIFIED_CKPT_NAME = "unified_best_variables.npz"
-NOT_PORTED = {"--int8": "M9", "--int8-calib-blocks": "M9"}  # flag -> ROADMAP item
 FUSED_FRONT = {"off": False, "on": True, "g1": "g1"}
 
 
 def build_level_predictor(
     model_dir: Path, threshold: float, dtype, ab_fgvc: bool, device="cuda",
     folded: bool = False, tta: bool = False, tta_align_ab: bool = False,
-    unified: bool = False, use_fused_front=False,
+    unified: bool = False, use_fused_front=False, int8_calib=None,
 ):
-    """One level's ``predict`` from the checkpoints in ``model_dir``."""
+    """One level's ``predict`` from the checkpoints in ``model_dir``; the
+    int8 pipeline when ``int8_calib`` (uint16 calibration blocks) is given."""
     if unified:
         # single-backbone family (models.UnifiedV6Model): one checkpoint
         # per level serves the whole hierarchy, same output contract
         model = load_jax_variables(
             UnifiedV6Model(), load_model_variables(model_dir / UNIFIED_CKPT_NAME)
         ).eval()
+        if int8_calib is not None:
+            return make_unified_pipeline_int8(
+                model, int8_calib, stage1_threshold=threshold, float_dtype=dtype,
+                use_fused_front=use_fused_front, device=device,
+            )
         if folded:
             return make_unified_pipeline_folded(
                 model, stage1_threshold=threshold, float_dtype=dtype,
@@ -100,6 +107,11 @@ def build_level_predictor(
         loaded["stage1"], loaded["stage2"], loaded["stage3_rect"],
         load_jax_variables(ab_cls(), ab_vars).eval(),
     )
+    if int8_calib is not None:
+        return make_v6_pipeline_int8(
+            models, int8_calib, stage1_threshold=threshold, float_dtype=dtype,
+            use_fused_front=use_fused_front, device=device,
+        )
     if folded:
         return make_v6_pipeline_folded(
             models, stage1_threshold=threshold, float_dtype=dtype,
@@ -123,6 +135,34 @@ def normalize_thresholds(values):
             f"got {len(values)}"
         )
     return values
+
+
+def int8_calibration_blocks(yuv: Path, geom: Yuv420p10Geometry, frames,
+                            max_blocks: int) -> dict:
+    """``{size: (k, size, size, 1) uint16}``: the self-serve calibration set
+    of each level, as the JAX CLI draws it. The superblocks of up to four
+    evenly spaced requested frames, cut into blocks of each size; ``k =
+    min(max(1, max_blocks), blocks)`` of them drawn without replacement by one
+    ``default_rng(0)`` in level order 64, 32, 16, 8, kept in row order. A
+    single frame's scales drift out of range across later content, so the
+    sample spans the clip."""
+    n_calib_frames = min(4, len(frames))
+    calib_frames = sorted({
+        frames[round(i * (len(frames) - 1) / max(1, n_calib_frames - 1))]
+        for i in range(n_calib_frames)
+    })
+    sbs = np.concatenate([tile_frame(read_y_frame(yuv, f, geom), 64)[0]
+                          for f in calib_frames])
+    rng = np.random.default_rng(0)
+    out = {}
+    for size in LEVEL_SIZES:
+        f = 64 // size
+        blocks = (sbs.reshape(-1, f, size, f, size).transpose(0, 1, 3, 2, 4)
+                  .reshape(-1, size, size))
+        k = min(max(1, max_blocks), blocks.shape[0])
+        idx = rng.choice(blocks.shape[0], size=k, replace=False)
+        out[size] = blocks[np.sort(idx)][..., None]
+    return out
 
 
 def split_group_result(result, n_frames, frame_sbs, j):
@@ -200,7 +240,19 @@ def build_parser() -> argparse.ArgumentParser:
                         default="off",
                         help="with --folded: at the 16 and 8 px levels, "
                         "stem+maxpool as kernel K1 (on) or stem+maxpool+"
-                        "layer group 1+SE1 as kernel K2 (g1)")
+                        "layer group 1+SE1 as kernel K2 (g1); with --int8: "
+                        "on (K1) only")
+    parser.add_argument("--int8", action="store_true",
+                        help="serve each level through the int8 PTQ graph "
+                        "(quant.ptq hybrid lowering). Calibration is "
+                        "self-serve: each level calibrates on the clip's own "
+                        "blocks of its size, sampled across up to 4 evenly "
+                        "spaced requested frames. Incompatible with --folded/"
+                        "--tta (int8 is its own folded graph); an FGVC AB "
+                        "checkpoint stays float inside the pipeline")
+    parser.add_argument("--int8-calib-blocks", type=int, default=256,
+                        help="with --int8: max calibration blocks sampled "
+                        "per level size across the calibration frames")
     parser.add_argument("--tta", action="store_true",
                         help="average each stage over the 4 TTA views "
                         "(original/hflip/vflip/rot180) at every level, four "
@@ -212,7 +264,6 @@ def build_parser() -> argparse.ArgumentParser:
                         "through the training swap tables before averaging. "
                         "DEFAULT ON with --tta: the naive mean "
                         "(--no-tta-align-ab) mixes the swapped pairs")
-    add_not_ported_flags(parser, NOT_PORTED)
     return parser
 
 
@@ -221,10 +272,15 @@ def main(argv=None) -> None:
     args = parser.parse_args(argv)
     if args.tta and args.folded:
         parser.error("--tta is incompatible with --folded")
+    if args.int8 and (args.tta or args.folded):
+        parser.error("--int8 is a distinct serving path (no --tta/--folded)")
     if args.tta_align_ab and not args.tta:
         parser.error("--tta-align-ab requires --tta")
-    if args.fused_front != "off" and not args.folded:
-        parser.error("--fused-front needs --folded")
+    if args.fused_front != "off" and not (args.folded or args.int8):
+        parser.error("--fused-front needs --folded or --int8")
+    if args.int8 and args.fused_front == "g1":
+        parser.error("--fused-front g1: the int8 graph has no group-1 hook; "
+                     "use --fused-front on")
     tta_align_ab = args.tta and args.tta_align_ab is not False
 
     if args.resolution:
@@ -244,12 +300,16 @@ def main(argv=None) -> None:
         thresholds = normalize_thresholds(args.stage1_threshold)
     except ValueError as e:
         parser.error(str(e))
+    calib_by_size = (int8_calibration_blocks(args.yuv, geom, args.frames,
+                                             args.int8_calib_blocks)
+                     if args.int8 else dict.fromkeys(LEVEL_SIZES))
     predictors = {
         size: build_level_predictor(
             getattr(args, f"models_{size}"), threshold, dtype,
             args.ab_fgvc, device=device, folded=args.folded,
             tta=args.tta, tta_align_ab=tta_align_ab, unified=args.unified,
             use_fused_front=FUSED_FRONT[args.fused_front],
+            int8_calib=calib_by_size[size],
         )
         for size, threshold in zip(LEVEL_SIZES, thresholds)
     }

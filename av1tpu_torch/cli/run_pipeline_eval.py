@@ -14,10 +14,13 @@ predictions npz, optional CSV, text report) except the confusion PNG.
 ``--variant unified --unified-checkpoint ...`` serves the single-trunk
 family; ``--tta``, ``--stage3-ab-ensemble-dir`` and ``--capacity`` (a float
 or ``auto`` with ``--calibration-dir``) select the plain graph's options and
-the capacity-gated pipeline as in the JAX CLI. ``--fused-front`` passes
-``use_fused_front`` (off/on/g1) to the folded pipeline, per-stage or unified;
-the gated pipeline has no fused front. Flags and variants not ported yet exit
-with the ROADMAP item that will bring them.
+the capacity-gated pipeline as in the JAX CLI. ``--int8`` serves the
+post-training-quantized pipeline (``quant.ptq``), calibrated on a seeded
+subsample of ``--calib-samples`` train blocks, the JAX CLI's rows in its
+order. ``--fused-front`` passes ``use_fused_front`` (off/on/g1) to the folded
+pipeline, per-stage or unified, and (off/on) to the int8 one; the gated
+pipeline has no fused front. Flags and variants not ported yet exit with the
+ROADMAP item that will bring them.
 """
 from __future__ import annotations
 
@@ -30,7 +33,12 @@ import numpy as np
 import torch
 
 from av1tpu_torch.codec.partitions import V6_EVAL_CLASS_NAMES, raw_to_v6_final
-from av1tpu_torch.cli.common import add_not_ported_flags, load_model, load_split
+from av1tpu_torch.cli.common import (
+    add_not_ported_flags,
+    load_model,
+    load_split,
+    train_calibration_blocks,
+)
 from av1tpu_torch.eval import (
     PipelineModels,
     auto_capacity,
@@ -59,12 +67,12 @@ from av1tpu_torch.models import (
     UnifiedV6Model,
     load_jax_variables,
 )
+from av1tpu_torch.quant import make_unified_pipeline_int8, make_v6_pipeline_int8
 
 # flag -> ROADMAP item that ports it
 NOT_PORTED = {
     "--flatten-checkpoint": "M8", "--v5-checkpoint": "M8",
     "--available-specialists": "M8",
-    "--int8": "M9", "--calib-samples": "M9",
 }
 VARIANTS_NOT_PORTED = {"v5": "M8", "flatten": "M8"}
 FUSED_FRONT = {"off": False, "on": True, "g1": "g1"}
@@ -134,7 +142,14 @@ def build_parser() -> argparse.ArgumentParser:
                         default="off",
                         help="with --folded: stem+maxpool as kernel K1 (on) "
                         "or stem+maxpool+layer group 1+SE1 as kernel K2 (g1), "
-                        "per-stage or unified")
+                        "per-stage or unified; with --int8: on (K1) only")
+    parser.add_argument("--int8", action="store_true",
+                        help="serve the post-training-quantized int8 pipeline "
+                        "(quant.ptq): BN-folded weights, per-channel int8, "
+                        "activations calibrated on --calib-samples train "
+                        "blocks. An FGVC AB model stays float inside it")
+    parser.add_argument("--calib-samples", type=int, default=512,
+                        help="calibration batch size for --int8")
     add_not_ported_flags(parser, NOT_PORTED)
     return parser
 
@@ -156,8 +171,19 @@ def build_v6(args, dtype, device):
     )
     if args.tta_align_ab and not args.tta:
         raise SystemExit("--tta-align-ab requires --tta")
-    if args.folded and (args.tta or ab_ensemble is not None):
-        raise SystemExit("--int8/--folded are incompatible with --tta/ensembles")
+    if args.int8 or args.folded:
+        if args.tta or ab_ensemble is not None:
+            raise SystemExit("--int8/--folded are incompatible with --tta/ensembles")
+        if args.int8 and args.folded:
+            raise SystemExit("--int8 and --folded are distinct serving paths; pick one")
+        if args.int8 and args.capacity is not None:
+            raise SystemExit("--int8 is incompatible with --capacity")
+    if args.int8:
+        return make_v6_pipeline_int8(
+            models, args.calib_images, stage1_threshold=args.stage1_threshold,
+            float_dtype=dtype, use_fused_front=FUSED_FRONT[args.fused_front],
+            device=device,
+        )
     if args.capacity is not None:
         if args.tta or ab_ensemble is not None:
             raise SystemExit("--capacity is incompatible with --tta/ensembles")
@@ -182,6 +208,14 @@ def build_unified(args, dtype, device):
     model = load_model(args.unified_checkpoint, UnifiedV6Model)
     if args.tta_align_ab and not args.tta:
         raise SystemExit("--tta-align-ab requires --tta")
+    if args.int8:
+        if args.tta or args.folded:
+            raise SystemExit("--int8 is a distinct serving path (no --tta/--folded)")
+        return make_unified_pipeline_int8(
+            model, args.calib_images, stage1_threshold=args.stage1_threshold,
+            float_dtype=dtype, use_fused_front=FUSED_FRONT[args.fused_front],
+            device=device,
+        )
     if args.folded:
         if args.tta:
             raise SystemExit("--folded is incompatible with --tta")
@@ -225,8 +259,11 @@ def main(argv=None) -> None:
                      f"(ROADMAP {VARIANTS_NOT_PORTED[args.variant]})")
     if args.variant == "unified" and args.capacity is not None:
         parser.error("--capacity is only supported with --variant v6")
-    if args.fused_front != "off" and not args.folded:
-        parser.error("--fused-front needs --folded")
+    if args.fused_front != "off" and not (args.folded or args.int8):
+        parser.error("--fused-front needs --folded or --int8")
+    if args.int8 and args.fused_front == "g1":
+        parser.error("--fused-front g1: the int8 graph has no group-1 hook; "
+                     "use --fused-front on")
     if args.capacity is not None and args.fused_front != "off":
         parser.error("--capacity: the gated pipeline has no fused front; "
                      "use --fused-front off")
@@ -247,6 +284,11 @@ def main(argv=None) -> None:
 
     train_b, val_b, _ = load_split(args.dataset_dir, args.block_size)
     bundle = val_b if args.split == "val" else train_b
+    # int8 calibration: a seeded random subsample of the TRAIN split, never
+    # the evaluated one (bundles are frame-sequential, so the first rows
+    # would calibrate on one frame's content)
+    args.calib_images = (train_calibration_blocks(train_b.samples, args.calib_samples)
+                         if args.int8 else None)
     build = build_v6 if args.variant == "v6" else build_unified
     predict = build(args, dtype, device)
     class_names = list(V6_EVAL_CLASS_NAMES)
@@ -271,7 +313,7 @@ def main(argv=None) -> None:
         "split": args.split,
         "threshold": args.stage1_threshold,
         "samples": len(bundle),
-        "int8": False,
+        "int8": bool(args.int8),
         "folded": bool(args.folded),
         "capacity": args.capacity,
         "throughput_superblocks_per_sec": throughput,
@@ -302,7 +344,7 @@ def main(argv=None) -> None:
         "stage1_f1": stage1_metrics["f1"],
         "throughput_superblocks_per_sec": round(throughput, 1),
     }
-    serving = (f"device: {args.device}, folded: {args.folded}, "
+    serving = (f"device: {args.device}, folded: {args.folded}, int8: {args.int8}, "
                f"fused front: {args.fused_front}")
     if "overflow" in out:  # gate-passing samples beyond K, sent to SPLIT
         summary["overflow"] = int(out["overflow"].sum())

@@ -16,6 +16,11 @@ unified model's ``head_stage1|head_stage2|head_rect|head_ab`` likewise),
 ``proj_dense<l>|proj_bn<l>`` <-> ``feat_proj.<4l>|<4l+1>``, the stage-1
 ``temperature`` <-> ``head.temperature``, the unified model's top-level
 ``temperature`` <-> ``temperature`` (the tree that has no ``head`` module).
+
+``quant_model_from_arrays`` builds the port's int8 model from an int8
+state held as numpy arrays (scales, int8 weights, corrected biases, the
+hybrid plan, the calibration absmax), so a test can carry the JAX package's
+quantized state across without the port importing it.
 """
 from __future__ import annotations
 
@@ -146,4 +151,51 @@ def load_jax_variables(model: nn.Module, variables: Mapping[str, Any]) -> nn.Mod
     return model
 
 
-__all__ = ["from_jax_variables", "load_jax_variables", "to_jax_variables"]
+def _tensors(tree, device):
+    if isinstance(tree, Mapping):
+        return {k: _tensors(v, device) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree, order="C")).to(device)
+
+
+def quant_model_from_arrays(model: nn.Module, scales: Mapping, qw: Mapping,
+                            qbias: Any, plan: Mapping, calib_amax: Mapping,
+                            float_dtype=torch.float32, device="cpu"):
+    """The port's int8 model of ``model`` (a v6 stage model or a
+    ``UnifiedV6Model`` holding the weights that were quantized) carrying
+    another quantizer's state, given as plain numpy arrays in the JAX
+    package's layouts: ``scales`` (site -> ``(inv, s_x)``), ``qw`` (weight key
+    -> ``(int8 (K, O), s_w)``), ``qbias`` (weight key -> bias, or None),
+    ``plan`` (``hw``, ``blocks``, and ``smm_w`` / ``smm_b`` per weight key) and
+    ``calib_amax`` (site -> absmax). The folded float weights come from
+    ``model``. Returns a ``quant.ptq.QuantStageModel`` or
+    ``QuantUnifiedModel`` on ``device``."""
+    from av1tpu_torch.quant import ptq
+
+    device = torch.device(device)
+    folded = ptq.cast_tree(ptq.jax_layout_backbone(ptq.fold_backbone(model.backbone)),
+                           device, torch.float32)
+    state = dict(
+        scales={site: (_tensors(inv, device), float(s_x))
+                for site, (inv, s_x) in scales.items()},
+        qw={wkey: (_tensors(w, device), _tensors(s, device))
+            for wkey, (w, s) in qw.items()},
+        float_dtype=float_dtype,
+        qbias=None if qbias is None else _tensors(qbias, device),
+        plan={"hw": int(plan["hw"]),
+              "blocks": {n: dict(b) for n, b in plan["blocks"].items()},
+              "smm_w": _tensors(plan["smm_w"], device),
+              "smm_b": _tensors(plan["smm_b"], device)},
+        calib_amax={site: np.asarray(v, np.float64) for site, v in calib_amax.items()},
+    )
+    if hasattr(model, "head"):
+        head = ptq.cast_tree(ptq.jax_layout_head(ptq.fold_head(model.head)), device,
+                             torch.float32)
+        return ptq.QuantStageModel(folded, head, **state)
+    heads = {name: ptq.cast_tree(ptq.jax_layout_head(ptq.fold_head(getattr(model, name))),
+                                 device, torch.float32)
+             for name in ptq._UNIFIED_HEADS}
+    return ptq.QuantUnifiedModel(folded, heads, **state)
+
+
+__all__ = ["from_jax_variables", "load_jax_variables", "quant_model_from_arrays",
+           "to_jax_variables"]

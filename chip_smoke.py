@@ -41,9 +41,10 @@ Run from the root of a checkout. Phases, one JSON line each:
           ``--fused-front off`` (after a warm-up), ``on`` and ``g1``, the same
           with ``--unified``, one run with ``--level-capacity 1 0.75 0.38
           0.15`` (a group without overflow must agree with the dense run on
-          99.9% of its slots), and ``predict_partition_trees`` with K5
-          predictors, fronts off and on (K1 and K2 at 16 and 8 px, K5 at
-          every extent);
+          99.9% of its slots), ``--int8 --fused-front on`` per-stage and
+          ``--unified`` (K1 at 16 and 8 px on the int8 path), and
+          ``predict_partition_trees`` with K5 predictors, fronts off and on
+          (K1 and K2 at 16 and 8 px, K5 at every extent);
        then path a's second part (``a_serving``), on path a's dataset, bf16,
        batch 4096: ``optimize_thresholds`` on the stage-1 checkpoint (the
        calibration directory of what follows); ``--folded --capacity auto
@@ -54,13 +55,26 @@ Run from the root of a checkout. Phases, one JSON line each:
        --folded --fused-front off|on|g1`` with path d's 16 px unified model
        (K1, K2); ``--tta`` and ``--stage3-ab-ensemble-dir`` (three seeded AB
        members saved with ``save_ensemble``) on the plain graph; then
-       ``certify_serving --skip-int8`` in fp32 (its folded and
+       ``certify_serving`` in fp32, int8 rows included (its folded and
        unified(folded) rows agree with their plain graphs on 99%),
        ``compare_thresholds`` and ``analyze_confusion``, each of which must
        write its files; after it (phase ``stacking``, outside the path) the
        three members' logits on 4,096 of its blocks and the stacking
        meta-model fit on them on the card, whose objective must equal the
        CPU fit's within 1e-4 and fall below the starting weights';
+       e. int8 serving (``quant.ptq``), calibrated on 512 train rows of path
+          a's dataset drawn as the CLI draws them. First, outside the path:
+          ``_int_mm`` on the card against the CPU's product at a group-1
+          conv, an SMM conv and two head layers (exact); a stage and a
+          unified model quantized on the CPU and moved to the card, their
+          per-site int8 activations, logits and labels against the CPU's, in
+          fp32 and bf16; K1's launches per predict (4 per-stage, 1 unified,
+          none without the fused front), K1-on labels against K1-off labels,
+          int8 labels and stage-1 probabilities against the folded fp32
+          pipeline, the seconds calibration and quantization take, and the
+          per-stage pipeline at 8 px with K1. Then the path: the port's
+          ``run_pipeline_eval --int8`` per-stage and ``--variant unified``,
+          fp32 and ``--bf16``, ``--fused-front off`` and ``on``;
      each run prints blocks/s (or frames/s and superblocks/s), its launches,
      and its agreement with its path's ``off`` run;
   6. predict: the CUDA-event time of one 4,096-block bf16 predict on a
@@ -68,7 +82,8 @@ Run from the root of a checkout. Phases, one JSON line each:
      off / on and the gated pipeline at path a's ``auto`` capacity and at
      0.5, in ABC...CBA turns, and from a ``torch.profiler`` trace the
      kernels launched per predict, the device's busy time and idle share;
-     then the same per level of the cascade for one group of four frames
+     then int8 (bf16) with K1 off and on beside the folded ``off``; then the
+     same per level of the cascade for one group of four frames
      (``cascade_level``: per-stage off / g1 / K5+K1 and unified g1);
   7. timing: each kernel, its plain version and, for K4, one library call
      (``torch.addmm`` + ``relu_``) in turns at the main paths' shapes, K1 and
@@ -163,7 +178,13 @@ from av1tpu_torch.models import (  # noqa: E402
     split_unified_logits,
     to_jax_variables,
 )
-from av1tpu_torch.quant.ptq import fold_backbone  # noqa: E402
+from av1tpu_torch.cli.common import train_calibration_blocks  # noqa: E402
+from av1tpu_torch.quant import ptq  # noqa: E402
+from av1tpu_torch.quant.ptq import (  # noqa: E402
+    fold_backbone,
+    make_unified_pipeline_int8,
+    make_v6_pipeline_int8,
+)
 from av1tpu_torch.train.checkpoint import save_variables_npz  # noqa: E402
 
 SEED = 0
@@ -209,6 +230,14 @@ WORK = ROOT / "build" / "chip_smoke"
 FRONT_KERNELS = {"on": ["fused_front"], "g1": ["fused_front_g1"]}  # by --fused-front
 CAPACITY_MARGIN = 0.1     # --capacity auto's headroom over the calibrated gate rate
 ENSEMBLE_MEMBERS = 3      # seeded AB members of --stage3-ab-ensemble-dir
+N_TRAIN = 4096            # train rows of path a's dataset: int8 calibration draws from them
+INT8_CALIB = 512          # --calib-samples' default
+# The int8 graph on the card against the same model on the CPU, held to the
+# bounds tests/test_torch_port_int8.py holds the two packages to: the least
+# share of equal int8 activations at a site, the share of equal labels, and
+# the largest margin at which a label may differ (int8 noise: a flipped
+# activation spreads).
+INT8_SITE_SHARE, INT8_LABEL_SHARE, INT8_MARGIN = 0.98, 0.97, 0.25
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "fused_front": ("av1tpu_torch/csrc/fused_front.cu",
                     "av1tpu/kernels/fused_front.py:105"),
@@ -612,7 +641,13 @@ def make_dataset() -> Path:
         )
 
     root = WORK / "dataset"
-    save_split(root, HW, bundle(64), bundle(N_VAL), "v6")
+    train, val = bundle(64), bundle(N_VAL)
+    extra = bundle(N_TRAIN - 64)  # drawn after val, which stays as it was
+    train = Bundle(samples=np.concatenate([train.samples, extra.samples]),
+                   qps=np.concatenate([train.qps, extra.qps]),
+                   labels={k: np.concatenate([v, extra.labels[k]])
+                           for k, v in train.labels.items()})
+    save_split(root, HW, train, val, "v6")
     return root
 
 
@@ -637,13 +672,14 @@ def quietly(main: Callable, argv: list) -> str:
     return printed.getvalue()
 
 
-def run_cli(dataset: Path, name: str, args: list, dev) -> dict:
-    """The port's ``run_pipeline_eval`` on path a's dataset, bf16, batch 4096,
-    with ``args`` (variant, serving options, checkpoints)."""
+def run_cli(dataset: Path, name: str, args: list, dev, bf16: bool = True) -> dict:
+    """The port's ``run_pipeline_eval`` on path a's dataset, bf16 (or fp32),
+    batch 4096, with ``args`` (variant, serving options, checkpoints)."""
     out = WORK / "runs" / name
     argv = ["--dataset-dir", str(dataset), "--block-size", str(HW),
             "--output-dir", str(out), "--batch-size", str(BATCH),
-            "--stage1-threshold", str(THRESHOLD), "--bf16", "--device", dev.type, *args]
+            "--stage1-threshold", str(THRESHOLD), *(["--bf16"] if bf16 else []),
+            "--device", dev.type, *args]
     printed = quietly(run_pipeline_eval.main, argv)
     summary = json.loads(printed[printed.rindex("{\n"):])  # the CLI's last print
     metrics = json.loads((out / "pipeline_metrics_val.json").read_text())
@@ -719,7 +755,7 @@ def serving_plan(dataset: Path, ckpts: dict, unified_ckpt: Path, dev) -> list:
         # rounding of their decision boundary (94.5% agreement on 300 blocks on a CPU).
         ("certify_serving", ("tool", certify_serving.main, [a for a in data if a != "--bf16"] + [
             "--output-dir", str(WORK / "certify"), "--stage1-threshold", str(THRESHOLD),
-            "--skip-int8", "--calibration-dir", str(calibration),
+            "--calibration-dir", str(calibration),
             "--unified-checkpoint", str(unified_ckpt), *v6_checkpoints(ckpts)],
             ["serving_certification.json", "serving_certification.md"])),
         ("compare_thresholds", ("tool", compare_thresholds.main, data + [
@@ -977,13 +1013,15 @@ def level_pipeline_models(models: dict, size: int) -> PipelineModels:
 
 
 def run_tree_cli(clip: Path, dirs: dict, name: str, extra: list, dev) -> dict:
-    """The port's ``predict_trees`` CLI over the whole clip, folded bf16, four
-    frames a group. ``seconds`` is the CLI's own: each group from the upload of
-    its superblocks to its trees on the host."""
+    """The port's ``predict_trees`` CLI over the whole clip, bf16, four frames
+    a group, folded unless ``extra`` asks for ``--int8``. ``seconds`` is the
+    CLI's own: each group from the upload of its superblocks to its trees on
+    the host."""
     out = WORK / "trees" / name
+    serving = [] if "--int8" in extra else ["--folded"]
     argv = ["--yuv", str(clip), "--frames", *map(str, range(CLIP[0])),
             "--output-dir", str(out), "--batch-size", str(BATCH),
-            "--stage1-threshold", str(THRESHOLD), "--folded", "--bf16", "--no-ab-fgvc",
+            "--stage1-threshold", str(THRESHOLD), *serving, "--bf16", "--no-ab-fgvc",
             "--frames-per-batch", str(FRAMES_PER_BATCH), "--device", dev.type, *extra]
     for size in LEVEL_SIZES:
         argv += [f"--models-{size}", str(dirs[size])]
@@ -1164,6 +1202,274 @@ def check_kernels_at_cascade_shapes(folded, gen, dev) -> None:
         want = rg.fused_group12_reference(x, wg)
         compare("fused_group12", got, want, rel_tol("fused_group12", bf16, want),
                 extent=e, batch=rows, shape="cascade", dtype=str(bf16))
+
+
+# ---------------------------------------------------------------------------
+# Path e: int8 serving (quant.ptq), K1 as its stem
+# ---------------------------------------------------------------------------
+
+
+def int8_forward(q, x: torch.Tensor) -> tuple:
+    """Logits (fp32, host) and each site's int8 activations (host) of an int8
+    model on ``x`` (normalized NHWC, on the model's device)."""
+    captured = {}
+    with torch.inference_mode():
+        feats = ptq._backbone_apply_hybrid(
+            q.folded, x, q.plan, q.scales, q.qw, float_dtype=q.float_dtype,
+            qbias=q.qbias, captured=captured, front_fn=q.front_fn)
+        logits = torch.cat([
+            ptq._head_apply_int8(stack, feats, q.scales, q.qw, float_dtype=q.float_dtype,
+                                 qbias=q.qbias, captured=captured, site_prefix=name).float()
+            for name, stack in q.heads.items()], dim=-1)
+        acts = {site: ptq._quant_act(t, q.scales[site]).cpu() for site, t in captured.items()}
+    return logits.cpu().numpy(), acts
+
+
+def decision_margins(logits: np.ndarray, unified: bool) -> tuple:
+    """Per-sample margin of every decision in ``logits`` (the gate's distance
+    from ``THRESHOLD``, else the top-2 gap), and the decisions."""
+    parts = split_unified_logits(torch.from_numpy(logits)) if unified else (
+        torch.from_numpy(logits),)
+    margins, decisions = [], []
+    for part in parts:
+        part = part.double()
+        if part.dim() == 1 or part.shape[1] == 1:
+            prob = torch.sigmoid(part.reshape(-1))
+            margins.append((prob - THRESHOLD).abs())
+            decisions.append((prob >= THRESHOLD).long())
+        else:
+            top = part.topk(2, dim=-1).values
+            margins.append(top[:, 0] - top[:, 1])
+            decisions.append(part.argmax(-1))
+    return torch.stack(margins).amin(0).numpy(), torch.stack(decisions, -1).numpy()
+
+
+def labels_agree(got: np.ndarray, want: np.ndarray, unified: bool) -> dict:
+    """Share of samples whose decisions are all equal, and the largest margin
+    (of ``want``) at which one differs."""
+    margins, want_dec = decision_margins(want, unified)
+    equal = (decision_margins(got, unified)[1] == want_dec).all(-1)
+    return {"label_share": float(equal.mean()),
+            "max_margin_of_a_mismatch": float(margins[~equal].max()) if (~equal).any() else 0.0}
+
+
+def check_int8_products(q, x: torch.Tensor, dev) -> None:
+    """``_int_mm`` on the card against the CPU's product, exactly, at one site
+    of each form of an int8 model quantized on the CPU: a group-1 conv
+    (im2col at 4x4), an SMM conv, a head's first layer, its last (3 outputs:
+    padded to 8 columns), and a 5-row batch (padded to 17 rows)."""
+    _, acts = int8_forward(q, x)
+    sites = {"layer1_0.in": "layer1_0.conv1", "layer2_0.in": "layer2_0.conv1",
+             "head.0": "head.0", "head.2": "head.2"}
+    assert q.plan["blocks"]["layer1_0"]["form"] == "conv"
+    assert q.plan["blocks"]["layer2_0"]["form"] == "smm"
+    results = {}
+    for site, wkey in sites.items():
+        xq, w = acts[site], q.qw[wkey][0].cpu()
+        if xq.dim() == 4:
+            def product(a, b):
+                return ptq._int_conv(a, b.reshape(3, 3, a.shape[-1], -1), 1)
+        else:
+            product = ptq._int_dot
+        for rows in (len(xq), 5):
+            want = product(xq[:rows], w)
+            got = product(xq[:rows].to(dev), w.to(dev)).cpu()
+            results[f"{site}x{rows}"] = {"shape": list(want.shape),
+                                        "equal": bool(torch.equal(got, want))}
+    emit("int8_products", sites=results)
+    if not all(r["equal"] for r in results.values()):
+        raise AssertionError(f"int32 products differ between the card and the CPU: {results}")
+
+
+def check_int8_card_vs_cpu(model, calib: torch.Tensor, x: torch.Tensor, dev,
+                           unified: bool) -> None:
+    """Quantize on the CPU, move the model to the card: in fp32 and bf16 the
+    card's per-site int8 activations, logits and labels against the CPU's,
+    held to the bounds that tests/test_torch_port_int8.py holds two packages
+    to (a 1-ulp difference of a float island flips an activation now and then,
+    and the flip spreads)."""
+    quantize = ptq.quantize_unified if unified else ptq.quantize_stage
+    for dtype in (torch.float32, torch.bfloat16):
+        q = quantize(model, calib, dtype)
+        want, want_acts = int8_forward(q, x)
+        q.to(dev)
+        got, got_acts = int8_forward(q, x.to(dev))
+        shares = {s: float((got_acts[s] == a).float().mean()) for s, a in want_acts.items()}
+        steps = max(int((got_acts[s].int() - a.int()).abs().max()) for s, a in want_acts.items())
+        agree = labels_agree(got, want, unified)
+        emit("int8_card_vs_cpu", model="unified" if unified else "stage2", dtype=str(dtype),
+             samples=len(x), min_site_share=min(shares.values()), max_site_step=steps,
+             logit_max_abs_diff=float(np.abs(got - want).max()),
+             logit_std=float(want.std(0).min()), **agree)
+        if (min(shares.values()) < INT8_SITE_SHARE or agree["label_share"] < INT8_LABEL_SHARE
+                or agree["max_margin_of_a_mismatch"] > INT8_MARGIN):
+            raise AssertionError(f"int8 on the card disagrees with the CPU ({dtype})")
+
+
+def int8_library_checks(models: PipelineModels, unified_model, models8: PipelineModels,
+                        calib: np.ndarray, samples: np.ndarray, dev) -> None:
+    """The int8 pipelines on the card: K1's launches per predict (per-stage 4
+    with the fused front, unified 1, none without), K1-on labels against
+    K1-off labels, the int8 labels against the folded fp32 pipeline's, and the
+    seconds that calibration and quantization take; then the per-stage int8
+    pipeline at 8 px with K1."""
+    images = torch.from_numpy(samples[:BATCH]).to(dev)
+    folded = {
+        "v6": make_v6_pipeline_folded(models, THRESHOLD, float_dtype=torch.float32,
+                                      device=dev)(images),
+        "unified": make_unified_pipeline_folded(unified_model, THRESHOLD,
+                                                float_dtype=torch.float32,
+                                                device=dev)(images)}
+    for family, dtype in itertools.product(("v6", "unified"), (torch.float32, torch.bfloat16)):
+        outs, kernels, seconds = {}, {}, {}
+        for front in (False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if family == "v6":
+                predict = make_v6_pipeline_int8(models, calib, THRESHOLD, float_dtype=dtype,
+                                                use_fused_front=front, device=dev)
+            else:
+                predict = make_unified_pipeline_int8(unified_model, calib, THRESHOLD,
+                                                     float_dtype=dtype,
+                                                     use_fused_front=front, device=dev)
+            torch.cuda.synchronize()
+            seconds[front] = time.perf_counter() - t0
+            kernels[front] = launched_by(lambda: predict(images))
+            outs[front] = {k: v.cpu() for k, v in predict(images).items()}
+        want_k1 = {False: 0, True: 4 if family == "v6" else 1}
+        on, off, ref = outs[True], outs[False], folded[family]
+        emit("int8_pipeline", family=family, dtype=str(dtype), batch=BATCH,
+             calib_blocks=len(calib), build_seconds=seconds,
+             k1_per_predict={str(f): kernels[f].get("fused_front", 0) for f in kernels},
+             on_labels_equal_off=float((on["final"] == off["final"]).float().mean()),
+             labels_equal_folded_fp32=float((off["final"] == ref["final"].cpu())
+                                            .float().mean()),
+             stage1_prob_mean_abs_diff_vs_folded_fp32=float(
+                 (off["stage1_prob"] - ref["stage1_prob"].cpu()).abs().mean()),
+             distinct_labels=int(len(off["final"].unique())))
+        for front, want in want_k1.items():
+            if kernels[front].get("fused_front", 0) != want or set(kernels[front]) - {
+                    "fused_front"}:
+                raise AssertionError(f"int8 {family} (front {front}): launched "
+                                     f"{kernels[front]}, want fused_front x {want}")
+        if not all(torch.isfinite(o["stage1_prob"]).all() for o in outs.values()):
+            raise AssertionError(f"int8 {family}: non-finite outputs")
+    # K1-on against K1-off logits in fp32, per-stage (stage 2) and unified
+    x = images.float() / 1023.0
+    for name, model, quantize in (("stage2", models.stage2, ptq.quantize_stage),
+                                  ("unified", unified_model, ptq.quantize_unified)):
+        q = quantize(model, torch.from_numpy(calib).to(dev).float() / 1023.0)
+        off, _ = int8_forward(q, x)
+        ptq.attach_fused_front(q, HW)
+        on, _ = int8_forward(q, x)
+        agree = labels_agree(on, off, name == "unified")
+        emit("int8_fused_front", model=name, dtype="torch.float32", **agree)
+        if agree["label_share"] < INT8_LABEL_SHARE or agree["max_margin_of_a_mismatch"] > INT8_MARGIN:
+            raise AssertionError(f"int8 {name}: K1-on labels disagree with K1-off labels")
+    # the per-stage int8 pipeline at 8 px, K1 on
+    blocks8 = host_tile(structured_luma(np.random.default_rng(SEED + 6), (64, 64, 64)), 8)
+    predict = make_v6_pipeline_int8(models8, blocks8[:INT8_CALIB], THRESHOLD,
+                                    float_dtype=torch.bfloat16, use_fused_front=True,
+                                    device=dev)
+    launched = launched_by(lambda: predict(torch.from_numpy(blocks8).to(dev)))
+    emit("int8_pipeline", family="v6", block_size=8, dtype="torch.bfloat16",
+         rows=len(blocks8), k1_per_predict=launched.get("fused_front", 0))
+    if launched.get("fused_front", 0) != 4:
+        raise AssertionError(f"int8 at 8 px: launched {launched}")
+
+
+def int8_plan(dataset: Path, ckpts: dict, unified_ckpt: Path) -> list:
+    """Path e's CLI runs: ``run_pipeline_eval --int8`` per-stage and unified,
+    fp32 and bf16, fused front off and on."""
+    plan = []
+    for family, dtype, front in itertools.product(("v6", "unified"), ("fp32", "bf16"),
+                                                  ("off", "on")):
+        args = ["--int8", "--fused-front", front]
+        args += (["--variant", "unified", "--unified-checkpoint", str(unified_ckpt)]
+                 if family == "unified" else v6_checkpoints(ckpts))
+        name = f"{family}_{dtype}_{front}"
+        plan.append((name, (name, args, dtype == "bf16")))
+    return plan
+
+
+def check_int8_runs(runs: list, bases: dict) -> None:
+    """Path e's runs: outputs, K1 launches (4 a predict per-stage, 1 unified,
+    none with ``off``), labels against the same family and dtype's ``off``
+    run and against the folded bf16 ``off`` run of the same family
+    (``bases``: path a's per-stage and unified runs)."""
+    predicts = -(-N_VAL // BATCH)
+    by_name = {run["name"]: run for run in runs}
+    for run in runs:
+        family, dtype, front = run["name"].split("_")
+        off = by_name[f"{family}_{dtype}_off"]
+        k1 = run["launches"].get("fused_front", 0)
+        want = 0 if front == "off" else predicts * (4 if family == "v6" else 1)
+        emit("end_to_end", path="e_int8", run=run["name"], samples=run["samples"],
+             blocks_per_s=run["blocks_per_s"], launches=run["launches"],
+             final_agrees_with_off=float((run["final"] == off["final"]).mean()),
+             final_agrees_with_folded_bf16_off=float(
+                 (run["final"] == bases[family]["final"]).mean()),
+             finite=bool(np.isfinite(run["stage1_prob"]).all()))
+        if run["samples"] != N_VAL or not np.isin(run["final"], np.arange(8)).all():
+            raise AssertionError(f"{run['name']}: bad outputs")
+        if k1 != want or set(run["launches"]) - {"fused_front"}:
+            raise AssertionError(f"{run['name']}: launched {run['launches']}, want "
+                                 f"fused_front x {want}")
+
+
+def device_time_by_kernel(fn: Callable, top: int = 8) -> list:
+    """The ``top`` kernel names by device ms in one traced call of ``fn``:
+    ``[name, calls, ms]``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            calls, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (calls + 1, us + e.time_range.end - e.time_range.start)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    return [[name[:80], calls, us / 1e3] for name, (calls, us) in ranked]
+
+
+def int8_predict_phase(models: PipelineModels, calib: np.ndarray, samples: np.ndarray,
+                       dev, smi: str) -> None:
+    """CUDA-event ms of one 4,096-block bf16 predict, int8 with K1 off and on
+    beside the folded ``off`` pipeline, in ABC...CBA turns, with the kernels,
+    host launch calls, device busy ms and idle share of a traced predict, and
+    the kernels that take the most device time."""
+    batch = torch.from_numpy(samples[:BATCH]).to(dev)
+    predicts = {
+        "folded_off": make_v6_pipeline_folded(models, THRESHOLD, float_dtype=torch.bfloat16,
+                                              device=dev),
+        "int8_off": make_v6_pipeline_int8(models, calib, THRESHOLD,
+                                          float_dtype=torch.bfloat16, device=dev),
+        "int8_on": make_v6_pipeline_int8(models, calib, THRESHOLD, float_dtype=torch.bfloat16,
+                                         use_fused_front=True, device=dev),
+    }
+    for _ in range(2):
+        for predict in predicts.values():
+            for _ in range(10):
+                predict(batch)
+    names = list(predicts)
+    samples_ms = {name: [] for name in names}
+    for name in (names + names[::-1]) * 3:
+        samples_ms[name].append(time_ms(lambda: predicts[name](batch), iters=10))
+    for name in names:
+        launched = launched_by(lambda: predicts[name](batch))
+        trace = trace_calls(lambda: predicts[name](batch))
+        ms = float(np.median(samples_ms[name]))
+        busy = trace["device_busy_ms"]
+        emit("predict", mode=name, batch=BATCH, hw=HW, dtype="bfloat16", predict_ms=ms,
+             samples_ms=samples_ms[name], port_kernels_per_predict=launched,
+             idle_share=None if busy is None else max(0.0, 1.0 - busy / ms),
+             nvidia_smi=smi, kernels_per_predict=trace["kernels"], device_busy_ms=busy,
+             host_launch_calls_per_predict=trace["host_launch_calls"],
+             top_kernels=device_time_by_kernel(lambda: predicts[name](batch)))
 
 
 # ---------------------------------------------------------------------------
@@ -1518,6 +1824,9 @@ def main() -> int:
           for name, extra in fronts),
         ("gated", ("cli", "gated", ["--fused-front", "off", "--level-capacity",
                                     *map(str, LEVEL_CAPACITY)])),
+        ("int8_on", ("cli", "int8_on", ["--int8", "--fused-front", "on"])),
+        ("unified_int8_on", ("cli", "unified_int8_on",
+                             ["--unified", "--int8", "--fused-front", "on"])),
         ("groups_off", ("library", "groups_off", False)),
         ("groups_on", ("library", "groups_on", True)),
     ], run_tree)
@@ -1526,6 +1835,7 @@ def main() -> int:
         "on": ["fused_front"], "g1": ["fused_front_g1"],
         "unified_on": ["fused_front"], "unified_g1": ["fused_front_g1"],
         "groups_off": ["fused_group12"], "groups_on": ["fused_group12", "fused_front"],
+        "int8_on": ["fused_front"], "unified_int8_on": ["fused_front"],
     })
     check_gated_run(by_name["gated"], by_name["off"])
     for name in ("fused_front", "fused_front_g1", "fused_group12"):
@@ -1545,8 +1855,28 @@ def main() -> int:
     check_serving_runs(serving_runs, base)
     stacking_phase(ckpts["ensemble"], val.samples, dev)
 
+    # path e: int8 serving on path a's dataset and models (path d's 16 px
+    # unified model), calibrated on the CLI's 512 train rows; first the
+    # library checks against the CPU and of K1's launches
+    t0 = time.perf_counter()
+    train = Bundle.load(dataset / f"block_{HW}" / "train.npz")
+    calib = train_calibration_blocks(train.samples, INT8_CALIB)
+    calib_x = torch.from_numpy(calib).float() / 1023.0
+    x_cpu = torch.from_numpy(val.samples[:2048]).float() / 1023.0
+    check_int8_products(ptq.quantize_stage(models["stage2"], calib_x), x_cpu, dev)
+    check_int8_card_vs_cpu(models["stage2"], calib_x, x_cpu, dev, unified=False)
+    check_int8_card_vs_cpu(tree_models[HW]["unified"], calib_x, x_cpu, dev, unified=True)
+    int8_library_checks(plain, tree_models[HW]["unified"], level_pipeline_models(tree_models, 8),
+                        calib, val.samples, dev)
+    emit("int8_checks", seconds=time.perf_counter() - t0)
+    int8_runs, int8_launches = drive(
+        "e_int8", int8_plan(dataset, ckpts, tree_dirs[HW] / "unified_best_variables.npz"),
+        lambda arg: run_cli(dataset, arg[0], arg[1], dev, bf16=arg[2]))
+    check_int8_runs(int8_runs, {"v6": base, "unified": next(
+        run for run in serving_runs if run["name"] == "unified_off")})
+
     launches = {k: cli_launches[k] + k5_launches[k] + api_launches[k] + tree_launches[k]
-                + serving_launches[k] for k in _build.KERNELS}
+                + serving_launches[k] + int8_launches[k] for k in _build.KERNELS}
     for name in KERNELS:
         if launches[name] == 0:
             raise AssertionError(f"{name} was never launched by a main path")
@@ -1554,6 +1884,7 @@ def main() -> int:
     predict_phase(plain, val.samples, dev, smi, {
         name: next(r["capacity"] for r in serving_runs if r["name"] == name)
         for name in ("gated_auto", "gated_0.5")})
+    int8_predict_phase(plain, calib, val.samples, dev, smi)
     cascade_levels_phase(tree_models, clip_sbs, dev, smi)
 
     kernels = []

@@ -89,7 +89,8 @@ def test_cli_imports_no_jax(setup, tmp_path):
 
 
 @pytest.mark.parametrize("flag, item", [
-    (["--int8"], "M9"), (["--variant", "v5"], "M8"), (["--variant", "flatten"], "M8"),
+    (["--v5-checkpoint", "v5.npz"], "M8"), (["--variant", "v5"], "M8"),
+    (["--variant", "flatten"], "M8"),
 ])
 def test_unported_flags_name_their_roadmap_item(setup, tmp_path, capsys, flag, item):
     _, dataset, ckpts, _ = setup

@@ -32,6 +32,7 @@ from av1tpu_torch.eval import (
     stacked_member_logits,
     tta_logits,
 )
+from av1tpu_torch.quant import make_unified_pipeline_int8, make_v6_pipeline_int8
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -59,7 +60,8 @@ def test_fresh_interpreter_imports_the_port_without_jax_or_av1tpu():
                    "eval.unified", "eval.tree_infer", "eval.tree_metrics",
                    "cli.predict_trees", "eval.gated", "eval.ensemble", "eval.compare",
                    "eval.html_report", "cli.optimize_thresholds", "cli.compare_thresholds",
-                   "cli.analyze_confusion", "cli.certify_serving"):
+                   "cli.analyze_confusion", "cli.certify_serving", "quant.ptq",
+                   "models.jax_import"):
         assert f"av1tpu_torch.{module}" in report["imported"]
     assert report["bad"] == []
 
@@ -187,7 +189,8 @@ def test_split_saved_by_one_package_loads_in_the_other(tmp_path, writer, reader)
                                 make_v6_pipeline_folded, make_unified_pipeline,
                                 make_unified_pipeline_folded, predict_partition_trees,
                                 predict_frame_trees, make_v6_pipeline_gated,
-                                tta_logits, stacked_member_logits, fit_stacking],
+                                tta_logits, stacked_member_logits, fit_stacking,
+                                make_v6_pipeline_int8, make_unified_pipeline_int8],
                          ids=lambda f: f.__name__)
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"

@@ -18,9 +18,14 @@ import numpy as np
 import pytest
 import torch
 
+import av1tpu.quant
 from av1tpu.cli import predict_trees as jax_cli
 from av1tpu_torch import models as tm
 from av1tpu_torch.cli import predict_trees as port_cli
+from av1tpu_torch.eval import predict_partition_trees
+from av1tpu_torch.ingest.tiler import tile_frame
+from av1tpu_torch.ingest.yuv import Yuv420p10Geometry, read_y_frame
+from av1tpu_torch.quant import make_unified_pipeline_int8
 from av1tpu_torch.train.checkpoint import save_variables_npz
 from tests.torch_port_fixtures import (
     LEVEL_SIZES,
@@ -215,8 +220,8 @@ def test_flag_wiring(monkeypatch):
     (["--fused-front", "on"], "--fused-front needs --folded"),
     (["--stage1-threshold", "0.4", "0.5"], "takes 1 or 4 values"),
     (["--yuv", "clip.yuv"], "cannot infer resolution"),
-    (["--int8"], "ROADMAP M9"),
-    (["--int8-calib-blocks", "8"], "ROADMAP M9"),
+    (["--int8", "--folded"], "--int8 is a distinct serving path"),
+    (["--int8", "--fused-front", "g1"], "no group-1 hook"),
 ])
 def test_argument_errors(tmp_path, capsys, extra, message):
     base = ["--yuv", "clip_128x64_30.yuv", "--output-dir", str(tmp_path), "--device", "cpu",
@@ -255,3 +260,79 @@ def test_helpers_equal_the_jax_cli():
         for key in want:
             np.testing.assert_array_equal(got[key], want[key])
     assert "group_overflow_16" in port_cli.split_group_result(result, 2, 3, 0)
+
+
+class _Stop(Exception):
+    """Raised once every level's calibration set is captured."""
+
+
+def _captured_calibration(monkeypatch, module, names, main, argv) -> dict:
+    """``{size: uint16 blocks}`` that ``main`` hands each level's int8
+    pipeline builder (looked up as ``module.<name>``), stopped before any
+    quantization."""
+    sets = {}
+
+    def capture(model, calib, **kwargs):
+        sets[64 >> len(sets)] = np.array(calib)
+        if len(sets) == len(LEVEL_SIZES):
+            raise _Stop
+        return None
+
+    for name in names:
+        monkeypatch.setattr(module, name, capture)
+    with pytest.raises(_Stop):
+        main(argv)
+    return sets
+
+
+INT8_CALIB = {  # case -> (--frames, --int8-calib-blocks)
+    "three_frames_40_blocks": (["0", "1", "2"], "40"),
+    "one_frame_all_blocks": (["2"], "1000"),
+}
+
+
+@pytest.mark.parametrize("case", list(INT8_CALIB))
+def test_int8_calibration_blocks_equal_the_jax_cli(setup, tmp_path, monkeypatch, case):
+    """The self-serve calibration: the same frames, the same ``default_rng(0)``
+    draws per level, the same blocks, byte for byte (no quantization runs)."""
+    yuv, dirs = setup
+    frames, n = INT8_CALIB[case]
+    extra = ["--int8", "--int8-calib-blocks", n, "--frames", *frames]
+    names = ("make_v6_pipeline_int8", "make_unified_pipeline_int8")
+    want = _captured_calibration(monkeypatch, av1tpu.quant, names, jax_cli.main,
+                                 _argv(yuv, dirs, tmp_path / "jax", extra) + ["--single-device"])
+    got = _captured_calibration(monkeypatch, port_cli, names, port_cli.main,
+                                _argv(yuv, dirs, tmp_path / "port", extra + ["--device", "cpu"]))
+    assert sorted(got) == sorted(want) == sorted(LEVEL_SIZES)
+    blocks_per_sb = {size: (64 // size) ** 2 for size in LEVEL_SIZES}
+    for size in LEVEL_SIZES:
+        assert got[size].dtype == want[size].dtype == np.uint16
+        assert got[size].shape == want[size].shape
+        assert got[size].shape[0] == min(int(n), 6 * len(frames) * blocks_per_sb[size])
+        assert got[size].tobytes() == want[size].tobytes(), size
+
+
+def test_int8_unified_cli_equals_the_library(setup, tmp_path, monkeypatch):
+    """``--int8 --unified`` end to end on the CPU: its trees equal
+    ``predict_partition_trees`` over ``make_unified_pipeline_int8``
+    predictors built from the JAX CLI's calibration sets, and vary."""
+    yuv, dirs = setup
+    extra = ["--int8", "--unified", "--int8-calib-blocks", "64", "--frames", "0", "1"]
+    with monkeypatch.context() as patch:
+        sets = _captured_calibration(patch, av1tpu.quant, ("make_unified_pipeline_int8",),
+                                     jax_cli.main, _argv(yuv, dirs, tmp_path / "jax", extra)
+                                     + ["--single-device"])
+    port_cli.main(_argv(yuv, dirs, tmp_path / "port", extra + ["--device", "cpu"]))
+    predictors = {}
+    for size in LEVEL_SIZES:
+        variables = port_cli.load_model_variables(dirs[size] / port_cli.UNIFIED_CKPT_NAME)
+        model = tm.load_jax_variables(tm.UnifiedV6Model(), variables).eval()
+        predictors[size] = make_unified_pipeline_int8(model, sets[size], device="cpu")
+    geom = Yuv420p10Geometry(width=W, height=H)
+    sbs = np.concatenate([tile_frame(read_y_frame(yuv, f, geom), 64)[0] for f in (0, 1)])
+    want = predict_partition_trees(sbs, predictors, 64, device="cpu")["trees"]
+    got = np.concatenate([np.load(tmp_path / "port" / f"trees_frame{f}.npz")["trees"]
+                          for f in (0, 1)])
+    np.testing.assert_array_equal(got, np.asarray(want))
+    reached = (got >= 0).sum(axis=1)
+    assert reached.min() < reached.max()

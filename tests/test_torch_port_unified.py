@@ -235,10 +235,9 @@ def test_unified_folded_bf16_agrees_with_jax(unified, blocks, front):
     """The serving dtype. bf16 rounds at other places in the two frameworks'
     plain layers, so labels cannot be identical: the stage-1 probability stays
     within 0.1 on every block and 0.01 on average, and the final label agrees
-    on at least 97% of 256 blocks (measured: 0.058, 0.0061 and 98.0% for
-    ``on``; 0.023, 0.0039 and 98.4% for ``g1``; this gate's logits spread
-    further than the per-stage pipeline test's, so one bf16 step moves its
-    probability further)."""
+    on at least 97% of 256 blocks (measured since the folded path's sigmoid
+    rounds as XLA's does: 0.017, 0.0004 and 100% for ``on``; 0.011, 0.0005 and
+    100% for ``g1``; with ``torch.sigmoid`` 0.058, 0.0061 and 96.1-98.0%)."""
     model, images = unified[16], blocks[16]
     got, want = _run(
         jax_unified_folded(jax_variables(model), stage1_threshold=STAGE1_THRESHOLD,

@@ -24,6 +24,12 @@ from av1tpu_torch.models import to_jax_variables
 from av1tpu_torch.train.checkpoint import save_variables_npz
 from chip_smoke import seeded_model, set_first_class_share, structured_luma
 
+# pytest-xdist runs several workers on one box, and torch would start one
+# thread per core in each: small CPU ops then wait on oversubscribed threads
+# (a 192-block int8 forward took 2.2 s with eight threads on a loaded 8-core
+# box, 0.035 s with one). One torch thread a worker.
+torch.set_num_threads(1)
+
 STAGE1_THRESHOLD = 0.45
 LEVEL_SIZES = (64, 32, 16, 8)
 STAGE_CLASSES = {  # name -> (flax class, port class)
@@ -135,13 +141,13 @@ def cascade_stage_models(seed: int, sizes=LEVEL_SIZES) -> dict:
     return out
 
 
-def cascade_unified_models(seed: int) -> dict:
+def cascade_unified_models(seed: int, sizes=LEVEL_SIZES) -> dict:
     """``{size: UnifiedV6Model}``, the single-trunk twin of
     :func:`cascade_stage_models`."""
     calib = blocks_of_every_size(superblocks_u16(seed, 16))
     probe = blocks_of_every_size(superblocks_u16(seed + 1, 48))
     out = {}
-    for size in LEVEL_SIZES:
+    for size in sizes:
         model = seeded_torch_model(tm.UnifiedV6Model, seed + size, calib[size][:128])
         with torch.no_grad():
             logits = model(_as_input(probe[size][:256])).numpy()
