@@ -4,7 +4,8 @@ The JAX package ``av1tpu`` stays the reference; this package mirrors its
 layout module by module and imports nothing of it, nor jax or flax. What it
 needs of the jax-free modules of ``av1tpu`` it keeps as its own copies, under
 the same names: ``codec.partitions``, ``codec.tree``, ``data.bundles``,
-``data.records``, ``ingest.yuv``, ``ingest.tiler`` and ``eval.tree_metrics``.
+``data.records``, ``ingest.yuv``, ``ingest.tiler``, ``eval.tree_metrics`` and
+``models.torch_import``.
 
 Layer map:
     codec.partitions  partition ids, names and the label maps (numpy)
@@ -12,14 +13,18 @@ Layer map:
     ingest            yuv420p10le luma reading and superblock tiling (numpy)
     data              split bundles (npz + metadata.json) and the sample norm
     train.checkpoint  flat npz variable files (the JAX package's format)
-    models            nn.Module v6 stage models, UnifiedV6Model, FGVC, and the
-                      JAX weight bridge
+    models            nn.Module v6 stage models, UnifiedV6Model, FGVC, the v5
+                      HierarchicalModel (models.v5), the flatten and adapter
+                      models, the JAX weight bridge (models.jax_import) and
+                      the reference .pt import (models.torch_import)
     train.augment     the test-time-augmentation views and their AB alignment
-    quant.ptq         BN folding and the folded float forward
+    quant.ptq         BN folding, the folded float forward and int8 serving
     kernels           hand-written CUDA kernels (csrc/) with their plain twins
-    eval              per-stage and unified pipelines, batching, the
-                      64->32->16->8 tree cascade, metrics, report writers
-    cli               run_pipeline_eval, predict_trees
+    eval              per-stage, unified, gated, v5 and flatten pipelines,
+                      batching, ensembles, the 64->32->16->8 tree cascade,
+                      metrics, report writers
+    cli               run_pipeline_eval (v6, unified, v5, flatten),
+                      predict_trees and the operating-point tools
 """
 
 __version__ = "0.1.0"

@@ -1,15 +1,14 @@
-"""Shared CLI plumbing: dataset splits, checkpoint and model loading, one
-model's outputs over a split, the int8 calibration subsample, and the flags
-of the JAX CLIs that are not ported yet.
+"""Shared CLI plumbing: dataset splits, checkpoint and model loading (npz
+or a reference ``.pt``), one model's outputs over a split, and the int8
+calibration subsample.
 
 Dataset bundles are ``av1tpu_torch.data.bundles``, the port's own copy of
 the JAX package's format (same npz keys and ``metadata.json``)."""
 from __future__ import annotations
 
-import argparse
 import json
 from pathlib import Path
-from typing import Any, Callable, Dict, Mapping, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
 import torch
@@ -19,6 +18,7 @@ from av1tpu_torch.data.bundles import Bundle
 from av1tpu_torch.data.records import NORM_10BIT
 from av1tpu_torch.eval.hierarchy import on_device, run_pipeline_batched
 from av1tpu_torch.models.jax_import import load_jax_variables
+from av1tpu_torch.models.torch_import import import_any, load_torch_checkpoint
 from av1tpu_torch.train.checkpoint import load_variables_npz
 
 
@@ -33,21 +33,29 @@ def load_split(dataset_dir: Path, block_size: int) -> Tuple[Bundle, Bundle, Dict
 
 
 def load_model_variables(path: Path) -> Dict[str, Any]:
-    """Load a JAX variable tree from a flat npz checkpoint."""
+    """Load a JAX variable tree from a flat npz checkpoint, or import a
+    reference torch ``.pt``/``.pth``: its state dict goes to the importer
+    its key shape names (v5 hierarchical, FGVC or a v6 stage model,
+    ``models.torch_import.import_any``) and comes back as the JAX package's
+    float32 numpy tree."""
     path = Path(path)
     if path.suffix == ".npz":
         return load_variables_npz(path)
     if path.suffix in (".pt", ".pth"):
-        raise ValueError(
-            f"{path}: reference .pt checkpoints wait for the F1 padding switch "
-            "(ROADMAP M4); convert them to npz with the JAX package"
-        )
+        return _as_float32(import_any(load_torch_checkpoint(path)))
     raise ValueError(f"unsupported checkpoint format: {path}")
 
 
+def _as_float32(tree):
+    if isinstance(tree, dict):
+        return {k: _as_float32(v) for k, v in tree.items()}
+    return np.asarray(tree, dtype=np.float32)
+
+
 def load_model(path: Path, model_cls) -> nn.Module:
-    """``model_cls()`` holding the npz checkpoint at ``path``, in eval mode
-    (an FGVC checkpoint's class ``centers`` are training state and dropped)."""
+    """``model_cls()`` holding the checkpoint at ``path`` (npz or ``.pt``), in
+    eval mode (an FGVC checkpoint's class ``centers`` are training state and
+    dropped)."""
     variables = load_model_variables(path)
     variables.pop("centers", None)
     return load_jax_variables(model_cls(), variables).eval()
@@ -76,22 +84,5 @@ def train_calibration_blocks(train_samples: np.ndarray, n: int) -> np.ndarray:
     return train_samples[np.sort(idx)]
 
 
-def add_not_ported_flags(parser: argparse.ArgumentParser,
-                         flags: Mapping[str, str]) -> None:
-    """Register each flag of ``flags`` (flag -> ROADMAP item that ports it)
-    so that using it exits with an error naming that item."""
-
-    class NotPorted(argparse.Action):
-        def __init__(self, option_strings, dest, **kwargs):
-            super().__init__(option_strings, dest, nargs="*", **kwargs)
-
-        def __call__(self, parser, namespace, values, option_string=None):
-            parser.error(f"{option_string} is not ported yet "
-                         f"(ROADMAP {flags[option_string]})")
-
-    for flag in flags:
-        parser.add_argument(flag, action=NotPorted, help=argparse.SUPPRESS)
-
-
-__all__ = ["add_not_ported_flags", "load_model", "load_model_variables", "load_split",
+__all__ = ["load_model", "load_model_variables", "load_split",
            "model_outputs", "train_calibration_blocks"]

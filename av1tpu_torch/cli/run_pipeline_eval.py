@@ -1,4 +1,5 @@
-"""CLI: end-to-end v6 pipeline evaluation on one device (PyTorch port).
+"""CLI: end-to-end hierarchical pipeline evaluation on one device (PyTorch
+port): v6, unified, v5 and flatten.
 
     python -m av1tpu_torch.cli.run_pipeline_eval --variant v6 --folded \
         --fused-front on --bf16 \
@@ -19,8 +20,15 @@ post-training-quantized pipeline (``quant.ptq``), calibrated on a seeded
 subsample of ``--calib-samples`` train blocks, the JAX CLI's rows in its
 order. ``--fused-front`` passes ``use_fused_front`` (off/on/g1) to the folded
 pipeline, per-stage or unified, and (off/on) to the int8 one; the gated
-pipeline has no fused front. Flags and variants not ported yet exit with the
-ROADMAP item that will bring them.
+pipeline has no fused front.
+
+``--variant v5 --v5-checkpoint ...`` serves the v5 multi-head model in fp32
+(``--bf16`` too, as the JAX CLI builds it without a dtype), with
+``--available-specialists`` (a missing specialist falls back to its group's
+first member) and the bundle's QPs / 255 for a QP-conditioned checkpoint;
+``--variant flatten --stage1-checkpoint ... --flatten-checkpoint ...`` serves
+the stage-1 gate and the 7-way classifier. Both report raw partition ids.
+Every checkpoint flag takes an npz or a reference ``.pt``.
 """
 from __future__ import annotations
 
@@ -32,10 +40,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from av1tpu_torch.codec.partitions import V6_EVAL_CLASS_NAMES, raw_to_v6_final
+from av1tpu_torch.codec.partitions import (
+    PARTITION_ID_TO_NAME,
+    V6_EVAL_CLASS_NAMES,
+    raw_to_v6_final,
+)
 from av1tpu_torch.cli.common import (
-    add_not_ported_flags,
     load_model,
+    load_model_variables,
     load_split,
     train_calibration_blocks,
 )
@@ -46,8 +58,10 @@ from av1tpu_torch.eval import (
     compute_metrics,
     decompose_v6,
     load_ensemble,
+    make_flatten_pipeline,
     make_unified_pipeline,
     make_unified_pipeline_folded,
+    make_v5_pipeline,
     make_v6_pipeline,
     make_v6_pipeline_folded,
     make_v6_pipeline_gated,
@@ -60,7 +74,9 @@ from av1tpu_torch.eval import (
 from av1tpu_torch.eval.html_report import load_sweep
 from av1tpu_torch.models import (
     FGVCModel,
+    HierarchicalModel,
     Stage1Model,
+    Stage2FlatModel,
     Stage2Model,
     Stage3ABModel,
     Stage3RectModel,
@@ -69,12 +85,6 @@ from av1tpu_torch.models import (
 )
 from av1tpu_torch.quant import make_unified_pipeline_int8, make_v6_pipeline_int8
 
-# flag -> ROADMAP item that ports it
-NOT_PORTED = {
-    "--flatten-checkpoint": "M8", "--v5-checkpoint": "M8",
-    "--available-specialists": "M8",
-}
-VARIANTS_NOT_PORTED = {"v5": "M8", "flatten": "M8"}
 FUSED_FRONT = {"off": False, "on": True, "g1": "g1"}
 CAPACITY_ERROR = "--capacity must be a float in (0, 1] or 'auto'"
 
@@ -82,7 +92,7 @@ CAPACITY_ERROR = "--capacity must be a float in (0, 1] or 'auto'"
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--variant", default="v6",
-                        choices=("v6", "unified", *VARIANTS_NOT_PORTED))
+                        choices=("v5", "v6", "flatten", "unified"))
     parser.add_argument("--dataset-dir", type=Path, required=True)
     parser.add_argument("--block-size", type=int, default=16)
     parser.add_argument("--split", choices=("train", "val"), default="val")
@@ -150,7 +160,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "blocks. An FGVC AB model stays float inside it")
     parser.add_argument("--calib-samples", type=int, default=512,
                         help="calibration batch size for --int8")
-    add_not_ported_flags(parser, NOT_PORTED)
+    parser.add_argument("--flatten-checkpoint", type=Path,
+                        help="Stage2FlatModel checkpoint for --variant flatten")
+    parser.add_argument("--v5-checkpoint", type=Path,
+                        help="v5 HierarchicalModel checkpoint for --variant v5")
+    parser.add_argument("--available-specialists", nargs="*",
+                        default=["RECT", "AB", "1TO4"])
     return parser
 
 
@@ -229,6 +244,36 @@ def build_unified(args, dtype, device):
     )
 
 
+def build_v5(args, qps, device):
+    """The v5 pipeline and the QPs it takes: the bundle's ``qps`` / 255 for a
+    QP-conditioned checkpoint (a ``qp_embed`` tree), else None."""
+    variables = load_model_variables(args.v5_checkpoint)
+    use_qp = "qp_embed" in variables.get("params", {})
+    if use_qp:
+        print("QP-conditioned v5 checkpoint: feeding per-sample QPs")
+    model = load_jax_variables(HierarchicalModel(use_qp=use_qp), variables).eval()
+    predict = make_v5_pipeline(
+        model, stage1_threshold=args.stage1_threshold,
+        available_specialists=tuple(args.available_specialists), device=device,
+    )
+    return predict, (qps.astype(np.float32) / 255.0 if use_qp else None)
+
+
+def build_flatten(args, dtype, device):
+    return make_flatten_pipeline(
+        load_model(args.stage1_checkpoint, Stage1Model),
+        load_model(args.flatten_checkpoint, Stage2FlatModel),
+        stage1_threshold=args.stage1_threshold, input_dtype=dtype, device=device,
+    )
+
+
+REQUIRED = {  # variant -> the checkpoint flags it needs (v6's depend on its AB flags)
+    "unified": ["unified_checkpoint"],
+    "v5": ["v5_checkpoint"],
+    "flatten": ["stage1_checkpoint", "flatten_checkpoint"],
+}
+
+
 def resolve_capacity(parser, args) -> None:
     """``args.capacity`` as a float in (0, 1], from a number or from the
     calibration sweep (``auto``); None stays None."""
@@ -254,9 +299,12 @@ def resolve_capacity(parser, args) -> None:
 def main(argv=None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.variant in VARIANTS_NOT_PORTED:
-        parser.error(f"--variant {args.variant} is not ported yet "
-                     f"(ROADMAP {VARIANTS_NOT_PORTED[args.variant]})")
+    if args.variant not in ("v6", "unified"):
+        for flag in ("int8", "folded"):
+            if getattr(args, flag):
+                parser.error(f"--{flag} is only supported with --variant v6/unified")
+        if args.capacity is not None:
+            parser.error("--capacity is only supported with --variant v6")
     if args.variant == "unified" and args.capacity is not None:
         parser.error("--capacity is only supported with --variant v6")
     if args.fused_front != "off" and not (args.folded or args.int8):
@@ -272,11 +320,11 @@ def main(argv=None) -> None:
         required = ["stage1_checkpoint", "stage2_checkpoint", "stage3_rect_checkpoint"]
         if args.stage3_ab_ensemble_dir is None:
             required.append("stage3_ab_checkpoint")
-        for req in required:
-            if getattr(args, req) is None:
-                parser.error(f"--{req.replace('_', '-')} required for v6")
-    elif args.unified_checkpoint is None:
-        parser.error("--unified-checkpoint required for unified")
+    else:
+        required = REQUIRED[args.variant]
+    for req in required:
+        if getattr(args, req) is None:
+            parser.error(f"--{req.replace('_', '-')} required for {args.variant}")
     if args.device == "cuda" and not torch.cuda.is_available():
         parser.error("--device cuda: no CUDA device is available")
     device = torch.device(args.device)
@@ -289,20 +337,33 @@ def main(argv=None) -> None:
     # would calibrate on one frame's content)
     args.calib_images = (train_calibration_blocks(train_b.samples, args.calib_samples)
                          if args.int8 else None)
-    build = build_v6 if args.variant == "v6" else build_unified
-    predict = build(args, dtype, device)
-    class_names = list(V6_EVAL_CLASS_NAMES)
+    qps = None  # per-sample QPs for a QP-conditioned v5 checkpoint
+    if args.variant == "v5":
+        predict, qps = build_v5(args, bundle.qps, device)
+        class_names = [PARTITION_ID_TO_NAME[i] for i in range(10)]
+    elif args.variant == "flatten":
+        # raw partition ids: the flatten classes map onto them
+        predict = build_flatten(args, dtype, device)
+        class_names = [PARTITION_ID_TO_NAME[i].replace("PARTITION_", "")
+                       for i in range(8)]
+    else:
+        build = build_v6 if args.variant == "v6" else build_unified
+        predict = build(args, dtype, device)
+        class_names = list(V6_EVAL_CLASS_NAMES)
 
     start = time.perf_counter()
-    out = run_pipeline_batched(predict, bundle.samples, args.batch_size, device)
+    out = run_pipeline_batched(predict, bundle.samples, args.batch_size, device, qps=qps)
     seconds = time.perf_counter() - start
     throughput = len(bundle) / seconds
 
     raw_labels = bundle.labels["stage0"]
-    if args.reference_compat_labels:
-        labels = np.clip(raw_labels, 0, len(class_names) - 1)
-    else:
+    v6_family = args.variant in ("v6", "unified")
+    if v6_family and not args.reference_compat_labels:
         labels = raw_to_v6_final(raw_labels)  # -1 for 1TO4: excluded
+    else:
+        # raw-id spaces (v5, flatten), or the reference's misaligned v6
+        # comparison (quirk Q7) with --reference-compat-labels
+        labels = np.clip(raw_labels, 0, len(class_names) - 1)
     final = out["final"]
     metrics = compute_metrics(labels, final, labels=class_names)
     stage1_metrics = compute_binary_metrics(
@@ -319,8 +380,9 @@ def main(argv=None) -> None:
         "throughput_superblocks_per_sec": throughput,
         "metrics": metrics,
         "stage1": stage1_metrics,
-        "cascade": decompose_v6(out, raw_labels),
     }
+    if v6_family:
+        payload["cascade"] = decompose_v6(out, raw_labels)
     out_dir = Path(args.output_dir)
     write_metrics_json(out_dir / f"pipeline_metrics_{args.split}.json", payload)
     write_predictions_npz(

@@ -24,6 +24,8 @@ from av1tpu_torch.eval.gated import auto_capacity, make_v6_pipeline_gated  # noq
 from av1tpu_torch.eval.hierarchy import (  # noqa: F401
     PipelineModels,
     assemble_v6_predict,
+    make_flatten_pipeline,
+    make_v5_pipeline,
     make_v6_pipeline,
     run_pipeline_batched,
     v6_route,

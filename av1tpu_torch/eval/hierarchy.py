@@ -1,4 +1,5 @@
-"""Dense hierarchical v6 inference and batched streaming on one device.
+"""Dense hierarchical inference (v6, v5, flatten) and batched streaming on
+one device.
 
 Counterpart of ``av1tpu.eval.hierarchy``: all four stage models run on the
 whole batch and ``v6_route`` resolves the hierarchy with masks, so the
@@ -6,6 +7,11 @@ output of a sample never depends on the rest of its batch.
 
     final = where(s1 == 0, NONE, where(s2 == SPLIT, SPLIT,
             where(s2 == RECT, rect + 2, ab + 4)))
+
+``make_v5_pipeline`` routes the v5 multi-head model's outputs to raw
+partition ids with the same masks; ``make_flatten_pipeline`` gates a 7-way
+classifier with stage 1 and maps its classes to raw ids. Both are plain
+module forwards, as in the JAX package, which calls no Pallas kernel there.
 """
 from __future__ import annotations
 
@@ -17,8 +23,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from av1tpu_torch.codec.partitions import flatten_to_raw
 from av1tpu_torch.data.records import NORM_10BIT
 from av1tpu_torch.models.jax_import import load_jax_variables
+from av1tpu_torch.quant.ptq import _sigmoid  # XLA's sigmoid, rounded op by op
 from av1tpu_torch.train.augment import align_tta_ab_logits, tta_views
 
 
@@ -156,6 +164,94 @@ def make_v6_pipeline(
     )
 
 
+def make_v5_pipeline(
+    model: nn.Module,
+    stage1_threshold: float = 0.5,
+    available_specialists: Sequence[str] = ("RECT", "AB", "1TO4"),
+    norm_scale: float = NORM_10BIT,
+    device="cuda",
+    mesh=None,
+) -> Callable:
+    """The v5 pipeline over one ``HierarchicalModel`` (fp32):
+    ``predict(images_u16, qp=None) -> dict`` on ``device``.
+
+    Raw partition ids: stage 2 says NONE (0), SPLIT (3), RECT, AB or 1TO4;
+    the RECT head gives 1 + its argmax, AB 4 + its argmax, 1TO4 8 + its
+    argmax. A specialist missing from ``available_specialists`` falls back to
+    its group's first member (1, 4, 8). ``qp`` (per sample, normalized as in
+    training) reaches a QP-conditioned model and is ignored by any other."""
+    if mesh is not None:
+        raise NotImplementedError("multi-device inference waits for ROADMAP M11")
+    model = on_device(model, device, torch.float32)
+    has = {head: head in available_specialists for head in ("RECT", "AB", "1TO4")}
+
+    @torch.inference_mode()
+    def predict(images: torch.Tensor, qp=None) -> Dict[str, torch.Tensor]:
+        out = model(images.to(torch.float32) / norm_scale, qp)
+        s1_prob = _sigmoid(out.stage1)
+        s1_pred = (s1_prob >= stage1_threshold).to(torch.int32)
+        s2_pred = torch.argmax(out.stage2, dim=-1).to(torch.int32)
+        args = {head: torch.argmax(out.specialists[head], dim=-1).to(torch.int32)
+                for head in ("RECT", "AB", "1TO4")}
+
+        def routed(head, first):
+            return args[head] + first if has[head] else torch.full_like(args[head], first)
+
+        final = torch.where(
+            (s1_pred == 0) | (s2_pred == 0), 0,
+            torch.where(s2_pred == 1, 3,
+                        torch.where(s2_pred == 2, routed("RECT", 1),
+                                    torch.where(s2_pred == 3, routed("AB", 4),
+                                                routed("1TO4", 8)))))
+        return {
+            "final": final.to(torch.int32),
+            "stage1_prob": s1_prob,
+            "stage1_pred": s1_pred,
+            "stage2_pred": s2_pred,
+            **{f"stage3_{head}_pred": arg for head, arg in args.items()},
+        }
+
+    return predict
+
+
+def make_flatten_pipeline(
+    stage1_model: nn.Module,
+    flat_model: nn.Module,
+    stage1_threshold: float = 0.45,
+    norm_scale: float = NORM_10BIT,
+    input_dtype=torch.float32,
+    device="cuda",
+    mesh=None,
+) -> Callable:
+    """Stage-1 gate + the 7-way ``Stage2FlatModel``, its classes mapped to
+    raw partition ids (``codec.partitions.flatten_to_raw``, a table on the
+    device): ``predict(images_u16) -> dict`` on ``device``. Stage 1 runs
+    without its temperature. In ``input_dtype`` (the models cast to it, as
+    ``make_v6_pipeline`` does) the gate's sigmoid and threshold work in that
+    dtype, as the JAX graph's do; ``stage1_prob`` comes back as fp32."""
+    if mesh is not None:
+        raise NotImplementedError("multi-device inference waits for ROADMAP M11")
+    s1 = on_device(stage1_model, device, input_dtype)
+    flat = on_device(flat_model, device, input_dtype)
+    remap = torch.as_tensor(flatten_to_raw(np.arange(7)), dtype=torch.int32,
+                            device=device)
+
+    @torch.inference_mode()
+    def predict(images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        x = (images.to(torch.float32) / norm_scale).to(input_dtype)
+        s1_prob = _sigmoid(s1(x))
+        s1_pred = (s1_prob >= stage1_threshold).to(torch.int32)
+        flat_pred = torch.argmax(flat(x), dim=-1).to(torch.int32)
+        return {
+            "final": torch.where(s1_pred == 0, 0, remap[flat_pred]).to(torch.int32),
+            "stage1_prob": s1_prob.float(),
+            "stage1_pred": s1_pred,
+            "flatten_pred": flat_pred,
+        }
+
+    return predict
+
+
 class _Staging:
     """A ring of two pinned host buffers for non-blocking uploads: a buffer
     is refilled only after the copy that last read it has finished."""
@@ -195,6 +291,7 @@ def run_pipeline_batched(
     batch_size: int = 4096,
     device="cuda",
     as_numpy: bool = True,
+    qps=None,
 ) -> Dict[str, np.ndarray]:
     """Stream a dataset through ``predict_fn`` in batches of ``batch_size``
     on one device (the card unless the caller passes ``"cpu"``; ``"cuda"``
@@ -210,7 +307,11 @@ def run_pipeline_batched(
     entry per batch. Outputs stay on the device until the end and come back
     to the host once, as numpy; ``as_numpy=False`` returns the device
     tensors instead and does not synchronise, so that a caller can overlap
-    host work with the device's."""
+    host work with the device's.
+
+    ``qps`` (per sample, for a QP-conditioned v5 predictor, normalized as in
+    training: qp / 255) is sliced and uploaded beside ``samples`` and passed
+    as the predictor's second argument; ``accepts_valid`` takes precedence."""
     device = torch.device(device)
     n = int(samples.shape[0])
     accepts_valid = getattr(predict_fn, "accepts_valid", False)
@@ -230,6 +331,9 @@ def run_pipeline_batched(
         if accepts_valid:
             valid = int(chunk.shape[0])
             result = predict_fn(_pad_rows(chunk, batch_size), valid)
+        elif qps is not None:
+            result = predict_fn(chunk, torch.as_tensor(qps[start:start + batch_size])
+                                .to(device))
         else:
             result = predict_fn(chunk)
         for key, value in result.items():
@@ -244,6 +348,8 @@ def run_pipeline_batched(
 __all__ = [
     "PipelineModels",
     "assemble_v6_predict",
+    "make_flatten_pipeline",
+    "make_v5_pipeline",
     "make_v6_pipeline",
     "on_device",
     "run_pipeline_batched",

@@ -16,6 +16,15 @@ unified model's ``head_stage1|head_stage2|head_rect|head_ab`` likewise),
 ``proj_dense<l>|proj_bn<l>`` <-> ``feat_proj.<4l>|<4l+1>``, the stage-1
 ``temperature`` <-> ``head.temperature``, the unified model's top-level
 ``temperature`` <-> ``temperature`` (the tree that has no ``head`` module).
+The adapter model's flat names keep their prefix (``backbone_layer1_0`` <->
+``backbone_layer1.0``, ``backbone_bn1``), with ``adapter_layer<g>/Dense_0|1``
+<-> ``adapter_layer<g>.down|up``. The v5 tree: ``backbone/stem/Conv_0|
+BatchNorm_0`` <-> ``backbone.stem.conv|bn``, ``backbone/block<i>/Conv_0|
+BatchNorm_0|Conv_1|BatchNorm_1`` <-> ``backbone.blocks.<i-1>.depthwise|bn1|
+pointwise|bn2`` (the depthwise kernel ``(3, 3, 1, C)`` <-> ``(C, 1, 3, 3)``,
+the same transpose as any conv), ``stage1_head|stage2_head/Dense_i`` <->
+``stage1_head|stage2_head.fc.<3i>``, ``specialist_<H>/Dense_i`` <->
+``specialist_heads.<H>.fc.<3i>``, ``qp_embed/Dense_0`` <-> ``qp_embed.proj.0``.
 
 ``quant_model_from_arrays`` builds the port's int8 model from an int8
 state held as numpy arrays (scales, int8 weights, corrected biases, the
@@ -43,6 +52,16 @@ _TO_TORCH = (
     (r"^(head\w*)/Dense_(\d+)", lambda m: f"{m[1]}/head.{3 * int(m[2])}"),
     (r"^proj_dense(\d+)", lambda m: f"feat_proj.{4 * int(m[1])}"),
     (r"^proj_bn(\d+)", lambda m: f"feat_proj.{4 * int(m[1]) + 1}"),
+    (r"^(adapter_layer\d)/Dense_0", r"\1/down"),
+    (r"^(adapter_layer\d)/Dense_1", r"\1/up"),
+    (r"^backbone/stem/Conv_0", "backbone/stem/conv"),
+    (r"^backbone/stem/BatchNorm_0", "backbone/stem/bn"),
+    (r"^backbone/block(\d+)/(Conv_0|BatchNorm_0|Conv_1|BatchNorm_1)$",
+     lambda m: f"backbone/blocks.{int(m[1]) - 1}/{_V5_BLOCK[m[2]]}"),
+    (r"^(stage\d_head)/Dense_(\d+)", lambda m: f"{m[1]}/fc.{3 * int(m[2])}"),
+    (r"^specialist_([^/]+)/Dense_(\d+)",
+     lambda m: f"specialist_heads.{m[1]}/fc.{3 * int(m[2])}"),
+    (r"^qp_embed/Dense_0", "qp_embed/proj.0"),
 )
 _TO_JAX = (
     (r"layer(\d)\.(\d)", r"layer\1_\2"),
@@ -56,8 +75,24 @@ _TO_JAX = (
         f"proj_dense{int(m[1]) // 4}" if int(m[1]) % 4 == 0
         else f"proj_bn{int(m[1]) // 4}"
     )),
+    (r"^(adapter_layer\d)\.down", r"\1.Dense_0"),
+    (r"^(adapter_layer\d)\.up", r"\1.Dense_1"),
+    (r"^backbone\.stem\.conv$", "backbone.stem.Conv_0"),
+    (r"^backbone\.stem\.bn$", "backbone.stem.BatchNorm_0"),
+    (r"^backbone\.blocks\.(\d+)\.(depthwise|bn1|pointwise|bn2)$",
+     lambda m: f"backbone.block{int(m[1]) + 1}.{_V5_BLOCK_INV[m[2]]}"),
+    (r"^(stage\d_head)\.fc\.(\d+)", lambda m: f"{m[1]}.Dense_{int(m[2]) // 3}"),
+    (r"^specialist_heads\.([^.]+)\.fc\.(\d+)",
+     lambda m: f"specialist_{m[1]}.Dense_{int(m[2]) // 3}"),
+    (r"^qp_embed\.proj\.0", "qp_embed.Dense_0"),
 )
-_BN_MODULE = re.compile(r"^(bn\d|downsample_bn|proj_bn\d+)$")
+# A v5 block's flax submodules <-> the reference's names
+_V5_BLOCK = {"Conv_0": "depthwise", "BatchNorm_0": "bn1", "Conv_1": "pointwise",
+             "BatchNorm_1": "bn2"}
+_V5_BLOCK_INV = {v: k for k, v in _V5_BLOCK.items()}
+# The last JAX module name of every BatchNorm: ``bn1``, ``backbone_bn1``,
+# ``downsample_bn``, ``proj_bn0``, the v5 ``BatchNorm_<i>``
+_BN_MODULE = re.compile(r"^(\w*bn\d+|downsample_bn|BatchNorm_\d+)$")
 _BN_LEAVES = {  # JAX (collection, leaf) -> torch leaf
     ("params", "scale"): "weight",
     ("params", "bias"): "bias",

@@ -1,9 +1,11 @@
-"""v6 building blocks as ``nn.Module``s (NCHW inside, eval-mode inference).
+"""v5 and v6 building blocks as ``nn.Module``s (NCHW inside, eval-mode
+inference).
 
 Counterpart of ``av1tpu.models.layers``. Submodule names follow the
 reference's torchvision-style state-dict keys (``conv1``, ``bn1``,
-``downsample.0``, ``excitation.0``, ``spatial_attn.conv``, ``head.head.0``)
-so that ``models.jax_import`` maps the JAX tree onto them mechanically.
+``downsample.0``, ``excitation.0``, ``spatial_attn.conv``, ``head.head.0``;
+the v5 ``conv``/``bn``, ``depthwise``/``pointwise``) so that
+``models.jax_import`` maps the JAX tree onto them mechanically.
 
 Padding follows XLA ``"SAME"``, not PyTorch's symmetric ``padding=1``: a
 stride-2 3x3 conv at an even extent pads (0, 1), at extent 1 it pads (1, 1)
@@ -12,7 +14,7 @@ port uses.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Callable, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -42,16 +44,50 @@ class SpatialConv(nn.Conv2d):
 
     At a 1x1 extent the padded window holds only zeros besides the center
     pixel, so the result equals the JAX center-tap collapse exactly.
+    ``groups=in_ch`` is the depthwise conv: a torch ``(C, 1, k, k)`` weight,
+    flax's ``(k, k, 1, C)`` kernel.
     """
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
-                 stride: int = 1, bias: bool = False):
+                 stride: int = 1, bias: bool = False, groups: int = 1):
         super().__init__(in_ch, out_ch, kernel_size, stride=stride, padding=0,
-                         bias=bias)
+                         bias=bias, groups=groups)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = pad_same(x, self.kernel_size[0], self.stride[0])
-        return F.conv2d(x, self.weight, self.bias, self.stride)
+        return F.conv2d(x, self.weight, self.bias, self.stride, groups=self.groups)
+
+
+class ConvBNAct(nn.Module):
+    """kxk SAME conv -> BatchNorm -> activation (the v5 ``ConvStem``)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
+                 stride: int = 1, act: Callable = F.silu, bias: bool = False):
+        super().__init__()
+        self.conv = SpatialConv(in_ch, out_ch, kernel_size, stride, bias)
+        self.bn = nn.BatchNorm2d(out_ch, eps=BN_EPS)
+        self.act = act
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.act(self.bn(self.conv(x)))
+
+
+class DepthwiseSeparableConv(nn.Module):
+    """Depthwise 3x3 SAME conv + BN + SiLU, then pointwise 1x1 + BN + SiLU.
+
+    The depthwise conv pads as XLA ``"SAME"`` does: (0, 1) at stride 2 and an
+    even extent, where ``padding=1`` would pad (1, 1) (ROADMAP F1)."""
+
+    def __init__(self, in_ch: int, out_ch: int, stride: int = 1):
+        super().__init__()
+        self.depthwise = SpatialConv(in_ch, in_ch, 3, stride, groups=in_ch)
+        self.bn1 = nn.BatchNorm2d(in_ch, eps=BN_EPS)
+        self.pointwise = nn.Conv2d(in_ch, out_ch, 1, bias=False)
+        self.bn2 = nn.BatchNorm2d(out_ch, eps=BN_EPS)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.silu(self.bn1(self.depthwise(x)))
+        return F.silu(self.bn2(self.pointwise(x)))
 
 
 class SEBlock(nn.Module):
@@ -85,6 +121,29 @@ class SpatialAttention(nn.Module):
         return x * torch.sigmoid(self.conv(maps))
 
 
+class DualAttention(nn.Module):
+    """Full CBAM: channel attention (the mean and the max squeeze through one
+    shared ``mlp``, no biases) then a 7x7 spatial gate, as the FGVC
+    ``DualAttentionModule``."""
+
+    def __init__(self, channels: int, reduction: int = 16):
+        super().__init__()
+        self.mlp = nn.Sequential(
+            nn.Linear(channels, channels // reduction, bias=False),
+            nn.ReLU(),
+            nn.Linear(channels // reduction, channels, bias=False),
+        )
+        self.conv = SpatialConv(2, 1, 7)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        gate = torch.sigmoid(self.mlp(x.mean(dim=(2, 3))) + self.mlp(x.amax(dim=(2, 3))))
+        x = x * gate[:, :, None, None]
+        maps = torch.cat(
+            [x.mean(dim=1, keepdim=True), x.amax(dim=1, keepdim=True)], dim=1
+        )
+        return x * torch.sigmoid(self.conv(maps))
+
+
 class BasicBlock(nn.Module):
     """ResNet basic block; a 1x1 projection shortcut on stride or width
     change."""
@@ -111,19 +170,20 @@ class BasicBlock(nn.Module):
 
 
 class MLPHead(nn.Module):
-    """Linear -> relu -> dropout per hidden width, then a logits Linear.
+    """Linear -> ``act`` -> dropout per hidden width, then a logits Linear
+    (``act`` is an ``nn.Module`` class: ReLU for v6, SiLU for the v5 heads).
 
     The layers sit in ``self.head`` so that a stage model's keys read
     ``head.head.<i>``, as in the reference checkpoints."""
 
     def __init__(self, in_dim: int, hidden: Sequence[int], num_outputs: int,
-                 dropout: Sequence[float]):
+                 dropout: Sequence[float], act: type = nn.ReLU):
         super().__init__()
         if len(hidden) != len(dropout):
             raise ValueError("one dropout rate per hidden layer")
         layers = []
         for width, rate in zip(hidden, dropout):
-            layers += [nn.Linear(in_dim, width), nn.ReLU(), nn.Dropout(rate)]
+            layers += [nn.Linear(in_dim, width), act(), nn.Dropout(rate)]
             in_dim = width
         layers.append(nn.Linear(in_dim, num_outputs))
         self.head = nn.Sequential(*layers)
@@ -132,13 +192,38 @@ class MLPHead(nn.Module):
         return self.head(x)
 
 
+class AdapterModule(nn.Module):
+    """Residual bottleneck adapter over channel statistics: spatial mean ->
+    ``down`` -> relu -> dropout -> ``up``, broadcast-added to the map."""
+
+    def __init__(self, channels: int, bottleneck_dim: int = 64, dropout: float = 0.1):
+        super().__init__()
+        self.down = nn.Linear(channels, bottleneck_dim)
+        self.drop = nn.Dropout(dropout)
+        self.up = nn.Linear(bottleneck_dim, channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.up(self.drop(F.relu(self.down(global_avg_pool(x)))))
+        return x + y[:, :, None, None]
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """NCHW -> NC spatial mean."""
+    return x.mean(dim=(2, 3))
+
+
 __all__ = [
+    "AdapterModule",
     "BN_EPS",
     "BasicBlock",
+    "ConvBNAct",
+    "DepthwiseSeparableConv",
+    "DualAttention",
     "MLPHead",
     "SEBlock",
     "SpatialAttention",
     "SpatialConv",
+    "global_avg_pool",
     "pad_same",
     "same_padding",
 ]

@@ -1,8 +1,9 @@
 """v6 stage models: ResNet-18 + SE + spatial attention, then an MLP head.
 
 Counterpart of ``av1tpu.models.v6`` (ImprovedBackbone, the four stage
-models and the single-trunk UnifiedV6Model). Inputs are NHWC ``(B, H, W, 1)`` like the JAX models; the backbone
-works in NCHW inside and returns the ``(B, 512)`` embedding.
+models, the 7-way flatten model, the adapter model and the single-trunk
+UnifiedV6Model). Inputs are NHWC ``(B, H, W, 1)`` like the JAX models; the
+backbone works in NCHW inside and returns the ``(B, 512)`` embedding.
 """
 from __future__ import annotations
 
@@ -11,14 +12,34 @@ from torch import nn
 
 from av1tpu_torch.models.layers import (
     BN_EPS,
+    AdapterModule,
     BasicBlock,
     MLPHead,
     SEBlock,
     SpatialAttention,
+    global_avg_pool,
 )
 
 FEATURE_DIM = 512
 WIDTHS = (64, 128, 256, 512)
+
+
+def _resnet_modules(module: nn.Module, prefix: str = "") -> None:
+    """Add the ResNet-18 + SE + spatial-attention trunk's submodules to
+    ``module``, each name prefixed with ``prefix``: ``conv1``, ``bn1``,
+    ``layer<g>`` (two BasicBlocks), ``se<g>``, ``spatial_attn``."""
+    module.add_module(f"{prefix}conv1", nn.Conv2d(1, 64, 7, stride=2, padding=3,
+                                                  bias=False))
+    module.add_module(f"{prefix}bn1", nn.BatchNorm2d(64, eps=BN_EPS))
+    in_ch = 64
+    for gi, width in enumerate(WIDTHS, start=1):
+        stride = 1 if gi == 1 else 2
+        module.add_module(f"{prefix}layer{gi}", nn.Sequential(
+            BasicBlock(in_ch, width, stride), BasicBlock(width, width)
+        ))
+        module.add_module(f"{prefix}se{gi}", SEBlock(width))
+        in_ch = width
+    module.add_module(f"{prefix}spatial_attn", SpatialAttention())
 
 
 class ImprovedBackbone(nn.Module):
@@ -27,18 +48,8 @@ class ImprovedBackbone(nn.Module):
 
     def __init__(self):
         super().__init__()
-        self.conv1 = nn.Conv2d(1, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64, eps=BN_EPS)
+        _resnet_modules(self)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
-        in_ch = 64
-        for gi, width in enumerate(WIDTHS, start=1):
-            stride = 1 if gi == 1 else 2
-            self.add_module(f"layer{gi}", nn.Sequential(
-                BasicBlock(in_ch, width, stride), BasicBlock(width, width)
-            ))
-            self.add_module(f"se{gi}", SEBlock(width))
-            in_ch = width
-        self.spatial_attn = SpatialAttention()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
@@ -125,6 +136,40 @@ class UnifiedV6Model(nn.Module):
                           self.head_ab(feats)], dim=-1)
 
 
+class Stage2FlatModel(_StageModel):
+    """The flatten architecture: one 7-way classifier in place of the
+    stage-2/3 cascade."""
+
+    hidden, dropout, num_outputs = (256, 128), (0.4, 0.4), 7
+
+
+class Stage2ModelWithAdapters(nn.Module):
+    """Stage 2 with a residual adapter after each layer group (after the
+    spatial attention in group 4). Names are flat, as in the JAX model:
+    ``backbone_conv1``, ``backbone_layer<g>``, ``backbone_se<g>``,
+    ``backbone_spatial_attn``, ``adapter_layer<g>``, ``head``. Inference
+    only."""
+
+    def __init__(self, bottleneck_dim: int = 64, adapter_dropout: float = 0.1):
+        super().__init__()
+        _resnet_modules(self, "backbone_")
+        self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
+        for gi, width in enumerate(WIDTHS, start=1):
+            self.add_module(f"adapter_layer{gi}",
+                            AdapterModule(width, bottleneck_dim, adapter_dropout))
+        self.head = MLPHead(FEATURE_DIM, (256, 128), 3, (0.4, 0.4))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
+        x = self.maxpool(torch.relu(self.backbone_bn1(self.backbone_conv1(x))))
+        for gi in range(1, 5):
+            x = getattr(self, f"backbone_se{gi}")(getattr(self, f"backbone_layer{gi}")(x))
+            if gi == 4:
+                x = self.backbone_spatial_attn(x)
+            x = getattr(self, f"adapter_layer{gi}")(x)
+        return self.head(global_avg_pool(x))
+
+
 # Column layout of the UnifiedV6Model output:
 # [s1 | s2 s2 s2 | rect rect | ab ab ab ab].
 UNIFIED_LOGIT_SLICES = {
@@ -151,7 +196,9 @@ __all__ = [
     "FEATURE_DIM",
     "ImprovedBackbone",
     "Stage1Model",
+    "Stage2FlatModel",
     "Stage2Model",
+    "Stage2ModelWithAdapters",
     "Stage3ABModel",
     "Stage3RectModel",
     "UNIFIED_LOGIT_DIM",

@@ -75,6 +75,23 @@ Run from the root of a checkout. Phases, one JSON line each:
           per-stage pipeline at 8 px with K1. Then the path: the port's
           ``run_pipeline_eval --int8`` per-stage and ``--variant unified``,
           fp32 and ``--bf16``, ``--fused-front off`` and ``on``;
+       f. v5 and flatten serving (plain module forwards, as in the JAX
+          package: no port kernel may launch) on a 65,536-block 16 px dataset
+          with raw labels 0..9 and a QP drawn per block, batch 4096: the port's
+          ``run_pipeline_eval --variant v5`` (base 32; a warm-up run first,
+          and one before flatten too) with ``--bf16``, which
+          still serves fp32, and with ``--available-specialists RECT`` (the
+          AB and 1TO4 fallbacks), a QP-conditioned v5 model from a ``.pt``
+          fed the bundle's QPs, and ``--variant flatten`` (path a's stage 1
+          and a seeded ``Stage2FlatModel`` at ResNet-18 widths) in fp32 and
+          ``--bf16``. Each run's first 4,096 labels are held against the same
+          CLI on the CPU in fp32: equal wherever the decision margin exceeds
+          1e-3 (stage-1 probabilities within 1e-4); the bf16 flatten run's
+          labels on at least the share the CPU's own bf16 run reaches, less
+          0.02. Then (``f_reference_pt``) path a's ``--folded --bf16
+          --fused-front on`` from reference-shaped ``.pt`` files of the same
+          four stage models, whose labels and probabilities must equal path
+          a's npz run's;
      each run prints blocks/s (or frames/s and superblocks/s), its launches,
      and its agreement with its path's ``off`` run;
   6. predict: the CUDA-event time of one 4,096-block bf16 predict on a
@@ -82,7 +99,9 @@ Run from the root of a checkout. Phases, one JSON line each:
      off / on and the gated pipeline at path a's ``auto`` capacity and at
      0.5, in ABC...CBA turns, and from a ``torch.profiler`` trace the
      kernels launched per predict, the device's busy time and idle share;
-     then int8 (bf16) with K1 off and on beside the folded ``off``; then the
+     then int8 (bf16) with K1 off and on beside the folded ``off``; then
+     path f's pipelines (v5 and the QP-conditioned v5 in fp32, flatten in
+     fp32 and bf16), which must launch no port kernel; then the
      same per level of the cascade for one group of four frames
      (``cascade_level``: per-stage off / g1 / K5+K1 and unified g1);
   7. timing: each kernel, its plain version and, for K4, one library call
@@ -106,6 +125,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import io
 import itertools
 import json
@@ -114,6 +134,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 from typing import Callable, NamedTuple, Optional
 
@@ -138,8 +159,10 @@ from av1tpu_torch.codec.tree import LEVEL_SIZES, NODES_PER_LEVEL  # noqa: E402
 from av1tpu_torch.data.bundles import Bundle, save_split  # noqa: E402
 from av1tpu_torch.eval import (  # noqa: E402
     PipelineModels,
+    make_flatten_pipeline,
     make_unified_pipeline,
     make_unified_pipeline_folded,
+    make_v5_pipeline,
     make_v6_pipeline,
     make_v6_pipeline_folded,
     make_v6_pipeline_gated,
@@ -170,7 +193,9 @@ from av1tpu_torch.kernels.fused_dense import (  # noqa: E402
 )
 from av1tpu_torch.models import (  # noqa: E402
     FGVCModel,
+    HierarchicalModel,
     Stage1Model,
+    Stage2FlatModel,
     Stage2Model,
     Stage3ABModel,
     Stage3RectModel,
@@ -238,6 +263,18 @@ INT8_CALIB = 512          # --calib-samples' default
 # the largest margin at which a label may differ (int8 noise: a flipped
 # activation spreads).
 INT8_SITE_SHARE, INT8_LABEL_SHARE, INT8_MARGIN = 0.98, 0.97, 0.25
+# Path f: v5 and flatten serving. Its card runs are held against the same CLI
+# on the CPU over the first N_CPU_REF blocks, fp32. A bf16 run is far from
+# fp32 on these random ResNets (on an H100 the plain bf16 flatten graph moved
+# 8% of the labels off the CPU's fp32 run, as the CPU's own bf16 graph did),
+# so its labels must equal the CPU fp32 run's on at least the share that the
+# CPU's own bf16 run does, less BF16_SLACK.
+N_CPU_REF = 4096
+BF16_SLACK = 0.02
+# First-decision shares of path f's heads on probe blocks: the gate opens,
+# stage 2 (v5: NONE) or the flatten class 0 (NONE) wins, the specialist's class 0
+F_SHARES = {"stage1": 0.8, "stage2": 0.3, "specialist": 0.5, "flat": 0.3}
+V5_HEADS = ("RECT", "AB", "1TO4")
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "fused_front": ("av1tpu_torch/csrc/fused_front.cu",
                     "av1tpu/kernels/fused_front.py:105"),
@@ -1417,6 +1454,219 @@ def check_int8_runs(runs: list, bases: dict) -> None:
                                  f"fused_front x {want}")
 
 
+# ---------------------------------------------------------------------------
+# Path f: v5 and flatten serving, and path a's pipeline from reference .pt files
+# ---------------------------------------------------------------------------
+
+
+def make_dataset_f() -> tuple:
+    """Path f's split: ``N_VAL`` 16 px val blocks with raw labels 0..9 and a QP
+    drawn per block; a copy of it whose val split holds the first ``N_CPU_REF``
+    blocks (the CPU's runs). Returns (card dir, CPU dir, val bundle)."""
+    rng = np.random.default_rng(SEED + 6)
+
+    def bundle(n):
+        stage0 = rng.integers(0, 10, size=n).astype(np.int32)
+        return Bundle(
+            samples=codes(rng, (n, HW, HW, 1)),
+            qps=rng.integers(0, 256, size=n).astype(np.int32),
+            labels={"stage0": stage0, "stage1": (stage0 != 0).astype(np.int32),
+                    "stage2": map_to_stage2_v6(stage0)[0].astype(np.int32)},
+        )
+
+    train, val = bundle(64), bundle(N_VAL)
+    card, cpu = WORK / "dataset_f", WORK / "dataset_f_cpu"
+    save_split(card, HW, train, val, "v6")
+    save_split(cpu, HW, train, val.take(np.arange(N_CPU_REF)), "v6")
+    return card, cpu, val
+
+
+def v5_logits(model, x: torch.Tensor, qps: Optional[torch.Tensor]) -> dict:
+    """``{head module name: logits}`` of a v5 model, as numpy."""
+    with torch.inference_mode():
+        out = model(x, qps if model.use_qp else None)
+    return {"stage1_head": out.stage1.numpy(), "stage2_head": out.stage2.numpy(),
+            **{f"specialist_heads.{h}": out.specialists[h].numpy() for h in V5_HEADS}}
+
+
+def path_f_models(gen: torch.Generator, calib: torch.Tensor, val: Bundle) -> dict:
+    """Path f's seeded models at the published widths, BN calibrated on
+    ``calib`` and perturbed: the v5 model (base 32), its QP-conditioned twin
+    and the 7-way flatten model, every head's first decision shifted to
+    ``F_SHARES`` on probe blocks (the last 2,048 val blocks)."""
+    probe = torch.from_numpy(val.samples[-2048:]).float() / 1023.0
+    qps = torch.from_numpy(val.qps[-2048:]).float() / 255.0
+    out = {"v5": seeded_model(HierarchicalModel, gen, calib),
+           "v5_qp": seeded_model(functools.partial(HierarchicalModel, use_qp=True),
+                                 gen, calib),
+           "flat": seeded_model(Stage2FlatModel, gen, calib)}
+    def spread(head, logits, share):
+        # centre each class's logit on the probe blocks first, so that no class
+        # wins everywhere (the QP embedding adds a near-constant vector)
+        if logits.ndim == 2:
+            median = np.median(logits, axis=0)
+            with torch.no_grad():
+                head.head[-1].bias -= torch.as_tensor(median, dtype=torch.float32)
+            logits = logits - median
+        set_first_class_share(head, logits, share)
+
+    for name in ("v5", "v5_qp"):
+        for head, logits in v5_logits(out[name], probe, qps).items():
+            fc = types.SimpleNamespace(head=out[name].get_submodule(head).fc)
+            spread(fc, logits, F_SHARES[head.split("_")[0]])
+    with torch.inference_mode():
+        logits = out["flat"](probe).numpy()
+    spread(out["flat"].head, logits, F_SHARES["flat"])
+    return out
+
+
+def path_f_margins(models: dict, stage1, val: Bundle) -> dict:
+    """``{model: (N_CPU_REF,) least margin of the decisions behind a label}``
+    over the first ``N_CPU_REF`` val blocks, on the CPU: the stage-1
+    probability's distance from ``THRESHOLD``, every other head's top-2 gap."""
+    x = torch.from_numpy(val.samples[:N_CPU_REF]).float() / 1023.0
+    qps = torch.from_numpy(val.qps[:N_CPU_REF]).float() / 255.0
+
+    def margin(logits):
+        if logits.ndim == 1:
+            return np.abs(1 / (1 + np.exp(-logits.astype(np.float64))) - THRESHOLD)
+        top = np.sort(logits, axis=-1)
+        return top[:, -1] - top[:, -2]
+
+    out = {name: np.min([margin(lg) for lg in v5_logits(models[name], x, qps).values()],
+                        axis=0) for name in ("v5", "v5_qp")}
+    with torch.inference_mode():
+        out["flatten"] = np.minimum(margin(stage1(x).numpy()),
+                                    margin(models["flat"](x).numpy()))
+    return out
+
+
+def path_f_plan(ckpts: dict) -> list:
+    """Path f's runs: (name, (run_pipeline_eval arguments, bf16, margin key,
+    labels the run may give))."""
+    v5 = ["--variant", "v5", "--v5-checkpoint", str(ckpts["v5"])]
+    flatten = ["--variant", "flatten", "--stage1-checkpoint", str(ckpts["stage1"]),
+               "--flatten-checkpoint", str(ckpts["flat"])]
+    every = tuple(range(10))
+    return [
+        # a warm-up run pays cuDNN's and the allocator's first calls
+        ("v5_warmup", (v5, True, "v5", every)),
+        # --bf16 is accepted and v5 still runs fp32, as in the JAX CLI
+        ("v5", (v5, True, "v5", every)),
+        # a missing AB / 1TO4 specialist falls back to its group's first id
+        ("v5_rect_only", (v5 + ["--available-specialists", "RECT"], False, "v5",
+                          (0, 1, 2, 3, 4, 8))),
+        ("v5_qp_pt", (["--variant", "v5", "--v5-checkpoint", str(ckpts["v5_qp_pt"])],
+                      False, "v5_qp", every)),
+        ("flatten_warmup", (flatten, False, "flatten", tuple(range(8)))),
+        ("flatten", (flatten, False, "flatten", tuple(range(8)))),
+        ("flatten_bf16", (flatten, True, "flatten", tuple(range(8)))),
+    ]
+
+
+def check_path_f_runs(runs: list, cpu_runs: dict, margins: dict) -> None:
+    """Each card run of path f: its outputs, no port kernel launched, and its
+    first ``N_CPU_REF`` labels against the same CLI on the CPU in fp32
+    (``cpu_runs[name]``; a warm-up run against its twin's): equal wherever the
+    decision margin exceeds 1e-3 and stage-1 probabilities within 1e-4, or,
+    for a bf16 run, equal on at least the share that the CPU's bf16 run
+    (``cpu_runs[name + ":bf16"]``) equals, less ``BF16_SLACK``."""
+    for run in runs:
+        args, bf16, margin_key, allowed = run["plan"]
+        name = run["name"].removesuffix("_warmup")
+        cpu = cpu_runs[name]
+        head = run["final"][:N_CPU_REF]
+        sure = margins[margin_key] > 1e-3
+        fp32 = not bf16 or margin_key.startswith("v5")  # v5 serves fp32 under --bf16
+        mismatches = int((head != cpu["final"])[sure].sum())
+        prob_err = float(np.abs(run["stage1_prob"][:N_CPU_REF] - cpu["stage1_prob"]).max())
+        agree = float((head == cpu["final"]).mean())
+        cpu_bf16 = (float((cpu_runs[f"{name}:bf16"]["final"] == cpu["final"]).mean())
+                    if f"{name}:bf16" in cpu_runs else None)
+        labels = np.unique(run["final"])
+        emit("end_to_end", path="f_v5_flatten", run=run["name"], samples=run["samples"],
+             blocks_per_s=run["blocks_per_s"], launches=run["launches"],
+             cpu_blocks=N_CPU_REF, final_agrees_with_cpu=agree,
+             cpu_bf16_final_agrees_with_cpu=cpu_bf16,
+             guarded_share=float(sure.mean()), mismatches_above_margin=mismatches,
+             stage1_prob_max_abs_diff_vs_cpu=prob_err, labels=labels.tolist(),
+             finite=bool(np.isfinite(run["stage1_prob"]).all()))
+        if run["samples"] != N_VAL or not np.isfinite(run["stage1_prob"]).all():
+            raise AssertionError(f"{run['name']}: bad outputs")
+        if not set(labels.tolist()) <= set(allowed) or len(labels) < 4:
+            raise AssertionError(f"{run['name']}: labels {labels.tolist()}, want "
+                                 f"several of {allowed}")
+        if run["launches"]:
+            raise AssertionError(f"{run['name']}: launched {run['launches']}; the v5 and "
+                                 "flatten paths are plain")
+        if fp32 and (mismatches or prob_err > 1e-4):
+            raise AssertionError(f"{run['name']}: {mismatches} labels above the margin "
+                                 f"differ from the CPU's, stage-1 probability {prob_err}")
+        if not fp32 and agree < cpu_bf16 - BF16_SLACK:
+            raise AssertionError(f"{run['name']}: {agree:.4f} of the labels equal the "
+                                 f"CPU's fp32 run, {cpu_bf16:.4f} of the CPU's bf16 run's")
+
+
+def write_reference_pt(models: dict) -> dict:
+    """Path a's four stage models as reference-shaped ``.pt`` files (each state
+    dict under ``model_state_dict``)."""
+    out = {}
+    for name in ("stage1", "stage2", "rect", "ab"):
+        out[name] = WORK / "pt" / f"{name}.pt"
+        out[name].parent.mkdir(parents=True, exist_ok=True)
+        torch.save({"model_state_dict": models[name].state_dict()}, out[name])
+    return out
+
+
+def run_path_f(models: dict, ckpts: dict, dataset: Path, npz_on_run: dict, dev) -> tuple:
+    """Path f: v5 and flatten serving on a dataset whose QPs vary per block,
+    each run against the same CLI on the CPU (``check_path_f_runs``); then
+    path a's ``--folded --fused-front on`` pipeline served from
+    reference-shaped ``.pt`` files, whose labels and probabilities must equal
+    ``npz_on_run``'s (path a's run of the same weights from npz). Returns
+    (path f's models, its val bundle, the launches of each part)."""
+    t0 = time.perf_counter()
+    dataset_f, dataset_f_cpu, val_f = make_dataset_f()
+    calib_f = torch.from_numpy(val_f.samples[-2560:-2048]).float() / 1023.0
+    f_models = path_f_models(torch.Generator().manual_seed(SEED + 7), calib_f, val_f)
+    f_ckpts = {"stage1": ckpts["stage1"], "v5_qp_pt": WORK / "pt" / "v5_qp.pt"}
+    for name in ("v5", "flat"):
+        f_ckpts[name] = save_variables_npz(WORK / "ckpt" / f"{name}_variables.npz",
+                                           to_jax_variables(f_models[name].state_dict()))
+    f_ckpts["v5_qp_pt"].parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"model_state_dict": f_models["v5_qp"].state_dict()}, f_ckpts["v5_qp_pt"])
+    f_plan = path_f_plan(f_ckpts)
+    f_margins = path_f_margins(f_models, models["stage1"], val_f)
+    cpu = torch.device("cpu")
+    cpu_runs = {name: run_cli(dataset_f_cpu, f"{name}_cpu", args, cpu, bf16=False)
+                for name, (args, *_) in f_plan if not name.endswith("_warmup")}
+    cpu_runs.update({f"{name}:bf16": run_cli(dataset_f_cpu, f"{name}_cpu_bf16", args, cpu)
+                     for name, (args, bf16, key, _) in f_plan
+                     if bf16 and key == "flatten" and not name.endswith("_warmup")})
+    emit("f_setup", seconds=time.perf_counter() - t0, cpu_blocks=N_CPU_REF,
+         models="v5 (base 32), v5 with QP embedding, Stage2FlatModel + path a's stage 1")
+    f_runs, f_launches = drive("f_v5_flatten", [(name, (name, spec)) for name, spec in f_plan],
+                               lambda arg: {**run_cli(dataset_f, arg[0], arg[1][0], dev,
+                                                      bf16=arg[1][1]), "plan": arg[1]})
+    check_path_f_runs(f_runs, cpu_runs, f_margins)
+    if any(f_launches.values()):
+        raise AssertionError(f"path f launched {f_launches}")
+
+    pt_ckpts = write_reference_pt(models)
+    (pt_run,), pt_launches = drive("f_reference_pt", [("v6_pt_on", (
+        "v6_pt_on", ["--folded", "--fused-front", "on", *v6_checkpoints(pt_ckpts)]))],
+        lambda arg: run_cli(dataset, *arg, dev))
+    agree = float((pt_run["final"] == npz_on_run["final"]).mean())
+    same_prob = bool(np.array_equal(pt_run["stage1_prob"], npz_on_run["stage1_prob"]))
+    emit("end_to_end", path="f_reference_pt", run=pt_run["name"], samples=pt_run["samples"],
+         blocks_per_s=pt_run["blocks_per_s"], launches=pt_run["launches"],
+         final_agrees_with_npz_run=agree, stage1_prob_equal_to_npz_run=same_prob)
+    if agree != 1.0 or not same_prob or pt_launches["fused_front"] != 4 * -(-N_VAL // BATCH):
+        raise AssertionError(f"v6 from .pt: {agree} of the labels equal the npz run's, "
+                             f"probabilities equal: {same_prob}, launches {pt_launches}")
+    return f_models, val_f, f_launches, pt_launches
+
+
 def device_time_by_kernel(fn: Callable, top: int = 8) -> list:
     """The ``top`` kernel names by device ms in one traced call of ``fn``:
     ``[name, calls, ms]``."""
@@ -1438,10 +1688,9 @@ def device_time_by_kernel(fn: Callable, top: int = 8) -> list:
 
 def int8_predict_phase(models: PipelineModels, calib: np.ndarray, samples: np.ndarray,
                        dev, smi: str) -> None:
-    """CUDA-event ms of one 4,096-block bf16 predict, int8 with K1 off and on
-    beside the folded ``off`` pipeline, in ABC...CBA turns, with the kernels,
-    host launch calls, device busy ms and idle share of a traced predict, and
-    the kernels that take the most device time."""
+    """One 4,096-block bf16 predict, int8 with K1 off and on beside the folded
+    ``off`` pipeline (``time_predicts``, with the kernels that take the most
+    device time)."""
     batch = torch.from_numpy(samples[:BATCH]).to(dev)
     predicts = {
         "folded_off": make_v6_pipeline_folded(models, THRESHOLD, float_dtype=torch.bfloat16,
@@ -1451,25 +1700,63 @@ def int8_predict_phase(models: PipelineModels, calib: np.ndarray, samples: np.nd
         "int8_on": make_v6_pipeline_int8(models, calib, THRESHOLD, float_dtype=torch.bfloat16,
                                          use_fused_front=True, device=dev),
     }
-    for _ in range(2):
-        for predict in predicts.values():
+    time_predicts({name: (functools.partial(predict, batch), "bfloat16")
+                   for name, predict in predicts.items()}, smi, top_kernels=True)
+
+
+def time_predicts(predicts: dict, smi: str, top_kernels: bool = False) -> dict:
+    """CUDA-event ms of one predict per mode (``predicts``: name -> (a call
+    of one 4,096-block predict on a batch already on the card, its dtype)):
+    two warm-up rounds of 10 calls, then six samples per mode in ABC...CBA
+    turns (each the mean of 10 predicts; ``predict_ms`` is their median),
+    with the port's kernels launched per predict and, from a
+    ``torch.profiler`` trace, the kernels, host launch calls, device busy ms
+    and idle share; with ``top_kernels`` the kernels that take the most
+    device time. Emits one ``predict`` line per mode and returns the port's
+    kernels launched per predict, by mode."""
+    for _ in range(2):  # warm-up: cuDNN plans, the allocator, the clocks
+        for fn, _ in predicts.values():
             for _ in range(10):
-                predict(batch)
+                fn()
     names = list(predicts)
     samples_ms = {name: [] for name in names}
     for name in (names + names[::-1]) * 3:
-        samples_ms[name].append(time_ms(lambda: predicts[name](batch), iters=10))
+        samples_ms[name].append(time_ms(predicts[name][0], iters=10))
+    launched = {}
     for name in names:
-        launched = launched_by(lambda: predicts[name](batch))
-        trace = trace_calls(lambda: predicts[name](batch))
+        fn, dtype = predicts[name]
+        launched[name] = launched_by(fn)
+        trace = trace_calls(fn)
         ms = float(np.median(samples_ms[name]))
         busy = trace["device_busy_ms"]
-        emit("predict", mode=name, batch=BATCH, hw=HW, dtype="bfloat16", predict_ms=ms,
-             samples_ms=samples_ms[name], port_kernels_per_predict=launched,
+        extra = {"top_kernels": device_time_by_kernel(fn)} if top_kernels else {}
+        emit("predict", mode=name, batch=BATCH, hw=HW, dtype=dtype, predict_ms=ms,
+             samples_ms=samples_ms[name], port_kernels_per_predict=launched[name],
              idle_share=None if busy is None else max(0.0, 1.0 - busy / ms),
              nvidia_smi=smi, kernels_per_predict=trace["kernels"], device_busy_ms=busy,
-             host_launch_calls_per_predict=trace["host_launch_calls"],
-             top_kernels=device_time_by_kernel(lambda: predicts[name](batch)))
+             host_launch_calls_per_predict=trace["host_launch_calls"], **extra)
+    return launched
+
+
+def v5_flatten_predict_phase(f_models: dict, stage1, val: Bundle, dev, smi: str) -> None:
+    """One 4,096-block predict of path f's pipelines (``time_predicts``): v5
+    and the QP-conditioned v5 (fp32, fed the batch's QPs / 255), flatten in
+    fp32 and bf16. None may launch a port kernel."""
+    batch = torch.from_numpy(val.samples[:BATCH]).to(dev)
+    qps = (torch.from_numpy(val.qps[:BATCH]).float() / 255.0).to(dev)
+    v5, v5_qp = (make_v5_pipeline(f_models[name], THRESHOLD, device=dev)
+                 for name in ("v5", "v5_qp"))
+    flatten = {dtype: make_flatten_pipeline(stage1, f_models["flat"], THRESHOLD,
+                                            input_dtype=dtype, device=dev)
+               for dtype in (torch.float32, torch.bfloat16)}
+    launched = time_predicts({
+        "v5": (functools.partial(v5, batch), "float32"),
+        "v5_qp": (functools.partial(v5_qp, batch, qps), "float32"),
+        "flatten": (functools.partial(flatten[torch.float32], batch), "float32"),
+        "flatten_bf16": (functools.partial(flatten[torch.bfloat16], batch), "bfloat16"),
+    }, smi, top_kernels=True)
+    if any(launched.values()):
+        raise AssertionError(f"the v5 and flatten predicts launched {launched}")
 
 
 # ---------------------------------------------------------------------------
@@ -1522,11 +1809,8 @@ def launched_by(fn: Callable) -> dict:
 
 def predict_phase(models: PipelineModels, samples: np.ndarray, dev, smi: str,
                   capacities: dict) -> None:
-    """CUDA-event ms of one 4,096-block bf16 predict on a batch on the card:
-    six samples per mode in ABC...CBA turns (each the mean of 10 predicts;
-    ``predict_ms`` is their median), with the port's kernels launched per
-    predict and the trace's kernel count, busy time and idle share. The
-    modes are ``PREDICT_MODES`` and the folded gated pipeline at each of
+    """One 4,096-block bf16 predict on a batch on the card (``time_predicts``)
+    for each of ``PREDICT_MODES`` and the folded gated pipeline at each of
     ``capacities`` (name: capacity)."""
     batch = torch.from_numpy(samples[:BATCH]).to(dev)
     predicts = {
@@ -1538,25 +1822,8 @@ def predict_phase(models: PipelineModels, samples: np.ndarray, dev, smi: str,
     for name, capacity in capacities.items():
         predicts[name] = make_v6_pipeline_gated(
             models, capacity, THRESHOLD, input_dtype=torch.bfloat16, folded=True, device=dev)
-    for _ in range(2):  # warm-up: cuDNN plans, the allocator, the clocks
-        for predict in predicts.values():
-            for _ in range(10):
-                predict(batch)
-    names = list(predicts)
-    samples_ms = {name: [] for name in names}
-    for name in (names + names[::-1]) * 3:
-        samples_ms[name].append(time_ms(lambda: predicts[name](batch), iters=10))
-    for name in names:
-        launched = launched_by(lambda: predicts[name](batch))
-        trace = trace_calls(lambda: predicts[name](batch))
-        ms = float(np.median(samples_ms[name]))
-        busy = trace["device_busy_ms"]
-        emit("predict", mode=name, batch=BATCH, hw=HW, dtype="bfloat16", predict_ms=ms,
-             samples_ms=samples_ms[name], port_kernels_per_predict=launched,
-             idle_share=None if busy is None else max(0.0, 1.0 - busy / ms),
-             nvidia_smi=smi, kernels_per_predict=trace["kernels"],
-             device_busy_ms=busy,
-             host_launch_calls_per_predict=trace["host_launch_calls"])
+    time_predicts({name: (functools.partial(predict, batch), "bfloat16")
+                   for name, predict in predicts.items()}, smi)
 
 
 LEVEL_MODES = {  # name: (family, use_fused_front, use_pallas_groups)
@@ -1875,8 +2142,13 @@ def main() -> int:
     check_int8_runs(int8_runs, {"v6": base, "unified": next(
         run for run in serving_runs if run["name"] == "unified_off")})
 
+    # path f: v5 and flatten serving, then path a's pipeline from .pt files
+    f_models, val_f, f_launches, pt_launches = run_path_f(
+        models, ckpts, dataset, next(run for run in cli_runs if run["name"] == "on"), dev)
+
     launches = {k: cli_launches[k] + k5_launches[k] + api_launches[k] + tree_launches[k]
-                + serving_launches[k] + int8_launches[k] for k in _build.KERNELS}
+                + serving_launches[k] + int8_launches[k] + f_launches[k] + pt_launches[k]
+                for k in _build.KERNELS}
     for name in KERNELS:
         if launches[name] == 0:
             raise AssertionError(f"{name} was never launched by a main path")
@@ -1885,6 +2157,7 @@ def main() -> int:
         name: next(r["capacity"] for r in serving_runs if r["name"] == name)
         for name in ("gated_auto", "gated_0.5")})
     int8_predict_phase(plain, calib, val.samples, dev, smi)
+    v5_flatten_predict_phase(f_models, models["stage1"], val_f, dev, smi)
     cascade_levels_phase(tree_models, clip_sbs, dev, smi)
 
     kernels = []

@@ -4,7 +4,9 @@ the same npz checkpoints and a 1,024-block dataset, fp32.
 
 Predictions agree under the margin guard (labels identical where every
 decision behind them has a margin above 1e-3), stage-1 probabilities to
-1e-4, and the metrics JSON is identical except for the throughput.
+1e-4, and the metrics JSON is identical except for the throughput. The
+same weights served from reference-shaped ``.pt`` files write the npz run's
+files.
 """
 import json
 import os
@@ -18,11 +20,14 @@ import torch
 
 from av1tpu.cli import run_pipeline_eval as jax_cli
 from av1tpu_torch.cli import run_pipeline_eval as port_cli
-from av1tpu_torch.cli.common import load_model_variables
+from av1tpu_torch import models as tm
+from av1tpu_torch.cli.common import load_model, load_model_variables
 from tests.torch_port_fixtures import cli_argv as _argv
 from tests.torch_port_fixtures import cli_workspace
 
 REPO = Path(__file__).resolve().parents[1]
+PORT_CLASSES = {"stage1": tm.Stage1Model, "stage2": tm.Stage2Model,
+                "rect": tm.Stage3RectModel, "ab": tm.Stage3ABModel, "fgvc": tm.FGVCModel}
 
 
 @pytest.fixture(scope="module")
@@ -88,17 +93,6 @@ def test_cli_imports_no_jax(setup, tmp_path):
     assert (tmp_path / "out" / "pipeline_metrics_val.json").exists()
 
 
-@pytest.mark.parametrize("flag, item", [
-    (["--v5-checkpoint", "v5.npz"], "M8"), (["--variant", "v5"], "M8"),
-    (["--variant", "flatten"], "M8"),
-])
-def test_unported_flags_name_their_roadmap_item(setup, tmp_path, capsys, flag, item):
-    _, dataset, ckpts, _ = setup
-    with pytest.raises(SystemExit):
-        port_cli.main(_argv(dataset, ckpts, tmp_path, False, flag + ["--device", "cpu"]))
-    assert f"ROADMAP {item}" in capsys.readouterr().err
-
-
 def test_fused_front_needs_folded_and_cuda_needs_a_card(setup, tmp_path, capsys):
     _, dataset, ckpts, _ = setup
     with pytest.raises(SystemExit):
@@ -112,6 +106,36 @@ def test_fused_front_needs_folded_and_cuda_needs_a_card(setup, tmp_path, capsys)
     assert "no CUDA device" in capsys.readouterr().err
 
 
-def test_reference_pt_checkpoints_wait_for_m4(tmp_path):
-    with pytest.raises(ValueError, match="ROADMAP M4"):
-        load_model_variables(tmp_path / "stage1.pt")
+@pytest.mark.parametrize("fgvc", [False, True], ids=["ab", "fgvc"])
+def test_reference_pt_checkpoints_serve_as_their_npz(setup, tmp_path, fgvc):
+    """The four stage models saved as reference-shaped ``.pt`` files (each
+    model's state dict under ``model_state_dict``) write the files that the
+    npz checkpoints of the same weights write: the same predictions and
+    probabilities, bit for bit, and the same metrics and report."""
+    _, dataset, ckpts, _ = setup
+    pts = {}
+    for name, cls in PORT_CLASSES.items():
+        pts[name] = tmp_path / f"{name}.pt"
+        torch.save({"model_state_dict": load_model(ckpts[name], cls).state_dict()},
+                   pts[name])
+    for name, files in (("npz", ckpts), ("pt", pts)):
+        port_cli.main(_argv(dataset, files, tmp_path / name, fgvc,
+                            ["--folded", "--device", "cpu"]))
+    got = np.load(tmp_path / "pt" / "pipeline_predictions_val.npz")
+    want = np.load(tmp_path / "npz" / "pipeline_predictions_val.npz")
+    assert set(got.files) == set(want.files)
+    for key in want.files:
+        np.testing.assert_array_equal(got[key], want[key])
+    metrics = [json.loads((tmp_path / d / "pipeline_metrics_val.json").read_text())
+               for d in ("pt", "npz")]
+    for m in metrics:
+        assert m.pop("throughput_superblocks_per_sec") > 0
+    assert metrics[0] == metrics[1]
+    reports = [[line for line in (tmp_path / d / "pipeline_report_val.txt").read_text()
+                .splitlines() if not line.startswith("throughput")] for d in ("pt", "npz")]
+    assert reports[0] == reports[1]
+
+
+def test_checkpoint_formats(tmp_path):
+    with pytest.raises(ValueError, match="unsupported checkpoint format"):
+        load_model_variables(tmp_path / "stage1.ckpt")

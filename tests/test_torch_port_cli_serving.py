@@ -346,7 +346,7 @@ def test_certify_serving_matches_jax(ws, calibration, tmp_path):
                                   ).read_text().splitlines()[0]
 
 
-REFUSALS = {  # case -> (extra arguments, v6 checkpoints given)
+REFUSALS = {  # case -> extra arguments (after the v6 checkpoints)
     "align_without_tta": ["--tta-align-ab"],
     "unified_align_without_tta": ["--variant", "unified", "--tta-align-ab"],
     "folded_tta": ["--folded", "--tta"],
@@ -363,6 +363,9 @@ REFUSALS = {  # case -> (extra arguments, v6 checkpoints given)
     "int8_ensemble": ["--int8", "--stage3-ab-ensemble-dir", "ENSEMBLE"],
     "int8_capacity": ["--int8", "--capacity", "0.5"],
     "unified_int8_folded": ["--variant", "unified", "--int8", "--folded"],
+    **{f"{variant}_{flag[0][2:]}": ["--variant", variant, *flag]
+       for variant in ("v5", "flatten")
+       for flag in (["--int8"], ["--folded"], ["--capacity", "0.5"])},
 }
 
 

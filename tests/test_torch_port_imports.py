@@ -21,8 +21,10 @@ from av1tpu.data.records import BlockSet as JaxBlockSet
 from av1tpu_torch.data.records import NORM_10BIT
 from av1tpu_torch.eval import (
     fit_stacking,
+    make_flatten_pipeline,
     make_unified_pipeline,
     make_unified_pipeline_folded,
+    make_v5_pipeline,
     make_v6_pipeline,
     make_v6_pipeline_folded,
     make_v6_pipeline_gated,
@@ -190,7 +192,8 @@ def test_split_saved_by_one_package_loads_in_the_other(tmp_path, writer, reader)
                                 make_unified_pipeline_folded, predict_partition_trees,
                                 predict_frame_trees, make_v6_pipeline_gated,
                                 tta_logits, stacked_member_logits, fit_stacking,
-                                make_v6_pipeline_int8, make_unified_pipeline_int8],
+                                make_v6_pipeline_int8, make_unified_pipeline_int8,
+                                make_v5_pipeline, make_flatten_pipeline],
                          ids=lambda f: f.__name__)
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"

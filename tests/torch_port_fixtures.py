@@ -52,15 +52,18 @@ def images_u16(seed: int, n: int, hw: int) -> np.ndarray:
     )
 
 
-def calibrated_variables(model, seed: int, hw: int, n: int = 128):
+def calibrated_variables(model, seed: int, hw: int, n: int = 128, extra=()):
     """Flax init of ``model`` with BN running stats = calibration-batch
-    stats, then mean shifted by N(0, 0.2)*std and var scaled by U(0.5, 1.5)."""
+    stats, then mean shifted by N(0, 0.2)*std and var scaled by U(0.5, 1.5).
+    ``extra``: per-sample arrays of ``n`` rows passed after the images (the
+    v5 model's ``qp``)."""
     x = images_u16(1000 + seed, n, hw).astype(np.float32) / 1023.0
-    v = init_on_cpu(model, jax.random.PRNGKey(seed), jnp.zeros((2, hw, hw, 1)))
-    _, upd = jax.jit(lambda v, x: model.apply(
-        v, x, train=True, mutable=["batch_stats"],
+    v = init_on_cpu(model, jax.random.PRNGKey(seed), jnp.zeros((2, hw, hw, 1)),
+                    *(jnp.asarray(a[:2]) for a in extra))
+    _, upd = jax.jit(lambda v, x, *extra: model.apply(
+        v, x, *extra, train=True, mutable=["batch_stats"],
         rngs={"dropout": jax.random.PRNGKey(seed)},
-    ))(v, x)
+    ))(v, x, *extra)
     # running = m*old + (1-m)*batch  =>  batch = (running - m*old) / (1-m)
     batch = jax.tree_util.tree_map(
         lambda old, new: (np.asarray(new) - MOMENTUM * old) / (1 - MOMENTUM),
