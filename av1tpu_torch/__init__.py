@@ -4,27 +4,31 @@ The JAX package ``av1tpu`` stays the reference; this package mirrors its
 layout module by module and imports nothing of it, nor jax or flax. What it
 needs of the jax-free modules of ``av1tpu`` it keeps as its own copies, under
 the same names: ``codec.partitions``, ``codec.tree``, ``data.bundles``,
-``data.records``, ``ingest.yuv``, ``ingest.tiler``, ``eval.tree_metrics`` and
-``models.torch_import``.
+``data.records``, ``data.sampling``, ``data.synth``, ``ingest.yuv``,
+``ingest.tiler``, ``eval.tree_metrics`` and ``models.torch_import``.
 
 Layer map:
     codec.partitions  partition ids, names and the label maps (numpy)
     codec.tree        (N, 85) partition-tree assembly (numpy or torch)
     ingest            yuv420p10le luma reading and superblock tiling (numpy)
-    data              split bundles (npz + metadata.json) and the sample norm
-    train.checkpoint  flat npz variable files (the JAX package's format)
+    data              block records, split bundles (npz + metadata.json) and
+                      their label views, epoch sampling, the synthetic corpus
+    train             the stage trainer (train_stage, recipes, the train
+                      step, resident and streaming epochs), losses, schedules
+                      and the partitioned AdamW, augmentations (and the TTA
+                      views), verified checkpoints and the npz variable files
     models            nn.Module v6 stage models, UnifiedV6Model, FGVC, the v5
                       HierarchicalModel (models.v5), the flatten and adapter
                       models, the JAX weight bridge (models.jax_import) and
                       the reference .pt import (models.torch_import)
-    train.augment     the test-time-augmentation views and their AB alignment
     quant.ptq         BN folding, the folded float forward and int8 serving
     kernels           hand-written CUDA kernels (csrc/) with their plain twins
     eval              per-stage, unified, gated, v5 and flatten pipelines,
                       batching, ensembles, the 64->32->16->8 tree cascade,
                       metrics, report writers
     cli               run_pipeline_eval (v6, unified, v5, flatten),
-                      predict_trees and the operating-point tools
+                      predict_trees, the operating-point tools and the
+                      train_stage1 / train_stage2 trainers
 """
 
 __version__ = "0.1.0"

@@ -1,14 +1,15 @@
 """Shared CLI plumbing: dataset splits, checkpoint and model loading (npz
-or a reference ``.pt``), one model's outputs over a split, and the int8
-calibration subsample.
+or a reference ``.pt``), one model's outputs over a split, the int8
+calibration subsample, and the trainers' common flags and outputs.
 
 Dataset bundles are ``av1tpu_torch.data.bundles``, the port's own copy of
 the JAX package's format (same npz keys and ``metadata.json``)."""
 from __future__ import annotations
 
+import argparse
 import json
 from pathlib import Path
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,7 +20,8 @@ from av1tpu_torch.data.records import NORM_10BIT
 from av1tpu_torch.eval.hierarchy import on_device, run_pipeline_batched
 from av1tpu_torch.models.jax_import import load_jax_variables
 from av1tpu_torch.models.torch_import import import_any, load_torch_checkpoint
-from av1tpu_torch.train.checkpoint import load_variables_npz
+from av1tpu_torch.train.checkpoint import load_variables_npz, save_variables_npz
+from av1tpu_torch.train.stages import variables_of
 
 
 def load_split(dataset_dir: Path, block_size: int) -> Tuple[Bundle, Bundle, Dict]:
@@ -84,5 +86,64 @@ def train_calibration_blocks(train_samples: np.ndarray, n: int) -> np.ndarray:
     return train_samples[np.sort(idx)]
 
 
-__all__ = ["load_model", "load_model_variables", "load_split",
-           "model_outputs", "train_calibration_blocks"]
+def add_common_train_args(parser: argparse.ArgumentParser) -> None:
+    """The JAX trainers' common flags, and ``--device``."""
+    parser.add_argument("--dataset-dir", type=Path, required=True,
+                        help="directory containing block_<S>/{train,val}.npz")
+    parser.add_argument("--block-size", type=int, default=16, choices=(8, 16, 32, 64))
+    parser.add_argument("--output-dir", type=Path, required=True)
+    parser.add_argument("--epochs", type=int, default=None)
+    parser.add_argument("--batch-size", type=int, default=256)
+    parser.add_argument("--lr", type=float, default=None)
+    parser.add_argument("--seed", type=int, default=42)
+    parser.add_argument("--bf16", action="store_true",
+                        help="forward under bfloat16 autocast (fp32 parameters, "
+                        "BN statistics and loss)")
+    parser.add_argument("--num-model-shards", type=int, default=1,
+                        help="model-axis size of a device mesh: only 1 (ROADMAP M11)")
+    parser.add_argument("--resume", type=Path, default=None,
+                        help="checkpoint dir (…_last/…_best/…_final) to resume from")
+    parser.add_argument("--checkpoint-every", type=int, default=10,
+                        help="epochs between rolling resume anchors; epochs "
+                        "replay deterministically so a sparse anchor costs "
+                        "recovery time, never correctness")
+    parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                        help="cuda needs a GPU; nothing falls back to the CPU")
+
+
+def check_train_args(parser: argparse.ArgumentParser, args) -> None:
+    """Refuse what the port's trainers do not run."""
+    if args.num_model_shards != 1:
+        parser.error("--num-model-shards > 1: multi-device training is ROADMAP M11, "
+                     "not ported")
+    if args.device == "cuda" and not torch.cuda.is_available():
+        parser.error("--device cuda: no CUDA device is available")
+
+
+def export_best(result, model_name: str, output_dir: Path) -> Optional[Path]:
+    """The best state's model variables as a flat npz in the JAX key layout
+    (``<name>_best_variables.npz``), which both packages serve. Written
+    uncompressed, as every variables file of the port's trainer: fp32
+    weights barely compress, and zlib takes seconds a file."""
+    if result.best_state is None:
+        return None
+    return save_variables_npz(Path(output_dir) / f"{model_name}_best_variables.npz",
+                              variables_of(result.best_state.model), compress=False)
+
+
+def write_history(result, output_dir: Path, name: str) -> None:
+    """``<name>_history.json`` and ``<name>_summary.json``, as the JAX CLIs
+    write them (the curves PNG waits for the plots, ROADMAP M12)."""
+    out = Path(output_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    result.save_history(out / f"{name}_history.json")
+    (out / f"{name}_summary.json").write_text(json.dumps({
+        "best_value": result.best_value,
+        "epochs": len(result.history),
+        "final_val_metrics": result.history[-1]["val_metrics"] if result.history else None,
+    }, indent=2))
+
+
+__all__ = ["add_common_train_args", "check_train_args", "export_best", "load_model",
+           "load_model_variables", "load_split", "model_outputs",
+           "train_calibration_blocks", "write_history"]

@@ -1,13 +1,14 @@
-"""Dataset split bundles: the train/val artifacts the pipeline eval reads.
+"""Dataset split bundles: the train/val artifacts the trainers and the
+pipeline eval read.
 
-The port's own copy of the container part of ``av1tpu.data.bundles``, with
-the same npz keys (``samples``, ``qps``, ``label__<view>``) and the same
-``metadata.json``, so a dataset written by either package loads in the other.
-Bundles are compressed ``.npz`` with uint16 NHWC samples (normalized once, on
-the device; see :mod:`av1tpu_torch.data.records`) and every hierarchical
-label view precomputed, and the stage-2 filter ``analyze_confusion`` uses. The
-functions that make those views from block records are not ported yet
-(ROADMAP M13).
+The port's own copy of ``av1tpu.data.bundles``, with the same npz keys
+(``samples``, ``qps``, ``label__<view>``) and the same ``metadata.json``, so a
+dataset written by either package loads in the other. Bundles are compressed
+``.npz`` with uint16 NHWC samples (normalized once, on the device; see
+:mod:`av1tpu_torch.data.records`) and every hierarchical label view
+precomputed through the codec tables: the v5, v6 and flatten builders, the
+stage filters, AB oversampling and the ensemble shuffles, byte for byte the
+JAX package's.
 """
 from __future__ import annotations
 
@@ -22,7 +23,15 @@ from av1tpu_torch.codec.partitions import (
     FLATTEN_ID_TO_NAME,
     STAGE2_NAMES_V5,
     STAGE2_NAMES_V6,
+    map_to_flatten,
+    map_to_stage1,
+    map_to_stage2_v5,
+    map_to_stage2_v6,
+    map_to_stage3_v5,
+    map_to_stage3_v6,
 )
+from av1tpu_torch.data.records import BlockSet
+from av1tpu_torch.data.sampling import oversample_indices, shuffled_epoch_indices
 
 
 @dataclass
@@ -60,6 +69,92 @@ class Bundle:
                 k[len("label__"):]: z[k] for k in z.files if k.startswith("label__")
             }
             return Bundle(samples=z["samples"], qps=z["qps"], labels=labels)
+
+
+def build_v5_bundle(record: BlockSet) -> Bundle:
+    """v5 label views: stage0 raw, stage1 binary, stage2 5-way, 3 specialist
+    heads (``008_prepare_hierarchical_dataset.py:76-107`` key contract)."""
+    stage3 = map_to_stage3_v5(record.labels)
+    return Bundle(
+        samples=record.samples,
+        qps=record.qps,
+        labels={
+            "stage0": record.labels.astype(np.int32),
+            "stage1": map_to_stage1(record.labels).astype(np.int32),
+            "stage2": map_to_stage2_v5(record.labels).astype(np.int32),
+            "stage3_RECT": stage3["RECT"].astype(np.int32),
+            "stage3_AB": stage3["AB"].astype(np.int32),
+            "stage3_1TO4": stage3["1TO4"].astype(np.int32),
+        },
+    )
+
+
+def build_v6_bundle(record: BlockSet) -> Bundle:
+    """v6 label views: 3-way stage2 with -1 for NONE/1TO4
+    (``001_prepare_v6_dataset.py:85-104`` key contract)."""
+    stage2, _ = map_to_stage2_v6(record.labels)
+    stage3 = map_to_stage3_v6(record.labels)
+    return Bundle(
+        samples=record.samples,
+        qps=record.qps,
+        labels={
+            "stage0": record.labels.astype(np.int32),
+            "stage1": map_to_stage1(record.labels).astype(np.int32),
+            "stage2": stage2.astype(np.int32),
+            "stage3_RECT": stage3["RECT"].astype(np.int32),
+            "stage3_AB": stage3["AB"].astype(np.int32),
+        },
+    )
+
+
+def build_flatten_bundle(record: BlockSet) -> Bundle:
+    """7-way flatten bundle: NONE dropped, ids remapped
+    (``001b_prepare_flatten_dataset.py:117-166``). Raises on labels outside
+    the expected remap domain, like the reference's hard ValueError."""
+    flat = map_to_flatten(record.labels)
+    keep = flat >= 0
+    dropped_not_none = np.sum(~keep & (record.labels != 0))
+    if dropped_not_none and np.any(record.labels[~keep] > 9):
+        raise ValueError("unexpected raw labels outside 0..9")
+    sub = record.take(np.flatnonzero(keep))
+    return Bundle(
+        samples=sub.samples,
+        qps=sub.qps,
+        labels={
+            "stage0": sub.labels.astype(np.int32),
+            "flatten": map_to_flatten(sub.labels).astype(np.int32),
+        },
+    )
+
+
+def filter_partitioned_only(bundle: Bundle) -> Bundle:
+    """Drop PARTITION_NONE samples (v5 ``--partitioned-only``, 008:140-153)."""
+    return bundle.take(np.flatnonzero(bundle.labels["stage0"] != 0))
+
+
+def filter_stage3(bundle: Bundle, head: str) -> Bundle:
+    """Keep only samples belonging to one specialist head (label >= 0)."""
+    key = f"stage3_{head}"
+    if key not in bundle.labels:
+        raise ValueError(f"unknown stage3 head: {head}")
+    return bundle.take(np.flatnonzero(bundle.labels[key] >= 0))
+
+
+def oversample_ab(bundle: Bundle, factors: Dict[int, int]) -> Bundle:
+    """Index-repetition oversampling of AB classes (reference default
+    factors {HORZ_B:5, VERT_A:5}, ``002_prepare_v6_stage3_datasets.py:56-62``)."""
+    return bundle.take(oversample_indices(bundle.labels["stage3_AB"], factors))
+
+
+def ensemble_shuffles(
+    bundle: Bundle, num_members: int = 3, seed: int = 42
+) -> List[Bundle]:
+    """Per-member shuffled copies for AB ensembles, seeds ``seed + 100*i``
+    (reference ``002:159-180``)."""
+    return [
+        bundle.take(shuffled_epoch_indices(len(bundle), seed + 100 * i))
+        for i in range(num_members)
+    ]
 
 
 def class_counts(labels: np.ndarray, num_classes: int) -> List[int]:
@@ -123,8 +218,15 @@ def save_split(
 
 __all__ = [
     "Bundle",
+    "build_flatten_bundle",
+    "build_v5_bundle",
+    "build_v6_bundle",
     "bundle_metadata",
     "class_counts",
+    "ensemble_shuffles",
+    "filter_partitioned_only",
     "filter_stage2_v6",
+    "filter_stage3",
+    "oversample_ab",
     "save_split",
 ]

@@ -7,6 +7,11 @@ reference's torchvision-style state-dict keys (``conv1``, ``bn1``,
 the v5 ``conv``/``bn``, ``depthwise``/``pointwise``) so that
 ``models.jax_import`` maps the JAX tree onto them mechanically.
 
+``BatchNorm2d`` is torch's in eval mode (the serving path and the bridge
+see no difference) and flax's in train mode: the running variance moves by
+the **biased** batch variance, ``momentum=0.1`` being flax's 0.9.
+``init_like_flax`` draws a model's parameters from flax's initializers.
+
 Padding follows XLA ``"SAME"``, not PyTorch's symmetric ``padding=1``: a
 stride-2 3x3 conv at an even extent pads (0, 1), at extent 1 it pads (1, 1)
 (ROADMAP fault F1). ``same_padding`` is the one formula every conv of the
@@ -14,6 +19,7 @@ port uses.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Sequence, Tuple
 
 import torch
@@ -21,6 +27,60 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-5  # flax BatchNorm's default epsilon
+# flax's lecun_normal: a normal truncated at 2 std, rescaled to unit variance
+_TRUNC_STD = 0.87962566103423978
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train mode is flax's ``nn.BatchNorm``.
+
+    In train mode the batch is normalized as flax does it: statistics in
+    at least float32 whatever the input dtype, the variance the fast ``E[x^2] -
+    E[x]^2`` clipped at 0, ``(x - mean) * (rsqrt(var + eps) * scale) + bias``,
+    the result in the input's dtype; and the running statistics move as
+    ``r = (1 - momentum) * r + momentum * s`` by the batch mean and this
+    **biased** variance (torch would move them by the unbiased one, n/(n-1)
+    larger: at 16 px the layer-3/4 maps are 1x1 and n is the batch).
+    ``momentum=None`` (a cumulative average) and eval mode are torch's,
+    unchanged."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.momentum is None:
+            return super().forward(x)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(mean * m)
+            self.running_var.mul_(1 - m).add_(var * m)
+            self.num_batches_tracked.add_(1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
+
+
+def init_like_flax(model: nn.Module, gen: torch.Generator) -> nn.Module:
+    """Draw ``model``'s parameters in place as flax initializes the JAX
+    package's modules, from ``gen`` (module order): conv and Linear weights
+    ``lecun_normal`` (truncated normal over the fan-in), biases 0, BatchNorm
+    scale 1, bias 0 and running stats 0 / 1, the adapters' Linear weights
+    ``normal(1e-3)``. A temperature keeps its 1.5."""
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, (nn.Conv2d, nn.Linear)):
+                std = math.sqrt(1.0 / mod.weight[0].numel()) / _TRUNC_STD
+                nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std, 2 * std,
+                                      generator=gen)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, nn.modules.batchnorm._BatchNorm):
+                mod.reset_parameters()
+        for mod in model.modules():
+            if isinstance(mod, AdapterModule):
+                for lin in (mod.down, mod.up):
+                    nn.init.normal_(lin.weight, 0.0, 1e-3, generator=gen)
+    return model
 
 
 def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
@@ -65,7 +125,7 @@ class ConvBNAct(nn.Module):
                  stride: int = 1, act: Callable = F.silu, bias: bool = False):
         super().__init__()
         self.conv = SpatialConv(in_ch, out_ch, kernel_size, stride, bias)
-        self.bn = nn.BatchNorm2d(out_ch, eps=BN_EPS)
+        self.bn = BatchNorm2d(out_ch, eps=BN_EPS)
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -81,9 +141,9 @@ class DepthwiseSeparableConv(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, stride: int = 1):
         super().__init__()
         self.depthwise = SpatialConv(in_ch, in_ch, 3, stride, groups=in_ch)
-        self.bn1 = nn.BatchNorm2d(in_ch, eps=BN_EPS)
+        self.bn1 = BatchNorm2d(in_ch, eps=BN_EPS)
         self.pointwise = nn.Conv2d(in_ch, out_ch, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(out_ch, eps=BN_EPS)
+        self.bn2 = BatchNorm2d(out_ch, eps=BN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.silu(self.bn1(self.depthwise(x)))
@@ -151,15 +211,15 @@ class BasicBlock(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, stride: int = 1):
         super().__init__()
         self.conv1 = SpatialConv(in_ch, out_ch, 3, stride)
-        self.bn1 = nn.BatchNorm2d(out_ch, eps=BN_EPS)
+        self.bn1 = BatchNorm2d(out_ch, eps=BN_EPS)
         self.conv2 = SpatialConv(out_ch, out_ch, 3)
-        self.bn2 = nn.BatchNorm2d(out_ch, eps=BN_EPS)
+        self.bn2 = BatchNorm2d(out_ch, eps=BN_EPS)
         self.downsample = None
         if in_ch != out_ch or stride != 1:
             # a 1x1 window needs no padding at any extent under "SAME"
             self.downsample = nn.Sequential(
                 nn.Conv2d(in_ch, out_ch, 1, stride=stride, bias=False),
-                nn.BatchNorm2d(out_ch, eps=BN_EPS),
+                BatchNorm2d(out_ch, eps=BN_EPS),
             )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -216,6 +276,7 @@ __all__ = [
     "AdapterModule",
     "BN_EPS",
     "BasicBlock",
+    "BatchNorm2d",
     "ConvBNAct",
     "DepthwiseSeparableConv",
     "DualAttention",
@@ -224,6 +285,7 @@ __all__ = [
     "SpatialAttention",
     "SpatialConv",
     "global_avg_pool",
+    "init_like_flax",
     "pad_same",
     "same_padding",
 ]

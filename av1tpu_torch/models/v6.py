@@ -13,6 +13,7 @@ from torch import nn
 from av1tpu_torch.models.layers import (
     BN_EPS,
     AdapterModule,
+    BatchNorm2d,
     BasicBlock,
     MLPHead,
     SEBlock,
@@ -30,7 +31,7 @@ def _resnet_modules(module: nn.Module, prefix: str = "") -> None:
     ``layer<g>`` (two BasicBlocks), ``se<g>``, ``spatial_attn``."""
     module.add_module(f"{prefix}conv1", nn.Conv2d(1, 64, 7, stride=2, padding=3,
                                                   bias=False))
-    module.add_module(f"{prefix}bn1", nn.BatchNorm2d(64, eps=BN_EPS))
+    module.add_module(f"{prefix}bn1", BatchNorm2d(64, eps=BN_EPS))
     in_ch = 64
     for gi, width in enumerate(WIDTHS, start=1):
         stride = 1 if gi == 1 else 2
@@ -147,8 +148,8 @@ class Stage2ModelWithAdapters(nn.Module):
     """Stage 2 with a residual adapter after each layer group (after the
     spatial attention in group 4). Names are flat, as in the JAX model:
     ``backbone_conv1``, ``backbone_layer<g>``, ``backbone_se<g>``,
-    ``backbone_spatial_attn``, ``adapter_layer<g>``, ``head``. Inference
-    only."""
+    ``backbone_spatial_attn``, ``adapter_layer<g>``, ``head``. Trained with
+    every ``backbone_*`` partition frozen (``stage2_recipe(use_adapters=True)``)."""
 
     def __init__(self, bottleneck_dim: int = 64, adapter_dropout: float = 0.1):
         super().__init__()

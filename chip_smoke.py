@@ -92,6 +92,25 @@ Run from the root of a checkout. Phases, one JSON line each:
           --fused-front on`` from reference-shaped ``.pt`` files of the same
           four stage models, whose labels and probabilities must equal path
           a's npz run's;
+       g. training (``train_stage1`` / ``train_stage2``, which launch no port
+          kernel: the JAX training path calls no Pallas kernel) on
+          ``reference_shaped_corpus(0, 16, scale=0.25)`` (90,541 train and
+          22,700 val blocks in the documented class mix) written with
+          ``save_split``: ``train_stage1 --epochs 2 --batch-size 256`` in fp32
+          (cuDNN's deterministic algorithms) and ``--bf16``, then
+          ``train_stage2 --stage1-checkpoint ... --freeze-epochs 1 --epochs 2``
+          (the frozen and the unfrozen ULMFiT phase); outside the counts, a
+          ``train_stage`` stopped after epoch 0 and resumed from
+          ``stage1_last``, whose final state must equal the uninterrupted CLI
+          run's bitwise, and one fp32 step of the trained stage-1 and stage-2
+          models on the card against the same step on the CPU (loss 1e-5 rel,
+          gradients 1e-4 of their largest entry, BN statistics 1e-5); then
+          (``g_serving``) the two exports with path a's stage-3 models served
+          by ``run_pipeline_eval --folded --bf16 --fused-front off|on|g1`` on
+          the corpus's val split (K1, K2); then the step ms at batch 256 and
+          4096, fp32 and bf16 (ABBA turns), kernels, host launch calls, busy
+          ms and idle share per step, resident and streaming epoch
+          samples/s, and the seconds of a verified ``save_checkpoint``;
      each run prints blocks/s (or frames/s and superblocks/s), its launches,
      and its agreement with its path's ``off`` run;
   6. predict: the CUDA-event time of one 4,096-block bf16 predict on a
@@ -135,6 +154,7 @@ import subprocess
 import sys
 import time
 import types
+from dataclasses import replace
 from pathlib import Path
 from typing import Callable, NamedTuple, Optional
 
@@ -153,10 +173,18 @@ from av1tpu_torch.cli import (  # noqa: E402
     optimize_thresholds,
     predict_trees,
     run_pipeline_eval,
+    train_stage1,
+    train_stage2,
 )
 from av1tpu_torch.codec.partitions import map_to_stage2_v6  # noqa: E402
 from av1tpu_torch.codec.tree import LEVEL_SIZES, NODES_PER_LEVEL  # noqa: E402
-from av1tpu_torch.data.bundles import Bundle, save_split  # noqa: E402
+from av1tpu_torch.data.bundles import (  # noqa: E402
+    Bundle,
+    build_v6_bundle,
+    class_counts,
+    save_split,
+)
+from av1tpu_torch.data.synth import reference_shaped_corpus  # noqa: E402
 from av1tpu_torch.eval import (  # noqa: E402
     PipelineModels,
     make_flatten_pipeline,
@@ -200,6 +228,7 @@ from av1tpu_torch.models import (  # noqa: E402
     Stage3ABModel,
     Stage3RectModel,
     UnifiedV6Model,
+    load_jax_variables,
     split_unified_logits,
     to_jax_variables,
 )
@@ -210,7 +239,31 @@ from av1tpu_torch.quant.ptq import (  # noqa: E402
     make_unified_pipeline_int8,
     make_v6_pipeline_int8,
 )
-from av1tpu_torch.train.checkpoint import save_variables_npz  # noqa: E402
+from av1tpu_torch.train.checkpoint import (  # noqa: E402
+    load_variables_npz,
+    save_checkpoint,
+    save_variables_npz,
+    states_equal,
+)
+from av1tpu_torch.train.losses import (  # noqa: E402
+    binary_focal_loss,
+    class_balanced_focal_loss,
+)
+from av1tpu_torch.train.schedules import (  # noqa: E402
+    adamw,
+    as_optimizer,
+    cosine_schedule,
+    ulmfit_phase2,
+)
+from av1tpu_torch.train.stages import stage1_recipe, train_stage  # noqa: E402
+from av1tpu_torch.train.trainer import (  # noqa: E402
+    StepConfig,
+    TrainState,
+    make_train_step,
+    run_train_epoch,
+    run_train_epoch_resident,
+    to_device,
+)
 
 SEED = 0
 N_VAL = 65536
@@ -230,7 +283,7 @@ GRAD_ATOL = {"x": 1e-4, "w": 5e-4, "b": 1e-4}
 # Published peaks of an H100 SXM (NVIDIA's data sheet, dense rates)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-FORBIDDEN_MODULES = ("jax", "flax", "av1tpu")  # the port imports none of them
+FORBIDDEN_MODULES = ("jax", "flax", "optax", "av1tpu")  # the port imports none of them
 # Path d: the tree cascade on a clip of eight 1080p frames, four frames a group
 CLIP = (8, 1080, 1920)
 FRAME_SBS = 17 * 30       # 64 px superblocks of one padded 1080p frame
@@ -291,8 +344,12 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
 }
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line: the phase, its fields and the script's elapsed seconds."""
+    print(json.dumps({"phase": phase, **fields, "t": time.perf_counter() - T0}), flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -1667,6 +1724,332 @@ def run_path_f(models: dict, ckpts: dict, dataset: Path, npz_on_run: dict, dev) 
     return f_models, val_f, f_launches, pt_launches
 
 
+# ---------------------------------------------------------------------------
+# Path g: training (train_stage1 / train_stage2 on the card)
+# ---------------------------------------------------------------------------
+
+# The reference-shaped synthetic corpus at a quarter of its documented size:
+# ~90.5k train and ~22.7k val 16 px blocks with the documented class mix
+TRAIN_SCALE = 0.25
+TRAIN_BATCH = 256
+STEP_BATCHES = (256, 4096)
+# One train step on the card against the same step on the CPU (fp32, TF32
+# off), held to tests/test_torch_port_train_step.py's tolerances
+STEP_LOSS_RTOL, STEP_GRAD_TOL, STEP_STATS_TOL, STEP_SMALL_GRAD = 1e-5, 1e-4, 1e-5, 0.1
+STEP_PARITY_ROWS = 256
+G_FRONT_AGREEMENT = 0.97  # least share of a front's labels equal to off's (bf16)
+EPOCH_MODE_ROWS = 8192  # the resident / streaming epoch comparison: 32 steps of 256
+RESUME_ROWS = 16384  # train rows of the resume check (64 steps an epoch)
+
+
+def make_train_corpus() -> tuple:
+    """``reference_shaped_corpus(SEED, 16, TRAIN_SCALE)`` as v6 bundles,
+    written with ``save_split``. Returns (dataset dir, train, val)."""
+    train, val = (build_v6_bundle(s) for s in reference_shaped_corpus(
+        SEED, size=HW, scale=TRAIN_SCALE))
+    root = save_split(WORK / "train_dataset", HW, train, val, "v6").parent
+    return root, train, val
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms for the body: by default two runs of
+    the same train step on the card differ (nondeterministic backward
+    algorithms), so only runs made this way can be compared bitwise."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def run_train_cli(dataset: Path, name: str, module, args: list, deterministic: bool,
+                  dev) -> dict:
+    """One port training CLI on the corpus at batch ``TRAIN_BATCH``; returns
+    its history, summary and output directory, and the CLI's seconds."""
+    out = WORK / "train" / name
+    t0 = time.perf_counter()
+    with deterministic_cudnn() if deterministic else contextlib.nullcontext():
+        quietly(module.main, ["--dataset-dir", str(dataset), "--block-size", str(HW),
+                              "--batch-size", str(TRAIN_BATCH), "--output-dir", str(out),
+                              "--device", dev.type, *args])
+    recipe = "stage1" if module is train_stage1 else "stage2"
+    return {"out": out, "recipe": recipe, "seconds": time.perf_counter() - t0,
+            "history": json.loads((out / f"{recipe}_history.json").read_text()),
+            "summary": json.loads((out / f"{recipe}_summary.json").read_text()),
+            "deterministic": deterministic}
+
+
+def report_train_runs(runs: list, smi: str) -> None:
+    """Each run's epochs (phase, losses, val F1, samples/s); every loss finite,
+    every checkpoint and export written."""
+    for run in runs:
+        recipe = run["recipe"]
+        for h in run["history"]:
+            emit("train_epoch", path="g_train", run=run["name"], epoch=h["epoch"],
+                 train_phase=h["phase"], train_loss=h["train_loss"], val_loss=h["val_loss"],
+                 val_macro_f1=h["val_metrics"]["macro_f1"],
+                 val_accuracy=h["val_metrics"]["accuracy"],
+                 train_seconds=h["train_seconds"], samples_per_s=h["throughput"],
+                 nvidia_smi=smi)
+        emit("train_run", path="g_train", run=run["name"], seconds=run["seconds"],
+             best_value=run["summary"]["best_value"], launches=run["launches"],
+             deterministic_cudnn=run["deterministic"])
+        losses = [v for h in run["history"] for v in (h["train_loss"], h["val_loss"])]
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"{run['name']}: a loss is not finite: {losses}")
+        for part in ("best", "last", "final"):
+            if not (run["out"] / f"{recipe}_{part}" / "state.pt").exists():
+                raise AssertionError(f"{run['name']}: no {recipe}_{part} checkpoint")
+        if not (run["out"] / f"{recipe}_best_variables.npz").exists():
+            raise AssertionError(f"{run['name']}: no export")
+
+
+def check_resume(train: Bundle, val: Bundle, dev) -> None:
+    """``train_stage`` on the first ``RESUME_ROWS`` train rows for two epochs,
+    and the same run stopped after epoch 0 and resumed from ``stage1_last``,
+    both with cuDNN's deterministic algorithms: the final states must be
+    equal bitwise, as on the CPU (tests/test_torch_port_train_step.py)."""
+    t0 = time.perf_counter()
+    train, val = train.take(np.arange(RESUME_ROWS)), val.take(np.arange(RESUME_ROWS // 4))
+    recipe = replace(stage1_recipe(epochs=2, batch_size=TRAIN_BATCH), input_shape=(HW, HW, 1))
+    quiet = lambda line: None
+    with deterministic_cudnn():
+        full = train_stage(recipe, train, val, seed=42, device=dev, log=quiet)
+        split = WORK / "train" / "resume"
+        train_stage(recipe, train, val, seed=42, checkpoint_dir=split, stop_after_epoch=0,
+                    device=dev, log=quiet)
+        resumed = train_stage(recipe, train, val, seed=42, checkpoint_dir=split,
+                              resume_from=split / "stage1_last", device=dev, log=quiet)
+    want, got = full.state.model.state_dict(), resumed.state.model.state_dict()
+    diffs = {k: (got[k].double() - v.double()).abs().max().item()
+             for k, v in want.items() if v.is_floating_point()}
+    same_opt = states_equal(full.state, resumed.state)
+    emit("resume", path="g_train", rows=RESUME_ROWS,
+         epochs=[h["epoch"] for h in resumed.history],
+         max_abs_diff=max(diffs.values()), optimizer_state_bitwise_equal=same_opt,
+         val_loss=resumed.history[-1]["val_loss"],
+         uninterrupted_val_loss=full.history[-1]["val_loss"],
+         seconds=time.perf_counter() - t0)
+    if ([h["epoch"] for h in resumed.history] != [1] or any(diffs.values())
+            or not same_opt):
+        raise AssertionError(f"resume: epochs {[h['epoch'] for h in resumed.history]}, "
+                             f"largest difference {max(diffs.values())}, "
+                             f"optimizer state equal: {same_opt}")
+
+
+def _one_step(model_cls, variables, opt_fn, loss_fn, label_key, classes, binary,
+              samples, labels, device) -> dict:
+    """One fp32 train step of the port on ``device`` (no augment, dropout
+    off): the loss, the gradients (before the per-partition clip), the
+    state dict after the step."""
+    model = load_jax_variables(model_cls(), variables).to(device)
+    for mod in model.modules():
+        if isinstance(mod, nn.Dropout):
+            mod.p = 0.0
+    opt = opt_fn(model)
+    names = {id(p): n for n, p in model.named_parameters()}
+    grads, step = {}, opt.step
+
+    def capturing_step():
+        grads.update({names[id(p)]: (torch.zeros_like(p) if p.grad is None
+                                     else p.grad.detach().clone()).cpu() for p in opt.params})
+        step()
+
+    opt.step = capturing_step
+    cfg = StepConfig(loss_fn=loss_fn, label_key=label_key, binary=binary, num_classes=classes)
+    metrics = make_train_step(model, opt, cfg)(
+        TrainState(model, opt),
+        {"samples": torch.from_numpy(samples).to(device),
+         label_key: torch.from_numpy(labels).to(device)},
+        torch.Generator(device=device).manual_seed(0))
+    return {"loss": float(metrics["loss"]), "grads": grads,
+            "state": {k: v.cpu() for k, v in model.state_dict().items()}}
+
+
+def check_step_parity(s1_run: dict, s2_run: dict, val: Bundle, dev) -> None:
+    """One fp32 step of the trained stage-1 model (AdamW) and stage-2 model
+    (the unfrozen ULMFiT phase) on the card against the same step on the
+    CPU, same weights and batch: loss, every gradient, the BN statistics."""
+    samples = val.samples[:STEP_PARITY_ROWS]
+    counts = class_counts(val.labels["stage2"], 3)
+    cases = {
+        "stage1": (Stage1Model, s1_run["out"] / "stage1_best_variables.npz",
+                   lambda m: as_optimizer(m, adamw(cosine_schedule(1e-3, 10))),
+                   lambda lo, ta: binary_focal_loss(lo, ta, 0.25, 2.5), "stage1", 2, True),
+        "stage2_unfrozen": (Stage2Model, s2_run["out"] / "stage2_best_variables.npz",
+                            lambda m: ulmfit_phase2(m, 5e-4, 1e-6, 10),
+                            lambda lo, ta: class_balanced_focal_loss(lo, ta, counts),
+                            "stage2", 3, False),
+    }
+    for name, (cls, path, opt_fn, loss_fn, key, classes, binary) in cases.items():
+        variables = load_variables_npz(path)
+        labels = np.clip(val.labels[key][:STEP_PARITY_ROWS], 0, None).astype(np.int32)
+        args = (cls, variables, opt_fn, loss_fn, key, classes, binary, samples, labels)
+        card, cpu = _one_step(*args, dev), _one_step(*args, torch.device("cpu"))
+        largest = max(g.abs().max().item() for g in cpu["grads"].values())
+        grad_err = max((card["grads"][n] - g).abs().max().item()
+                       / max(g.abs().max().item(), STEP_SMALL_GRAD * largest)
+                       for n, g in cpu["grads"].items())
+        stats_err = max((card["state"][k] - v).abs().max().item() / v.abs().max().item()
+                        for k, v in cpu["state"].items()
+                        if k.endswith(("running_mean", "running_var")))
+        loss_err = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+        emit("step_parity", path="g_train", model=name, batch=STEP_PARITY_ROWS,
+             loss=card["loss"], loss_rel_err=loss_err, grad_err_of_largest=grad_err,
+             stats_err_of_largest=stats_err, tensors=len(cpu["grads"]))
+        if (loss_err > STEP_LOSS_RTOL or grad_err > STEP_GRAD_TOL
+                or stats_err > STEP_STATS_TOL):
+            raise AssertionError(f"{name}: the card's train step disagrees with the CPU's "
+                                 f"(loss {loss_err}, grads {grad_err}, stats {stats_err})")
+
+
+def g_serving_plan(s1_run: dict, s2_run: dict, ckpts: dict) -> list:
+    """The trained stage-1 and stage-2 exports with path a's stage-3 models,
+    served folded in bf16 with each front."""
+    args = ["--stage1-checkpoint", str(s1_run["out"] / "stage1_best_variables.npz"),
+            "--stage2-checkpoint", str(s2_run["out"] / "stage2_best_variables.npz"),
+            "--stage3-rect-checkpoint", str(ckpts["rect"]),
+            "--stage3-ab-checkpoint", str(ckpts["ab"]), "--no-ab-fgvc"]
+    return [(name, (name, ["--folded", "--fused-front", front, *args]))
+            for name, front in (("g_off", "off"), ("g_on", "on"), ("g_g1", "g1"))]
+
+
+def check_g_serving(runs: list, n_val: int) -> None:
+    base = runs[0]
+    for run in runs:
+        agree = float((run["final"] == base["final"]).mean())
+        emit("end_to_end", path="g_serving", run=run["name"], samples=run["samples"],
+             blocks_per_s=run["blocks_per_s"], launches=run["launches"],
+             final_agrees_with_off=agree,
+             stage1_prob_max_abs_diff_vs_off=float(
+                 np.abs(run["stage1_prob"] - base["stage1_prob"]).max()))
+        if run["samples"] != n_val or not np.isfinite(run["stage1_prob"]).all():
+            raise AssertionError(f"{run['name']}: bad outputs")
+        # bf16 fronts round where cuDNN's bf16 stem does not: path a's and path
+        # d's agree with off on 98.7-99.9% of labels, this path's first run on 98.8%
+        if agree < G_FRONT_AGREEMENT:
+            raise AssertionError(f"{run['name']}: {agree} of the labels equal off's")
+    expect = {"g_on": "fused_front", "g_g1": "fused_front_g1"}
+    for run in runs:
+        kernel = expect.get(run["name"])
+        if kernel and run["launches"].get(kernel, 0) == 0:
+            raise AssertionError(f"{run['name']}: {kernel} never launched")
+
+
+def train_timing_phase(s1_run: dict, train: Bundle, dev, smi: str) -> None:
+    """Step ms at batch 256 and 4096, fp32 and bf16 (the stage-1 recipe's
+    step with its augmentation; CUDA events, each sample the mean of 10
+    steps, the median of ABBA turns); kernels, host launch calls, device busy
+    ms and idle share per step (``torch.profiler``), and at batch 4096 the
+    kernels that take the most device time; samples/s of an epoch
+    over ``EPOCH_MODE_ROWS`` train rows, resident and streaming in ABBA
+    turns; the seconds of a verified ``save_checkpoint``."""
+    variables = load_variables_npz(s1_run["out"] / "stage1_best_variables.npz")
+    recipe = stage1_recipe(epochs=1, batch_size=TRAIN_BATCH)
+    rng = np.random.default_rng(SEED + 9)
+
+    def make(batch, dtype):
+        model = load_jax_variables(Stage1Model(), variables).to(dev)
+        opt = as_optimizer(model, adamw(cosine_schedule(1e-3, 1000)))
+        cfg = StepConfig(loss_fn=recipe.loss_fn, label_key="stage1", augment=recipe.augment,
+                         binary=True, num_classes=2, compute_dtype=dtype)
+        step, state = make_train_step(model, opt, cfg), TrainState(model, opt)
+        idx = rng.integers(0, len(train), batch)
+        data = {"samples": torch.from_numpy(train.samples[idx]).to(dev),
+                "stage1": torch.from_numpy(train.labels["stage1"][idx]).to(dev)}
+        gen = torch.Generator(device=dev).manual_seed(0)
+        return lambda: step(state, data, gen), state
+
+    for batch in STEP_BATCHES:
+        fns = {name: make(batch, dtype)[0] for name, dtype in
+               (("fp32", torch.float32), ("bf16", torch.bfloat16))}
+        for fn in fns.values():
+            for _ in range(3):
+                fn()
+        samples_ms = {name: [] for name in fns}
+        for name in ["fp32", "bf16", "bf16", "fp32"]:
+            samples_ms[name].append(time_ms(fns[name], iters=10, warmup=1))
+        for name, fn in fns.items():
+            trace = trace_calls(fn)
+            ms = float(np.median(samples_ms[name]))
+            busy = trace["device_busy_ms"]
+            extra = ({"top_kernels": device_time_by_kernel(fn)} if batch == max(STEP_BATCHES)
+                     else {})
+            emit("train_step", batch=batch, dtype=name, step_ms=ms, samples_ms=samples_ms[name],
+                 samples_per_s=batch / ms * 1e3, kernels_per_step=trace["kernels"],
+                 host_launch_calls_per_step=trace["host_launch_calls"],
+                 device_busy_ms=busy,
+                 idle_share=None if busy is None else max(0.0, 1.0 - busy / ms),
+                 port_kernels_per_step=launched_by(fn), nvidia_smi=smi, **extra)
+            if launched_by(fn):
+                raise AssertionError("a train step launched a port kernel")
+
+    fn, state = make(TRAIN_BATCH, torch.float32)
+    arrays = {"samples": train.samples[:EPOCH_MODE_ROWS],
+              "stage1": train.labels["stage1"][:EPOCH_MODE_ROWS]}
+    resident = to_device(arrays, dev)
+    model, opt = state.model, state.optimizer
+    cfg = StepConfig(loss_fn=recipe.loss_fn, label_key="stage1", augment=recipe.augment,
+                     binary=True, num_classes=2)
+    step = make_train_step(model, opt, cfg)
+    for mode in ("resident", "streaming", "streaming", "resident"):
+        gen = torch.Generator(device=dev).manual_seed(1)
+        if mode == "resident":
+            _, result = run_train_epoch_resident(step, state, resident, TRAIN_BATCH, gen, 1, 2,
+                                                 balance_labels=arrays["stage1"])
+        else:
+            _, result = run_train_epoch(step, state, arrays, TRAIN_BATCH, gen, 1, 2,
+                                        balance_labels=arrays["stage1"], device=dev)
+        emit("train_epoch_mode", mode=mode, batch=TRAIN_BATCH, samples=result.samples,
+             seconds=result.seconds, samples_per_s=result.throughput, nvidia_smi=smi)
+    seconds = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        save_checkpoint(WORK / "train" / f"save_{i}", state, meta={"epoch": i}, verify=True)
+        seconds.append(time.perf_counter() - t0)
+    emit("save_checkpoint", verify=True, seconds=seconds,
+         state_bytes=(WORK / "train" / "save_0" / "state.pt").stat().st_size, nvidia_smi=smi)
+
+
+def run_path_g(ckpts: dict, dev, smi: str) -> dict:
+    """Path g: the corpus, the training CLIs (stage 1 fp32 and bf16, then
+    stage 2 through its frozen and unfrozen phases from stage 1's export),
+    which must launch none of K1-K5; a library resume; one step on the card
+    against the CPU; the trained exports served with each front (K1, K2).
+    Returns the serving runs' launches."""
+    t0 = time.perf_counter()
+    dataset, train, val = make_train_corpus()
+    emit("g_setup", seconds=time.perf_counter() - t0, train_blocks=len(train),
+         val_blocks=len(val), train_stage1_counts=class_counts(train.labels["stage1"], 2),
+         train_stage2_counts=class_counts(train.labels["stage2"], 3))
+    s1_export = WORK / "train" / "s1" / "stage1_best_variables.npz"
+    plan = [("s1", (train_stage1, ["--epochs", "2"], False)),
+            ("s1_bf16", (train_stage1, ["--epochs", "2", "--bf16"], False)),
+            ("s2", (train_stage2, ["--epochs", "2", "--freeze-epochs", "1",
+                                   "--stage1-checkpoint", str(s1_export)], False))]
+    runs, launches = drive("g_train", [(name, (name, *spec)) for name, spec in plan],
+                           lambda arg: run_train_cli(dataset, *arg, dev))
+    report_train_runs(runs, smi)
+    if any(launches.values()):
+        raise AssertionError(f"training launched port kernels: {launches}")
+    by_name = {run["name"]: run for run in runs}
+    if [h["phase"] for h in by_name["s2"]["history"]] != ["frozen", "unfrozen"]:
+        raise AssertionError("stage 2 did not run its frozen and unfrozen phases")
+    check_resume(train, val, dev)
+    check_step_parity(by_name["s1"], by_name["s2"], val, dev)
+    serving, serving_launches = drive(
+        "g_serving", g_serving_plan(by_name["s1"], by_name["s2"], ckpts),
+        lambda arg: run_cli(dataset, *arg, dev))
+    check_g_serving(serving, len(val))
+    train_timing_phase(by_name["s1"], train, dev, smi)
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN_MODULES)
+    if loaded:
+        raise AssertionError(f"path g loaded {loaded[:5]}")
+    return serving_launches
+
+
 def device_time_by_kernel(fn: Callable, top: int = 8) -> list:
     """The ``top`` kernel names by device ms in one traced call of ``fn``:
     ``[name, calls, ms]``."""
@@ -2146,9 +2529,12 @@ def main() -> int:
     f_models, val_f, f_launches, pt_launches = run_path_f(
         models, ckpts, dataset, next(run for run in cli_runs if run["name"] == "on"), dev)
 
+    # path g: training on the card, then the trained checkpoints served
+    g_launches = run_path_g(ckpts, dev, smi)
+
     launches = {k: cli_launches[k] + k5_launches[k] + api_launches[k] + tree_launches[k]
                 + serving_launches[k] + int8_launches[k] + f_launches[k] + pt_launches[k]
-                for k in _build.KERNELS}
+                + g_launches[k] for k in _build.KERNELS}
     for name in KERNELS:
         if launches[name] == 0:
             raise AssertionError(f"{name} was never launched by a main path")

@@ -9,6 +9,8 @@ one. This file imports no jax, so it runs where jax is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -350,3 +352,176 @@ def test_cascade_on_the_card_matches_the_cpu(card, front, groups):
     assert launched["fused_front_g1"] == (8 if front == "g1" else 0)
     assert launched["fused_front"] == (8 if front is True else 0)
     assert launched["fused_group12"] == (16 if groups else 0)
+
+
+# ---------------------------------------------------------------------------
+# Training on the card
+# ---------------------------------------------------------------------------
+
+
+def _train_batch(n, seed=5):
+    gen = torch.Generator().manual_seed(seed)
+    samples = torch.randint(0, 1024, (n, 16, 16, 1), generator=gen).to(torch.uint16)
+    return samples, torch.randint(0, 3, (n,), generator=gen)
+
+
+def _step_on(device, model_cls, variables, opt_fn, cfg, samples, labels):
+    """One fp32 train step of a copy of the model on ``device``: the loss,
+    the gradients before the optimizer, the state after it."""
+    from av1tpu_torch.models import load_jax_variables
+    from av1tpu_torch.train.trainer import TrainState, make_train_step
+
+    model = load_jax_variables(model_cls(), variables).to(device)
+    for mod in model.modules():
+        if isinstance(mod, torch.nn.Dropout):
+            mod.p = 0.0
+    opt = opt_fn(model)
+    grads, step = {}, opt.step
+    names = {id(p): n for n, p in model.named_parameters()}
+
+    def capturing_step():
+        grads.update({names[id(p)]: (torch.zeros_like(p) if p.grad is None
+                                     else p.grad.clone()).cpu() for p in opt.params})
+        step()
+
+    opt.step = capturing_step
+    out = make_train_step(model, opt, cfg)(
+        TrainState(model, opt), {"samples": samples.to(device),
+                                 cfg.label_key: labels.to(device)},
+        torch.Generator(device=device).manual_seed(0))
+    return float(out["loss"]), grads, {k: v.cpu() for k, v in model.state_dict().items()}
+
+
+def _float64_grads(model_cls, variables, cfg, samples, labels):
+    """The step's gradients in float64 on the CPU (forward, loss, backward)."""
+    from av1tpu_torch.models import load_jax_variables
+
+    def to64(tree):
+        return ({k: to64(v) for k, v in tree.items()} if isinstance(tree, dict)
+                else np.asarray(tree, np.float64))
+
+    model = load_jax_variables(model_cls().double(), to64(variables))
+    for mod in model.modules():
+        if isinstance(mod, torch.nn.Dropout):
+            mod.p = 0.0
+    model.train()
+    cfg.loss_fn(model(samples.double() / 1023.0), labels).backward()
+    return {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["stage1_adamw", "stage2_frozen", "stage2_unfrozen"])
+def test_train_step_on_the_card_matches_the_cpu(card, name):
+    """The port's fp32 step (TF32 off) on the card against the CPU on the
+    same weights and batch (no augment, dropout off): the loss within 1e-5
+    rel, the BN statistics within 1e-5 of their largest entry, and the
+    model's whole gradient no farther (relative L2) from a float64 run of the
+    same step than twice the CPU's fp32 gradient is, no tensor off by more
+    than 1e-2 of the largest entry. On these calibrated random models with
+    uniform inputs some gradients are sums with heavy cancellation, where the
+    CPU's own fp32 gradient is percents of a tensor's largest entry off the
+    float64 one, so a fixed per-tensor tolerance does not separate right from
+    wrong here; chip_smoke.py holds trained models to 1e-4 of each tensor's
+    largest entry."""
+    from av1tpu_torch.models import to_jax_variables
+    from av1tpu_torch.train import losses, schedules
+    from av1tpu_torch.train.trainer import StepConfig
+
+    stage1 = name.startswith("stage1")
+    cls = Stage1Model if stage1 else Stage2Model
+    variables = to_jax_variables(_calibrated(cls, 7).state_dict())
+    opt_fn = {
+        "stage1_adamw": lambda m: schedules.as_optimizer(
+            m, schedules.adamw(schedules.cosine_schedule(1e-3, 10))),
+        "stage2_frozen": lambda m: schedules.ulmfit_phase1(m, 5e-4, 10),
+        "stage2_unfrozen": lambda m: schedules.ulmfit_phase2(m, 5e-4, 1e-6, 10),
+    }[name]
+    cfg = StepConfig(
+        loss_fn=(lambda lo, ta: losses.binary_focal_loss(lo, ta, 0.25, 2.5)) if stage1
+        else (lambda lo, ta: losses.class_balanced_focal_loss(lo, ta, [3, 5, 4])),
+        label_key="labels", binary=stage1, num_classes=2 if stage1 else 3)
+    samples, labels = _train_batch(256)
+    labels = labels.clamp(max=1) if stage1 else labels
+    got = _step_on(card, cls, variables, opt_fn, cfg, samples, labels)
+    want = _step_on("cpu", cls, variables, opt_fn, cfg, samples, labels)
+    exact = _float64_grads(cls, variables, cfg, samples, labels)
+    assert abs(got[0] - want[0]) <= 1e-5 * abs(want[0])
+    assert set(got[1]) == set(want[1])
+    names = sorted(want[1])
+    ref = torch.cat([exact.get(n, torch.zeros(want[1][n].shape, dtype=torch.float64))
+                     .reshape(-1) for n in names])  # a parameter the loss misses: zero
+    dist = {side: ((torch.cat([grads[n].double().reshape(-1) for n in names]) - ref).norm()
+                   / ref.norm()).item() for side, grads in (("card", got[1]), ("cpu", want[1]))}
+    assert dist["card"] <= 2 * dist["cpu"] + 1e-6, dist
+    largest = ref.abs().max().item()
+    for n in names:  # and no tensor far off: a wrong gradient is off by its own size
+        err = (got[1][n].double() - exact.get(n, 0.0)).abs().max().item()
+        assert err <= 1e-2 * largest, (n, err, largest)
+    for k, v in want[2].items():
+        if k.endswith(("running_mean", "running_var")):
+            assert (got[2][k] - v).abs().max().item() <= 1e-5 * v.abs().max().item(), k
+
+
+@pytest.mark.cuda
+def test_resident_and_streaming_epochs_agree_on_the_card(card):
+    """One balanced epoch of Stage1Model at batch 64 over 512 blocks, from the
+    same state and generator seed, resident and streamed, with cuDNN's
+    deterministic algorithms (by default two runs of the same step on the card
+    differ: cuDNN picks nondeterministic backward algorithms): the same
+    samples, loss and final state, bitwise."""
+    from av1tpu_torch.train import losses, schedules
+    from av1tpu_torch.train.trainer import (
+        StepConfig, TrainState, make_train_step, run_train_epoch, run_train_epoch_resident,
+        to_device)
+
+    samples, labels = _train_batch(512, seed=6)
+    arrays = {"samples": samples.numpy(), "stage1": labels.clamp(max=1).int().numpy()}
+    base = _calibrated(Stage1Model, 8).to(card)
+    for mod in base.modules():
+        if isinstance(mod, torch.nn.BatchNorm2d):
+            mod.momentum = 0.1  # the trainer's (flax's) running-stat update
+    results = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    for mode in ("resident", "streaming"):
+        torch.manual_seed(4)  # dropout draws from the global generator
+        model = copy.deepcopy(base)
+        opt = schedules.as_optimizer(model, schedules.adamw(1e-3))
+        cfg = StepConfig(loss_fn=losses.binary_focal_loss, label_key="stage1", binary=True)
+        step, state = make_train_step(model, opt, cfg), TrainState(model, opt)
+        gen = torch.Generator(device=card).manual_seed(3)
+        if mode == "resident":
+            _, epoch = run_train_epoch_resident(step, state, to_device(arrays, card), 64, gen,
+                                                11, 2, balance_labels=arrays["stage1"])
+        else:
+            _, epoch = run_train_epoch(step, state, arrays, 64, gen, 11, 2,
+                                       balance_labels=arrays["stage1"], device=card)
+        results[mode] = (epoch, {k: v.cpu() for k, v in model.state_dict().items()})
+    torch.backends.cudnn.deterministic = deterministic
+    (a, sa), (b, sb) = results["resident"], results["streaming"]
+    assert a.samples == b.samples == 512
+    assert a.loss == b.loss and a.metrics == b.metrics
+    for k, v in sa.items():
+        assert torch.equal(v, sb[k]), k
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_the_card(card, tmp_path):
+    """A TrainState on the card (model, AdamW moments, step) saved with the
+    bitwise verification and restored into a fresh state on the card."""
+    from av1tpu_torch.train import checkpoint, schedules
+    from av1tpu_torch.train.trainer import TrainState
+
+    model = _calibrated(Stage2Model, 9).to(card).train()
+    opt = schedules.ulmfit_phase2(model, 5e-4, 1e-6, 10)
+    for p in model.parameters():
+        p.grad = torch.randn_like(p)
+    opt.step()
+    state = TrainState(model, opt, step=1)
+    checkpoint.save_checkpoint(tmp_path / "ck", state, meta={"epoch": 0}, verify=True)
+    fresh = Stage2Model().to(card)
+    template = TrainState(fresh, schedules.ulmfit_phase2(fresh, 5e-4, 1e-6, 10))
+    restored, meta = checkpoint.restore_checkpoint(tmp_path / "ck", template)
+    assert meta == {"epoch": 0} and restored.step == 1 and restored.optimizer.count == 1
+    assert next(fresh.parameters()).is_cuda
+    assert checkpoint.states_equal(state, restored)

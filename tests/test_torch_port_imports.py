@@ -46,7 +46,8 @@ names = ["av1tpu_torch"] + [m.name for m in pkgutil.walk_packages(
     av1tpu_torch.__path__, "av1tpu_torch.")]
 for name in names + ["chip_smoke"]:
     importlib.import_module(name)
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "av1tpu"))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "av1tpu"))
 print(json.dumps({{"imported": names + ["chip_smoke"], "bad": bad}}))
 """
 
@@ -57,21 +58,23 @@ def test_fresh_interpreter_imports_the_port_without_jax_or_av1tpu():
                          capture_output=True, text=True, cwd=ROOT, timeout=600)
     assert out.returncode == 0, out.stderr[-2000:]
     report = json.loads(out.stdout.strip().splitlines()[-1])
-    assert len(report["imported"]) >= 36
+    assert len(report["imported"]) >= 43
     for module in ("codec.tree", "ingest.yuv", "ingest.tiler", "train.augment",
                    "eval.unified", "eval.tree_infer", "eval.tree_metrics",
                    "cli.predict_trees", "eval.gated", "eval.ensemble", "eval.compare",
                    "eval.html_report", "cli.optimize_thresholds", "cli.compare_thresholds",
                    "cli.analyze_confusion", "cli.certify_serving", "quant.ptq",
-                   "models.jax_import"):
+                   "models.jax_import", "data.sampling", "data.synth", "data.records",
+                   "train.losses", "train.schedules", "train.trainer", "train.checkpoint",
+                   "train.stages", "cli.train_stage1", "cli.train_stage2"):
         assert f"av1tpu_torch.{module}" in report["imported"]
     assert report["bad"] == []
 
 
 def test_no_source_line_imports_jax_or_av1tpu():
-    pattern = re.compile(r"^\s*(from|import)\s+(av1tpu\b|jax|flax)")
+    pattern = re.compile(r"^\s*(from|import)\s+(av1tpu\b|jax|flax|optax)")
     files = sorted((ROOT / "av1tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) >= 36
+    assert len(files) >= 43
     hits = [f"{f.relative_to(ROOT)}:{i}" for f in files
             for i, line in enumerate(f.read_text().splitlines(), 1) if pattern.match(line)]
     assert hits == []
@@ -197,6 +200,28 @@ def test_split_saved_by_one_package_loads_in_the_other(tmp_path, writer, reader)
                          ids=lambda f: f.__name__)
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_training_entry_points_default_to_the_card():
+    from av1tpu_torch.cli import train_stage1, train_stage2
+    from av1tpu_torch.cli.common import add_common_train_args
+    from av1tpu_torch.train.stages import filter_through_stage1, train_stage
+    import argparse
+
+    for fn in (train_stage, filter_through_stage1):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    parser = argparse.ArgumentParser()
+    add_common_train_args(parser)
+    assert parser.parse_args(["--dataset-dir", "d", "--output-dir", "o"]).device == "cuda"
+    assert train_stage1.main and train_stage2.main
+    import torch
+
+    if not torch.cuda.is_available():  # nothing carries on on the CPU
+        from av1tpu_torch.train.stages import stage1_recipe
+
+        bundle = _v6_bundle(41, n=16)
+        with pytest.raises((RuntimeError, AssertionError)):
+            train_stage(stage1_recipe(epochs=1, batch_size=8), bundle, bundle, log=print)
 
 
 def test_asking_for_the_card_without_one_raises():
