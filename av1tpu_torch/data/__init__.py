@@ -1,6 +1,6 @@
 """Dataset layer of the port: block records, split bundles and their label
-views, epoch sampling, the sample norm and the reference-shaped synthetic
-corpus."""
+views, epoch sampling, the sample norm, the stage-3 noise injection and the
+reference-shaped synthetic corpus."""
 from av1tpu_torch.data.bundles import (
     Bundle,
     build_flatten_bundle,
@@ -15,6 +15,7 @@ from av1tpu_torch.data.bundles import (
     oversample_ab,
     save_split,
 )
+from av1tpu_torch.data.noise import build_noisy_bundle
 from av1tpu_torch.data.records import (
     NORM_10BIT,
     NORM_10BIT_DOUBLE,
@@ -34,7 +35,7 @@ from av1tpu_torch.data.sampling import (
 
 __all__ = [
     "BlockSet", "Bundle", "NORM_10BIT", "NORM_10BIT_DOUBLE", "balanced_epoch_indices",
-    "build_flatten_bundle", "build_v5_bundle", "build_v6_bundle", "bundle_metadata",
+    "build_flatten_bundle", "build_noisy_bundle", "build_v5_bundle", "build_v6_bundle", "bundle_metadata",
     "class_counts", "effective_number_weights", "ensemble_shuffles",
     "filter_partitioned_only", "filter_stage2_v6", "filter_stage3", "host_shard",
     "inverse_frequency_weights", "normalize_images", "oversample_ab",

@@ -168,14 +168,16 @@ def stacked_member_logits(
 
 def save_ensemble(directory, member_variables: List, meta: Optional[Dict] = None):
     """Persist ensemble members + metadata (parity: ABEnsemble.save_ensemble,
-    ensemble.py:119-137). One flat-variables npz per member + ensemble.json."""
+    ensemble.py:119-137). One flat-variables npz per member + ensemble.json.
+    The npz files are uncompressed, as every variables file the trainer
+    writes (fp32 weights barely compress, zlib takes seconds a member; the
+    JAX package reads both forms)."""
     directory = Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
     paths = []
     for i, variables in enumerate(member_variables, start=1):
-        paths.append(
-            save_variables_npz(directory / f"member_{i}_variables.npz", variables)
-        )
+        paths.append(save_variables_npz(directory / f"member_{i}_variables.npz",
+                                        variables, compress=False))
     payload = {"num_members": len(member_variables), **(meta or {})}
     (directory / "ensemble.json").write_text(json.dumps(payload, indent=2))
     return paths

@@ -1,6 +1,12 @@
 """nn.Module model families of the port, the JAX weight bridge and the
 reference ``.pt`` import."""
-from av1tpu_torch.models.fgvc import CosineClassifier, FGVCModel, l2_normalize  # noqa: F401
+from av1tpu_torch.models.fgvc import (  # noqa: F401
+    CosineClassifier,
+    FGVCModel,
+    center_loss,
+    init_centers,
+    l2_normalize,
+)
 from av1tpu_torch.models.jax_import import (  # noqa: F401
     from_jax_variables,
     load_jax_variables,

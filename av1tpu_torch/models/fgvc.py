@@ -1,16 +1,18 @@
-"""FGVC stage-3 AB model, inference only: backbone -> BN-MLP projection ->
-L2 normalize -> scaled cosine classifier.
+"""FGVC stage-3 AB model: backbone -> BN-MLP projection -> L2 normalize ->
+scaled cosine classifier; and the center loss it trains with.
 
 Counterpart of ``av1tpu.models.fgvc``. The projection is one
 ``nn.Sequential`` named ``feat_proj`` (Linear at 0 and 4, BatchNorm1d at 1
-and 5), as the reference checkpoints name it.
+and 5), as the reference checkpoints name it. Its BatchNorms are
+``layers.BatchNorm1d``: flax's train mode (the running variance moves by the
+biased batch variance), torch's eval mode.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from av1tpu_torch.models.layers import BN_EPS
+from av1tpu_torch.models.layers import BN_EPS, BatchNorm1d
 from av1tpu_torch.models.v6 import FEATURE_DIM, ImprovedBackbone
 
 
@@ -27,6 +29,10 @@ class CosineClassifier(nn.Module):
         self.weight = nn.Parameter(torch.randn(num_classes, feat_dim))
         self.scale = scale
 
+    def reset_like_flax(self, gen: torch.Generator) -> None:
+        """flax's ``normal(stddev=1.0)`` initializer, drawn from ``gen``."""
+        nn.init.normal_(self.weight, 0.0, 1.0, generator=gen)
+
     def forward(self, features: torch.Tensor) -> torch.Tensor:
         weight = l2_normalize(self.weight.to(features.dtype), dim=-1)
         return self.scale * features @ weight.T
@@ -41,9 +47,9 @@ class FGVCModel(nn.Module):
         self.backbone = ImprovedBackbone()
         self.feat_proj = nn.Sequential(
             nn.Linear(FEATURE_DIM, feat_dim),
-            nn.BatchNorm1d(feat_dim, eps=BN_EPS), nn.ReLU(), nn.Dropout(0.3),
+            BatchNorm1d(feat_dim, eps=BN_EPS), nn.ReLU(), nn.Dropout(0.3),
             nn.Linear(feat_dim, feat_dim),
-            nn.BatchNorm1d(feat_dim, eps=BN_EPS), nn.ReLU(), nn.Dropout(0.3),
+            BatchNorm1d(feat_dim, eps=BN_EPS), nn.ReLU(), nn.Dropout(0.3),
         )
         self.classifier = CosineClassifier(num_classes, feat_dim)
 
@@ -55,4 +61,20 @@ class FGVCModel(nn.Module):
         return (logits, feats) if return_features else logits
 
 
-__all__ = ["CosineClassifier", "FGVCModel", "l2_normalize"]
+def init_centers(gen: torch.Generator, num_classes: int = 4, feat_dim: int = 512,
+                 device=None) -> torch.Tensor:
+    """The center loss's learnable class centers, ``N(0, 1)`` of shape
+    ``(num_classes, feat_dim)`` drawn from ``gen`` (``006:185-214``); the
+    trainer holds them beside the model and optimizes them jointly."""
+    return torch.randn((num_classes, feat_dim), generator=gen,
+                       device=gen.device if device is None else device)
+
+
+def center_loss(features: torch.Tensor, labels: torch.Tensor,
+                centers: torch.Tensor) -> torch.Tensor:
+    """Summed squared distance of each sample to its class center over the
+    batch size (Wen et al., 2016; ``006:199-214``)."""
+    return torch.sum((features - centers[labels.long()]) ** 2) / features.shape[0]
+
+
+__all__ = ["CosineClassifier", "FGVCModel", "center_loss", "init_centers", "l2_normalize"]

@@ -194,7 +194,7 @@ def _tensors(tree, device):
 
 def quant_model_from_arrays(model: nn.Module, scales: Mapping, qw: Mapping,
                             qbias: Any, plan: Mapping, calib_amax: Mapping,
-                            float_dtype=torch.float32, device="cpu"):
+                            float_dtype=torch.float32, device=None):
     """The port's int8 model of ``model`` (a v6 stage model or a
     ``UnifiedV6Model`` holding the weights that were quantized) carrying
     another quantizer's state, given as plain numpy arrays in the JAX
@@ -203,10 +203,12 @@ def quant_model_from_arrays(model: nn.Module, scales: Mapping, qw: Mapping,
     ``plan`` (``hw``, ``blocks``, and ``smm_w`` / ``smm_b`` per weight key) and
     ``calib_amax`` (site -> absmax). The folded float weights come from
     ``model``. Returns a ``quant.ptq.QuantStageModel`` or
-    ``QuantUnifiedModel`` on ``device``."""
+    ``QuantUnifiedModel`` on ``device``, by default the device that ``model``'s
+    parameters are on."""
     from av1tpu_torch.quant import ptq
 
-    device = torch.device(device)
+    device = torch.device(device if device is not None
+                          else next(model.parameters()).device)
     folded = ptq.cast_tree(ptq.jax_layout_backbone(ptq.fold_backbone(model.backbone)),
                            device, torch.float32)
     state = dict(

@@ -7,9 +7,9 @@ reference's torchvision-style state-dict keys (``conv1``, ``bn1``,
 the v5 ``conv``/``bn``, ``depthwise``/``pointwise``) so that
 ``models.jax_import`` maps the JAX tree onto them mechanically.
 
-``BatchNorm2d`` is torch's in eval mode (the serving path and the bridge
-see no difference) and flax's in train mode: the running variance moves by
-the **biased** batch variance, ``momentum=0.1`` being flax's 0.9.
+``BatchNorm2d`` and ``BatchNorm1d`` are torch's in eval mode (the serving
+path and the bridge see no difference) and flax's in train mode: the running
+variance moves by the **biased** batch variance, ``momentum=0.1`` being flax's 0.9.
 ``init_like_flax`` draws a model's parameters from flax's initializers.
 
 Padding follows XLA ``"SAME"``, not PyTorch's symmetric ``padding=1``: a
@@ -31,6 +31,26 @@ BN_EPS = 1e-5  # flax BatchNorm's default epsilon
 _TRUNC_STD = 0.87962566103423978
 
 
+def _flax_train_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
+                     dims: Tuple[int, ...]) -> torch.Tensor:
+    """flax ``nn.BatchNorm``'s train mode over ``dims`` (every axis but the
+    channel axis 1): statistics in at least float32, the fast variance
+    ``E[x^2] - E[x]^2`` clipped at 0, the running statistics moved by the
+    batch mean and this biased variance, the result in ``x``'s dtype."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    mean = xf.mean(dim=dims)
+    var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.mul_(1 - m).add_(mean * m)
+        bn.running_var.mul_(1 - m).add_(var * m)
+        bn.num_batches_tracked.add_(1)
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    y = (xf - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
+    return y.to(x.dtype)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose train mode is flax's ``nn.BatchNorm``.
 
@@ -47,17 +67,19 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.momentum is None:
             return super().forward(x)
-        xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
-        with torch.no_grad():
-            m = self.momentum
-            self.running_mean.mul_(1 - m).add_(mean * m)
-            self.running_var.mul_(1 - m).add_(var * m)
-            self.num_batches_tracked.add_(1)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
-        return y.to(x.dtype)
+        return _flax_train_norm(self, x, (0, 2, 3))
+
+
+class BatchNorm1d(nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` over ``(N, C)`` whose train mode is flax's
+    ``nn.BatchNorm``, as :class:`BatchNorm2d` (the FGVC projection's
+    ``proj_bn<l>``; flax ``momentum=0.9`` is torch ``momentum=0.1``). Eval mode
+    is torch's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.momentum is None:
+            return super().forward(x)
+        return _flax_train_norm(self, x, (0,))
 
 
 def init_like_flax(model: nn.Module, gen: torch.Generator) -> nn.Module:
@@ -65,7 +87,8 @@ def init_like_flax(model: nn.Module, gen: torch.Generator) -> nn.Module:
     package's modules, from ``gen`` (module order): conv and Linear weights
     ``lecun_normal`` (truncated normal over the fan-in), biases 0, BatchNorm
     scale 1, bias 0 and running stats 0 / 1, the adapters' Linear weights
-    ``normal(1e-3)``. A temperature keeps its 1.5."""
+    ``normal(1e-3)``, a module with ``reset_like_flax(gen)`` (the FGVC cosine
+    classifier) by that method. A temperature keeps its 1.5."""
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, (nn.Conv2d, nn.Linear)):
@@ -80,6 +103,8 @@ def init_like_flax(model: nn.Module, gen: torch.Generator) -> nn.Module:
             if isinstance(mod, AdapterModule):
                 for lin in (mod.down, mod.up):
                     nn.init.normal_(lin.weight, 0.0, 1e-3, generator=gen)
+            elif hasattr(mod, "reset_like_flax"):  # the FGVC cosine classifier
+                mod.reset_like_flax(gen)
     return model
 
 
@@ -276,6 +301,7 @@ __all__ = [
     "AdapterModule",
     "BN_EPS",
     "BasicBlock",
+    "BatchNorm1d",
     "BatchNorm2d",
     "ConvBNAct",
     "DepthwiseSeparableConv",

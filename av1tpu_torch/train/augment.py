@@ -28,8 +28,10 @@ import numpy as np
 import torch
 
 from av1tpu_torch.codec.partitions import (
+    AB_HFLIP_SWAP_V5,
     AB_HFLIP_SWAP_V6,
     AB_ROT270_SWAP_V6,
+    AB_ROT90_SWAP_V5,
     AB_ROT90_SWAP_V6,
     AB_VFLIP_SWAP_V6,
 )
@@ -217,6 +219,22 @@ def rot90_with_label_rotate(p: float = 0.5) -> Transform:
     return Transform("rot90_ab", draw, apply)
 
 
+def v5_ab_flip_rot90(p: float = 0.5) -> Transform:
+    """The v5 stage-3 AB flips (012:215-255): a horizontal flip with the v5
+    swap ``{0:1, 1:0, 2:3, 3:2}``, then a 90-degree rotation with ``{0:2,
+    2:0, 1:3, 3:1}``, one coin each (``v5_stage3_recipe``'s augment)."""
+    def draw(gen, x):
+        return {"flip": _gate(gen, x.shape[0], p), "rot": _gate(gen, x.shape[0], p)}
+
+    def apply(x, y, d):
+        x = _where(d["flip"], torch.flip(x, dims=(2,)), x)
+        y = torch.where(d["flip"], _remap(AB_HFLIP_SWAP_V5, y), y)
+        x = _where(d["rot"], torch.rot90(x, 1, dims=(1, 2)), x)
+        return x, torch.where(d["rot"], _remap(AB_ROT90_SWAP_V5, y), y)
+
+    return Transform("v5_ab", draw, apply)
+
+
 # ---------------------------------------------------------------------------
 # Per-stage pipelines (augmentation.py:166-248), in the JAX package's order
 # ---------------------------------------------------------------------------
@@ -227,6 +245,7 @@ STAGE2 = (random_hflip(), random_vflip(), random_rot90(), gaussian_noise(0.01, 0
 STAGE3_RECT = (random_hflip(), random_vflip(), gaussian_noise(0.01, 0.3), cutout(4, 0.2))
 STAGE3_AB = (hflip_with_label_swap(), vflip_with_label_swap(), rot90_with_label_rotate(),
              gaussian_noise(0.01, 0.3), coarse_dropout(3, 4, 0.3), cutout(4, 0.3))
+V5_STAGE3_AB = (v5_ab_flip_rot90(),)
 
 
 def draw_pipeline(pipeline: Sequence[Transform], gen: torch.Generator,
@@ -258,6 +277,11 @@ def stage3_rect_augment(gen: torch.Generator, images: torch.Tensor) -> torch.Ten
 
 def stage3_ab_augment(gen: torch.Generator, images: torch.Tensor, labels: torch.Tensor):
     return apply_pipeline(STAGE3_AB, images, labels, draw_pipeline(STAGE3_AB, gen, images))
+
+
+def v5_stage3_ab_augment(gen: torch.Generator, images: torch.Tensor, labels: torch.Tensor):
+    return apply_pipeline(V5_STAGE3_AB, images, labels,
+                          draw_pipeline(V5_STAGE3_AB, gen, images))
 
 
 STAGE_AUGMENTS = {
@@ -328,6 +352,7 @@ __all__ = [
     "STAGE3_RECT",
     "TTA_AB_ALIGN_V6",
     "Transform",
+    "V5_STAGE3_AB",
     "align_tta_ab_logits",
     "apply_pipeline",
     "coarse_dropout",
@@ -346,5 +371,7 @@ __all__ = [
     "stage3_ab_augment",
     "stage3_rect_augment",
     "tta_views",
+    "v5_ab_flip_rot90",
+    "v5_stage3_ab_augment",
     "vflip_with_label_swap",
 ]

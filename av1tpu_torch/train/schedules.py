@@ -163,15 +163,26 @@ def label_params_by_prefix(model: nn.Module, prefix_labels: Mapping[str, str],
                            default: str = "head") -> Dict[str, str]:
     """Parameter name -> label: the label of the first prefix its top-level
     module name starts with, else ``default``. The top-level name
-    (``backbone`` of ``backbone.layer1.0.conv1.weight``) is the key of the
-    JAX package's params dict that holds the same parameter."""
+    (``backbone`` of ``backbone.layer1.0.conv1.weight``, :func:`jax_top_level`)
+    is the key of the JAX package's params dict that holds the same
+    parameter."""
     def label_of(name: str) -> str:
         for prefix, label in prefix_labels.items():
             if name.startswith(prefix):
                 return label
         return default
 
-    return {name: label_of(name.split(".", 1)[0]) for name, _ in model.named_parameters()}
+    return {name: label_of(jax_top_level(name)) for name, _ in model.named_parameters()}
+
+
+def jax_top_level(name: str) -> str:
+    """The JAX package's top-level params key of a port parameter name:
+    the first component, except the v5 model's ``specialist_heads.<H>.*``,
+    which flax keeps as ``specialist_<H>``."""
+    parts = name.split(".")
+    if parts[0] == "specialist_heads":
+        return f"specialist_{parts[1]}"
+    return parts[0]
 
 
 def partitioned_optimizer(model: nn.Module,
@@ -234,6 +245,7 @@ __all__ = [
     "adamw",
     "as_optimizer",
     "cosine_schedule",
+    "jax_top_level",
     "label_params_by_prefix",
     "onecycle_schedule",
     "partitioned_optimizer",

@@ -1,8 +1,9 @@
 """Per-stage training recipes and ``train_stage``, the loop that runs them.
 
-Counterpart of ``av1tpu.train.stages`` for the v6 stage-1 and stage-2 recipes
-and the v5 stage-1 and stage-2 recipes (the stage-3, FGVC and flatten recipes
-are ROADMAP M10b's rest). ``train_stage`` runs a recipe's phases, each with a
+Counterpart of ``av1tpu.train.stages``: the v6 stage-1, stage-2, stage-3
+RECT, AB-FGVC and AB-ensemble recipes, the flatten recipe and the v5 stage-1,
+stage-2 and stage-3 specialist recipes (the FGVC composite loss with CutMix
+and the center loss is ``train.fgvc_step``). ``train_stage`` runs a recipe's phases, each with a
 fresh optimizer, over balanced or shuffled epochs; tracks the best value of
 the recipe's metric; checkpoints ``<name>_best`` (verified), the rolling
 ``<name>_last`` resume anchor and ``<name>_final``, each with a
@@ -26,7 +27,7 @@ from __future__ import annotations
 import copy
 import inspect
 import json
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -36,15 +37,25 @@ from torch import nn
 
 from av1tpu_torch.data.bundles import Bundle
 from av1tpu_torch.models import (
+    FGVCModel,
     HierarchicalModel,
     Stage1Model,
+    Stage2FlatModel,
     Stage2Model,
     Stage2ModelWithAdapters,
+    Stage3ABModel,
+    Stage3RectModel,
     load_jax_variables,
     to_jax_variables,
 )
 from av1tpu_torch.models.layers import init_like_flax
-from av1tpu_torch.train.augment import stage1_augment, stage2_augment
+from av1tpu_torch.train.augment import (
+    stage1_augment,
+    stage2_augment,
+    stage3_ab_augment,
+    stage3_rect_augment,
+    v5_stage3_ab_augment,
+)
 from av1tpu_torch.train.checkpoint import (
     STATE_FILE,
     load_variables_npz,
@@ -56,14 +67,18 @@ from av1tpu_torch.train.losses import (
     binary_focal_loss,
     class_balanced_focal_loss,
     hard_negative_mining_loss,
+    mixup_batch,
+    multiclass_focal_loss,
     stage1_focal_bce_v5,
     weighted_ce_label_smoothing,
 )
 from av1tpu_torch.train.schedules import (
+    FREEZE,
     TrainOptimizer,
     adamw,
     as_optimizer,
     cosine_schedule,
+    partitioned_optimizer,
     ulmfit_phase1,
     ulmfit_phase2,
 )
@@ -429,6 +444,89 @@ def stage2_recipe(samples_per_class: Sequence[int], freeze_epochs: int = 5,
     )
 
 
+def stage3_rect_recipe(class_weights: Sequence[float], freeze_epochs: int = 5,
+                       unfreeze_epochs: int = 25, head_lr: float = 1e-3,
+                       batch_size: int = 256, label_smoothing: float = 0.1,
+                       steps_per_epoch: Optional[int] = None, early_stop_patience: int = 5,
+                       dtype=torch.float32) -> StageRecipe:
+    """v6 stage-3 RECT: weighted CE with label smoothing 0.1, the backbone
+    frozen and then unfrozen at ``head_lr * 0.01``, clip 1.0, patience 5
+    (parity: 005_train_stage3_rect.py:484-575)."""
+    cw = np.asarray(class_weights, dtype=np.float32)
+    loss = lambda lo, ta: weighted_ce_label_smoothing(lo, ta, cw, label_smoothing)
+    return StageRecipe(
+        name="stage3_rect", model=Stage3RectModel, label_key="stage3_RECT", num_classes=2,
+        loss_fn=loss, augment=stage3_rect_augment,
+        phases=[
+            Phase(freeze_epochs, lambda m, spe: ulmfit_phase1(
+                m, head_lr, freeze_epochs * spe, grad_clip=1.0), "frozen"),
+            Phase(unfreeze_epochs, lambda m, spe: ulmfit_phase2(
+                m, head_lr, head_lr * 0.01, unfreeze_epochs * spe, grad_clip=1.0), "unfrozen"),
+        ],
+        batch_size=batch_size, best_metric="macro_f1", early_stop_patience=early_stop_patience,
+        steps_per_epoch=steps_per_epoch, dtype=dtype,
+    )
+
+
+def stage3_ab_fgvc_recipe(freeze_epochs: int = 5, unfreeze_epochs: int = 25,
+                          head_lr: float = 1e-3, backbone_lr: float = 1e-6,
+                          batch_size: int = 128, steps_per_epoch: Optional[int] = None,
+                          dtype=torch.float32) -> StageRecipe:
+    """v6 stage-3 AB on the FGVC model: focal loss, the label-aware AB
+    augmentation, balanced epochs, 5 frozen and 25 unfrozen epochs at
+    backbone lr 1e-6 (parity: 006_train_stage3_ab_fgvc.py:739-857). The
+    CutMix + center-loss composite is ``train.fgvc_step`` (``train_stage3
+    --fgvc``); this recipe is the schedule and augmentation."""
+    return StageRecipe(
+        name="stage3_ab", model=FGVCModel, label_key="stage3_AB", num_classes=4,
+        loss_fn=lambda lo, ta: multiclass_focal_loss(lo, ta, 2.0),
+        augment_labeled=stage3_ab_augment, balance=True,
+        phases=[
+            Phase(freeze_epochs, lambda m, spe: ulmfit_phase1(
+                m, head_lr, freeze_epochs * spe), "frozen"),
+            Phase(unfreeze_epochs, lambda m, spe: ulmfit_phase2(
+                m, head_lr, backbone_lr, unfreeze_epochs * spe), "unfrozen"),
+        ],
+        batch_size=batch_size, best_metric="macro_f1", steps_per_epoch=steps_per_epoch,
+        dtype=dtype,
+    )
+
+
+def stage3_ab_ensemble_recipe(seed_offset: int = 0, mixup_alpha: float = 0.4,
+                              **kw) -> StageRecipe:
+    """One AB-ensemble member: the plain ``Stage3ABModel`` with Mixup
+    (alpha 0.4) over the FGVC recipe's focal loss and schedule (parity:
+    006_train_stage3_ab_ensemble_reference.py:52-80); ``mixup_alpha=0``
+    turns the mixing off."""
+    batch_mix = ((lambda gen, images: mixup_batch(gen, images, mixup_alpha))
+                 if mixup_alpha > 0 else None)
+    return replace(stage3_ab_fgvc_recipe(**kw), name=f"stage3_ab_member{seed_offset}",
+                   model=Stage3ABModel, batch_mix=batch_mix)
+
+
+def flatten_recipe(samples_per_class: Sequence[int], freeze_epochs: int = 15,
+                   unfreeze_epochs: int = 25, max_lr: float = 1e-3, batch_size: int = 256,
+                   beta: float = 0.9999, gamma: float = 2.5,
+                   steps_per_epoch: Optional[int] = None, early_stop_patience: int = 8,
+                   dtype=torch.float32) -> StageRecipe:
+    """Flatten 7-way: CB-focal (beta 0.9999, gamma 2.5), 15 frozen then 25
+    unfrozen epochs at ``max_lr * 0.01``, patience 8 (parity: 004b:461-590)."""
+    loss = lambda lo, ta: class_balanced_focal_loss(lo, ta, list(samples_per_class), beta,
+                                                    gamma)
+    return StageRecipe(
+        name="stage2_flat", model=Stage2FlatModel, label_key="flatten", num_classes=7,
+        loss_fn=loss, augment=stage2_augment, balance=True,
+        phases=[
+            Phase(freeze_epochs, lambda m, spe: ulmfit_phase1(
+                m, max_lr, freeze_epochs * spe), "frozen"),
+            Phase(unfreeze_epochs, lambda m, spe: ulmfit_phase2(
+                m, max_lr, max_lr * 0.01, unfreeze_epochs * spe), "unfrozen"),
+        ],
+        batch_size=batch_size, best_metric="macro_f1", early_stop_patience=early_stop_patience,
+        steps_per_epoch=steps_per_epoch, dtype=dtype,
+    )
+
+
 # ---------------------------------------------------------------------------
 # v5 recipes (shared-backbone HierarchicalModel)
 # ---------------------------------------------------------------------------
@@ -472,6 +570,33 @@ def v5_stage2_recipe(class_weights: Sequence[float], epochs: int = 20, lr: float
     )
 
 
+V5_SPECIALISTS = {"RECT": 2, "AB": 4, "1TO4": 2}  # head -> classes
+
+
+def v5_stage3_recipe(head: str, class_weights: Sequence[float], epochs: int = 20,
+                     lr: float = 5e-4, batch_size: int = 256,
+                     steps_per_epoch: Optional[int] = None, use_qp: bool = False
+                     ) -> StageRecipe:
+    """v5 stage-3 specialist (parity: 012_train_stage3.py): every
+    partition but the target specialist head frozen (no update, no decay, no
+    AdamW state), squared-inverse-frequency class weights, and for AB the v5
+    label-aware flips (``augment.v5_ab_flip_rot90``)."""
+    cw = np.asarray(class_weights, dtype=np.float32)
+    loss = lambda out, ta: weighted_ce_label_smoothing(out.specialists[head], ta, cw, 0.0)
+    frozen = {"backbone": "frozen", "stage1_head": "frozen", "stage2_head": "frozen",
+              **{f"specialist_{h}": "frozen" for h in V5_SPECIALISTS if h != head}}
+    make_opt = lambda m, spe: partitioned_optimizer(
+        m, {"frozen": FREEZE, "head": adamw(cosine_schedule(lr, epochs * spe))}, frozen)
+    return StageRecipe(
+        name=f"v5_stage3_{head}", model=lambda: HierarchicalModel(use_qp=use_qp),
+        label_key=f"stage3_{head}", num_classes=V5_SPECIALISTS[head], loss_fn=loss,
+        augment_labeled=v5_stage3_ab_augment if head == "AB" else None,
+        phases=[Phase(epochs, make_opt, "specialist")], batch_size=batch_size,
+        best_metric="macro_f1", logits_fn=lambda out: out.specialists[head],
+        steps_per_epoch=steps_per_epoch, use_qp=use_qp,
+    )
+
+
 # ---------------------------------------------------------------------------
 # Pipeline-aware filtering (004c) and the v5 stage-3 class weights
 # ---------------------------------------------------------------------------
@@ -506,12 +631,18 @@ __all__ = [
     "StageRecipe",
     "TrainResult",
     "epoch_seeds",
+    "V5_SPECIALISTS",
     "filter_through_stage1",
+    "flatten_recipe",
     "squared_inverse_freq_weights",
     "stage1_recipe",
     "stage2_recipe",
+    "stage3_ab_ensemble_recipe",
+    "stage3_ab_fgvc_recipe",
+    "stage3_rect_recipe",
     "train_stage",
     "v5_stage1_recipe",
     "v5_stage2_recipe",
+    "v5_stage3_recipe",
     "variables_of",
 ]

@@ -100,6 +100,11 @@ def _autocast(device: torch.device, dtype: torch.dtype):
     return torch.autocast(device_type=device.type, dtype=dtype)
 
 
+def at_least_fp32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float32, or float64 if it is (a float64 reference step)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def _as_float(outputs):
     """Model outputs cast to fp32 (a tensor, or a dataclass or dict of them)."""
     if isinstance(outputs, torch.Tensor):
@@ -119,6 +124,13 @@ def _inputs(cfg: StepConfig, batch: Mapping[str, torch.Tensor]):
     return images, ()
 
 
+def _labels(cfg: StepConfig, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """The step's labels: integer ids as int64; a float array (the unified
+    trainer's packed label and teacher columns) as it is."""
+    labels = batch[cfg.label_key]
+    return labels if labels.is_floating_point() else labels.long()
+
+
 def make_train_step(model: nn.Module, optimizer: TrainOptimizer, cfg: StepConfig):
     """``step(state, batch, gen) -> {"loss", "confusion"}`` (device tensors):
     one update of ``state`` in place. ``batch`` holds device tensors (uint16
@@ -127,7 +139,7 @@ def make_train_step(model: nn.Module, optimizer: TrainOptimizer, cfg: StepConfig
 
     def train_step(state: TrainState, batch, gen: torch.Generator):
         images, extra = _inputs(cfg, batch)
-        labels = batch[cfg.label_key].long()
+        labels = _labels(cfg, batch)
         if cfg.augment_labeled is not None:
             images, labels = cfg.augment_labeled(gen, images, labels)
         elif cfg.augment is not None:
@@ -162,7 +174,7 @@ def make_eval_step(model: nn.Module, cfg: StepConfig):
     @torch.no_grad()
     def eval_step(state: TrainState, batch):
         images, extra = _inputs(cfg, batch)
-        labels = batch[cfg.label_key].long()
+        labels = _labels(cfg, batch)
         model.eval()
         with _autocast(images.device, cfg.compute_dtype):
             outputs = model(images, *extra, **cfg.apply_kwargs)
@@ -383,6 +395,7 @@ __all__ = [
     "RESIDENT_MAX_BYTES",
     "StepConfig",
     "TrainState",
+    "at_least_fp32",
     "confusion_matrix",
     "confusion_to_metrics",
     "iterate_batches",

@@ -102,15 +102,41 @@ Run from the root of a checkout. Phases, one JSON line each:
           (the frozen and the unfrozen ULMFiT phase); outside the counts, a
           ``train_stage`` stopped after epoch 0 and resumed from
           ``stage1_last``, whose final state must equal the uninterrupted CLI
-          run's bitwise, and one fp32 step of the trained stage-1 and stage-2
-          models on the card against the same step on the CPU (loss 1e-5 rel,
-          gradients 1e-4 of their largest entry, BN statistics 1e-5); then
+          run's bitwise, and one step of the trained stage-1 and stage-2
+          models on the card against the same step on the CPU (fp32: loss
+          1e-5 rel, BN statistics 1e-5; the card's fp32 gradients and its
+          float64 ones within 1e-4 of each tensor's largest entry from the
+          CPU's float64 step made with the card's ReLU masks and max
+          choices; the same step with TF32 on, a control, must miss that
+          bound: ``check_step_pair``); then
           (``g_serving``) the two exports with path a's stage-3 models served
           by ``run_pipeline_eval --folded --bf16 --fused-front off|on|g1`` on
           the corpus's val split (K1, K2); then the step ms at batch 256 and
           4096, fp32 and bf16 (ABBA turns), kernels, host launch calls, busy
           ms and idle share per step, resident and streaming epoch
           samples/s, and the seconds of a verified ``save_checkpoint``;
+       h. the rest of training on path g's corpus, which launches no port
+          kernel either: ``prepare_stage3 --ensemble-members 2`` (RECT 17,844
+          train / 4,474 val blocks; AB 14,320 / 3,591, oversampled to 23,600),
+          then through the CLIs at batch 256: ``train_stage3 --head RECT
+          --epochs 2`` from path g's stage-2 export (5 frozen epochs and 1
+          unfrozen), the same with ``--noise-ratio 0.25``, ``--head AB --fgvc
+          --batch-size 128``, ``--head AB --ensemble 2``, ``--variant v5
+          --head AB --epochs 1`` from scratch, ``train_stage2_flat
+          --freeze-epochs 1 --epochs 2`` on the corpus's flatten split,
+          ``train_unified --epochs 2`` and ``train_unified --distill-weight
+          0.5 --epochs 1`` (teachers: path g's stage 1 and 2, this path's RECT
+          and FGVC); outside the counts, one fp32 step of the trained FGVC model
+          (CutMix, center loss, the clipped AdamW over model and centers) and
+          of the distilled unified model on the card against the CPU with the
+          same draws, held as path g's; then
+          (``h_serving``) the fully trained ladder served ``--folded --bf16
+          --fused-front off|on|g1 --ab-fgvc`` (K1, K2 at three folded stages a
+          batch), the trained unified model ``--variant unified --folded
+          --fused-front off|on|g1`` (K1, K2) and the trained ensemble through
+          ``--stage3-ab-ensemble-dir``; then the step ms, kernels, host launch
+          calls, busy ms and idle share of the FGVC step at batch 128 and the
+          unified step at 256;
      each run prints blocks/s (or frames/s and superblocks/s), its launches,
      and its agreement with its path's ``off`` run;
   6. predict: the CUDA-event time of one 4,096-block bf16 predict on a
@@ -162,6 +188,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.overrides import TorchFunctionMode
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
@@ -172,18 +199,24 @@ from av1tpu_torch.cli import (  # noqa: E402
     compare_thresholds,
     optimize_thresholds,
     predict_trees,
+    prepare_stage3,
     run_pipeline_eval,
     train_stage1,
     train_stage2,
+    train_stage2_flat,
+    train_stage3,
+    train_unified,
 )
 from av1tpu_torch.codec.partitions import map_to_stage2_v6  # noqa: E402
 from av1tpu_torch.codec.tree import LEVEL_SIZES, NODES_PER_LEVEL  # noqa: E402
 from av1tpu_torch.data.bundles import (  # noqa: E402
     Bundle,
+    build_flatten_bundle,
     build_v6_bundle,
     class_counts,
     save_split,
 )
+from av1tpu_torch.data.records import BlockSet  # noqa: E402
 from av1tpu_torch.data.synth import reference_shaped_corpus  # noqa: E402
 from av1tpu_torch.eval import (  # noqa: E402
     PipelineModels,
@@ -232,7 +265,7 @@ from av1tpu_torch.models import (  # noqa: E402
     split_unified_logits,
     to_jax_variables,
 )
-from av1tpu_torch.cli.common import train_calibration_blocks  # noqa: E402
+from av1tpu_torch.cli.common import load_model, train_calibration_blocks  # noqa: E402
 from av1tpu_torch.quant import ptq  # noqa: E402
 from av1tpu_torch.quant.ptq import (  # noqa: E402
     fold_backbone,
@@ -245,11 +278,18 @@ from av1tpu_torch.train.checkpoint import (  # noqa: E402
     save_variables_npz,
     states_equal,
 )
+from av1tpu_torch.train.augment import apply_pipeline, draw_pipeline  # noqa: E402
+from av1tpu_torch.train.fgvc_step import (  # noqa: E402
+    fgvc_draws,
+    fgvc_loss,
+    make_fgvc_train_step,
+)
 from av1tpu_torch.train.losses import (  # noqa: E402
     binary_focal_loss,
     class_balanced_focal_loss,
 )
 from av1tpu_torch.train.schedules import (  # noqa: E402
+    TrainOptimizer,
     adamw,
     as_optimizer,
     cosine_schedule,
@@ -263,6 +303,15 @@ from av1tpu_torch.train.trainer import (  # noqa: E402
     run_train_epoch,
     run_train_epoch_resident,
     to_device,
+)
+from av1tpu_torch.train.unified import (  # noqa: E402
+    UNIFIED_NOISE_ONLY,
+    compute_teacher_logits,
+    make_unified_loss,
+    make_unified_predictions,
+    pack_unified_labels,
+    unified_metric_labels,
+    unified_recipe,
 )
 
 SEED = 0
@@ -1733,8 +1782,10 @@ def run_path_f(models: dict, ckpts: dict, dataset: Path, npz_on_run: dict, dev) 
 TRAIN_SCALE = 0.25
 TRAIN_BATCH = 256
 STEP_BATCHES = (256, 4096)
-# One train step on the card against the same step on the CPU (fp32, TF32
-# off), held to tests/test_torch_port_train_step.py's tolerances
+# One train step on the card against the same step on the CPU (TF32 off),
+# held to tests/test_torch_port_train_step.py's tolerances: the loss and the
+# BN statistics in fp32, the gradients against float64 made with the card's
+# discrete choices (check_step_pair)
 STEP_LOSS_RTOL, STEP_GRAD_TOL, STEP_STATS_TOL, STEP_SMALL_GRAD = 1e-5, 1e-4, 1e-5, 0.1
 STEP_PARITY_ROWS = 256
 G_FRONT_AGREEMENT = 0.97  # least share of a front's labels equal to off's (bf16)
@@ -1839,33 +1890,100 @@ def check_resume(train: Bundle, val: Bundle, dev) -> None:
                              f"optimizer state equal: {same_opt}")
 
 
-def _one_step(model_cls, variables, opt_fn, loss_fn, label_key, classes, binary,
-              samples, labels, device) -> dict:
-    """One fp32 train step of the port on ``device`` (no augment, dropout
-    off): the loss, the gradients (before the per-partition clip), the
-    state dict after the step."""
-    model = load_jax_variables(model_cls(), variables).to(device)
+class DecisionTape(TorchFunctionMode):
+    """The discrete choices of a forward: each ReLU's mask, each max pool's
+    indices and each ``amax``'s maximal elements, in call order. Made
+    without ``choices`` it records them and changes nothing; made with a
+    recorded list it replays them in another forward of the same code, where
+    each ReLU multiplies by its mask and each max takes its recorded
+    elements (ties shared as ``amax``'s gradient shares them). A float64
+    step so replayed makes the choices of the fp32 step it was recorded
+    from: where an input of a ReLU or a max lies within rounding of its
+    threshold, the two would otherwise send one gradient entry down
+    different paths, an error of the order of that entry, not of rounding."""
+
+    def __init__(self, choices: Optional[list] = None):
+        super().__init__()
+        self.replaying = choices is not None
+        self.choices = [] if choices is None else choices
+        self.used = 0
+
+    def _next(self, x: torch.Tensor, shape=None) -> torch.Tensor:
+        choice = self.choices[self.used]
+        self.used += 1
+        if shape is not None and tuple(choice.shape) != tuple(shape):
+            raise AssertionError(f"replayed choice {self.used - 1} has shape "
+                                 f"{tuple(choice.shape)}, the forward {tuple(shape)}")
+        return choice.to(x.device)
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name, x = getattr(func, "__name__", ""), args[0] if args else None
+        if name == "relu":
+            if self.replaying:
+                return x * self._next(x, x.shape).to(x.dtype)
+            out = func(*args, **kwargs)
+            self.choices.append(out.detach() > 0)
+            return out
+        if name == "max_pool2d":
+            if self.replaying:
+                idx = self._next(x)
+                return x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+            out = func(*args, **kwargs)
+            with torch.no_grad():
+                self.choices.append(F.max_pool2d_with_indices(
+                    x.detach(), *args[1:], **{k: v for k, v in kwargs.items()
+                                              if k != "return_indices"})[1])
+            return out
+        if name == "amax":
+            dim = kwargs.get("dim", args[1] if len(args) > 1 else ())
+            keepdim = kwargs.get("keepdim", args[2] if len(args) > 2 else False)
+            if self.replaying:
+                top = self._next(x, x.shape).to(x.dtype)
+                return (x * top / top.sum(dim=dim, keepdim=True)).sum(dim=dim, keepdim=keepdim)
+            out = func(*args, **kwargs)
+            self.choices.append(x.detach() == x.detach().amax(dim=dim, keepdim=True))
+            return out
+        return func(*args, **kwargs)
+
+
+def captured_step(model: nn.Module, opt, step: Callable) -> dict:
+    """Run ``step()`` (one train step that ends in ``opt.step()``) with
+    dropout off and return the loss it returns, the gradients ``opt`` was
+    given before its clip (by parameter name, the FGVC centers as
+    ``centers``), the state dict after it and its forward's discrete
+    choices (:class:`DecisionTape`)."""
     for mod in model.modules():
         if isinstance(mod, nn.Dropout):
             mod.p = 0.0
-    opt = opt_fn(model)
     names = {id(p): n for n, p in model.named_parameters()}
-    grads, step = {}, opt.step
+    grads, inner = {}, opt.step
 
-    def capturing_step():
-        grads.update({names[id(p)]: (torch.zeros_like(p) if p.grad is None
-                                     else p.grad.detach().clone()).cpu() for p in opt.params})
-        step()
+    def capturing():
+        grads.update({names.get(id(p), "centers"): (
+            torch.zeros_like(p) if p.grad is None else p.grad.detach().clone()).cpu()
+            for p in opt.params})
+        inner()
 
-    opt.step = capturing_step
-    cfg = StepConfig(loss_fn=loss_fn, label_key=label_key, binary=binary, num_classes=classes)
-    metrics = make_train_step(model, opt, cfg)(
-        TrainState(model, opt),
-        {"samples": torch.from_numpy(samples).to(device),
-         label_key: torch.from_numpy(labels).to(device)},
-        torch.Generator(device=device).manual_seed(0))
-    return {"loss": float(metrics["loss"]), "grads": grads,
+    opt.step = capturing
+    with DecisionTape() as tape:
+        loss = step()
+    return {"loss": float(loss), "grads": grads, "choices": tape.choices,
             "state": {k: v.cpu() for k, v in model.state_dict().items()}}
+
+
+def _one_step(model_cls, variables, opt_fn, loss_fn, label_key, classes, binary,
+              samples, labels, device) -> dict:
+    """One fp32 train step of the port on ``device`` (no augment, dropout
+    off), as :func:`captured_step` returns it."""
+    model = load_jax_variables(model_cls(), variables).to(device)
+    opt = opt_fn(model)
+    cfg = StepConfig(loss_fn=loss_fn, label_key=label_key, binary=binary, num_classes=classes)
+    step = make_train_step(model, opt, cfg)
+    batch = {"samples": torch.from_numpy(samples).to(device),
+             label_key: torch.from_numpy(labels).to(device)}
+    return captured_step(model, opt, lambda: step(
+        TrainState(model, opt), batch, torch.Generator(device=device).manual_seed(0))["loss"])
 
 
 def check_step_parity(s1_run: dict, s2_run: dict, val: Bundle, dev) -> None:
@@ -1887,22 +2005,111 @@ def check_step_parity(s1_run: dict, s2_run: dict, val: Bundle, dev) -> None:
         variables = load_variables_npz(path)
         labels = np.clip(val.labels[key][:STEP_PARITY_ROWS], 0, None).astype(np.int32)
         args = (cls, variables, opt_fn, loss_fn, key, classes, binary, samples, labels)
-        card, cpu = _one_step(*args, dev), _one_step(*args, torch.device("cpu"))
-        largest = max(g.abs().max().item() for g in cpu["grads"].values())
-        grad_err = max((card["grads"][n] - g).abs().max().item()
-                       / max(g.abs().max().item(), STEP_SMALL_GRAD * largest)
-                       for n, g in cpu["grads"].items())
-        stats_err = max((card["state"][k] - v).abs().max().item() / v.abs().max().item()
-                        for k, v in cpu["state"].items()
-                        if k.endswith(("running_mean", "running_var")))
-        loss_err = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
-        emit("step_parity", path="g_train", model=name, batch=STEP_PARITY_ROWS,
-             loss=card["loss"], loss_rel_err=loss_err, grad_err_of_largest=grad_err,
-             stats_err_of_largest=stats_err, tensors=len(cpu["grads"]))
-        if (loss_err > STEP_LOSS_RTOL or grad_err > STEP_GRAD_TOL
-                or stats_err > STEP_STATS_TOL):
-            raise AssertionError(f"{name}: the card's train step disagrees with the CPU's "
-                                 f"(loss {loss_err}, grads {grad_err}, stats {stats_err})")
+
+        def loss64(model, device, loss_fn=loss_fn, labels=labels):
+            x = torch.from_numpy(samples).to(device).double() / 1023.0
+            return loss_fn(model(x), torch.from_numpy(labels).to(device).long())
+
+        check_step_pair("g_train", name, functools.partial(_one_step, *args),
+                        lambda d, choices, cls=cls, v=variables, loss64=loss64: fp64_grads(
+                            load_jax_variables(cls(), v), loss64, d, choices), dev)
+
+
+def fp64_grads(model: nn.Module, loss_of: Callable, device, choices: list,
+               extra: Optional[dict] = None) -> dict:
+    """The gradients of ``loss_of(model, device, **extra)`` with ``model``
+    (train mode, dropout off) in float64 on ``device``, replaying the
+    recorded ``choices`` (:class:`DecisionTape`), by parameter name, and of
+    the float64 tensors in ``extra`` (the FGVC centers) under their names,
+    on the CPU."""
+    model = model.to(device, torch.float64).train()
+    for mod in model.modules():
+        if isinstance(mod, nn.Dropout):
+            mod.p = 0.0
+    extra = {k: nn.Parameter(v.to(device, torch.float64)) for k, v in (extra or {}).items()}
+    with DecisionTape(choices) as tape:
+        loss = loss_of(model, device, **extra)
+    if tape.used != len(choices):
+        raise AssertionError(f"the float64 forward made {tape.used} of the "
+                             f"{len(choices)} recorded choices")
+    loss.backward()
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+             if p.grad is not None}
+    grads.update({k: v.grad.detach().cpu() for k, v in extra.items()})
+    return grads
+
+
+@contextlib.contextmanager
+def tf32_on():
+    """TF32 in cuDNN's convolutions and cuBLAS's products for the body
+    (``main`` turns both off)."""
+    before = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def grad_err_of_largest(got: dict, want: dict) -> tuple:
+    """The largest gradient difference, each tensor's over its largest entry
+    floored at ``STEP_SMALL_GRAD`` times the largest entry of all, and the
+    tensor that has it."""
+    largest = max(g.abs().max().item() for g in want.values())
+    return max(((got[n].double() - g.double()).abs().max().item()
+                / max(g.abs().max().item(), STEP_SMALL_GRAD * largest), n)
+               for n, g in want.items())
+
+
+def check_step_pair(path: str, name: str, step: Callable, fp64: Callable, dev) -> None:
+    """A train step on the card against the same step on the CPU.
+    ``step(device)`` runs the fp32 step (as :func:`captured_step` returns
+    it), ``fp64(device, choices)`` returns the same step's gradients in
+    float64, made with the recorded ``choices`` (:class:`DecisionTape`).
+
+    The loss within ``STEP_LOSS_RTOL`` and the BN statistics after the step
+    within ``STEP_STATS_TOL`` of the CPU's fp32 step; the card's fp32
+    gradients and its float64 ones within ``STEP_GRAD_TOL`` of each tensor's
+    largest entry (floored at ``STEP_SMALL_GRAD`` of the largest of all) from
+    the CPU's float64 gradients made with the card's fp32 choices. The card's
+    step with TF32 on, held the same way to the CPU's float64 step made with
+    its own choices, is the control: it must miss ``STEP_GRAD_TOL``, or the
+    bound could not see a backward that rounds coarser than fp32.
+
+    Why the float64 step replays the fp32 step's choices: where the input of
+    a ReLU, a max pool or a channel max lies within rounding of its threshold
+    or of a rival, fp32 and float64 may choose differently, and that one
+    choice moves a gradient entry by its own size. Such choices turn up in
+    some runs and not in others, on either device, with the trained weights
+    and the batch: held to float64 without the replay, a sound fp32 FGVC step
+    on an H100 read 1.2e-2 of a tensor's largest entry, more than TF32 steps
+    of other runs. With the replay only rounding is left."""
+    cpu_dev = torch.device("cpu")
+    card, cpu = step(dev), step(cpu_dev)
+    with tf32_on():
+        control = step(dev)
+    cpu64 = fp64(cpu_dev, card["choices"])
+    fp64_err, fp64_worst = grad_err_of_largest(fp64(dev, card["choices"]), cpu64)
+    fp32_err, fp32_worst = grad_err_of_largest(card["grads"], cpu64)
+    tf32_err, tf32_worst = grad_err_of_largest(control["grads"],
+                                               fp64(cpu_dev, control["choices"]))
+    stats_err = max((card["state"][k] - v).abs().max().item() / v.abs().max().item()
+                    for k, v in cpu["state"].items()
+                    if k.endswith(("running_mean", "running_var")))
+    loss_err = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    emit("step_parity", path=path, model=name, batch=STEP_PARITY_ROWS, loss=card["loss"],
+         loss_rel_err=loss_err, stats_err_of_largest=stats_err, tensors=len(cpu["grads"]),
+         choices=len(card["choices"]),
+         fp64_grad_err_of_largest=fp64_err, fp64_worst_tensor=fp64_worst,
+         fp32_grad_err_of_largest=fp32_err, fp32_worst_tensor=fp32_worst,
+         tf32_control_grad_err_of_largest=tf32_err, tf32_control_worst_tensor=tf32_worst)
+    if (loss_err > STEP_LOSS_RTOL or stats_err > STEP_STATS_TOL or fp64_err > STEP_GRAD_TOL
+            or fp32_err > STEP_GRAD_TOL or tf32_err <= STEP_GRAD_TOL):
+        raise AssertionError(f"{name}: the card's train step disagrees with the CPU's "
+                             f"(loss {loss_err}, stats {stats_err}, float64 gradients "
+                             f"{fp64_err} at {fp64_worst}, fp32 gradients {fp32_err} at "
+                             f"{fp32_worst}; the TF32 control {tf32_err} at {tf32_worst} "
+                             f"must exceed {STEP_GRAD_TOL})")
 
 
 def g_serving_plan(s1_run: dict, s2_run: dict, ckpts: dict) -> list:
@@ -2013,12 +2220,13 @@ def train_timing_phase(s1_run: dict, train: Bundle, dev, smi: str) -> None:
          state_bytes=(WORK / "train" / "save_0" / "state.pt").stat().st_size, nvidia_smi=smi)
 
 
-def run_path_g(ckpts: dict, dev, smi: str) -> dict:
+def run_path_g(ckpts: dict, dev, smi: str) -> tuple:
     """Path g: the corpus, the training CLIs (stage 1 fp32 and bf16, then
     stage 2 through its frozen and unfrozen phases from stage 1's export),
     which must launch none of K1-K5; a library resume; one step on the card
     against the CPU; the trained exports served with each front (K1, K2).
-    Returns the serving runs' launches."""
+    Returns the serving runs' launches and what path h trains on: the
+    corpus's directory, its val split and the two exports."""
     t0 = time.perf_counter()
     dataset, train, val = make_train_corpus()
     emit("g_setup", seconds=time.perf_counter() - t0, train_blocks=len(train),
@@ -2047,6 +2255,336 @@ def run_path_g(ckpts: dict, dev, smi: str) -> dict:
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN_MODULES)
     if loaded:
         raise AssertionError(f"path g loaded {loaded[:5]}")
+    return serving_launches, {
+        "dataset": dataset, "val": val,
+        "stage1": by_name["s1"]["out"] / "stage1_best_variables.npz",
+        "stage2": by_name["s2"]["out"] / "stage2_best_variables.npz"}
+
+
+# Path h: the rest of training (prepare_stage3, train_stage3, train_stage2_flat,
+# train_unified) on path g's corpus, then the fully trained ladder served
+H_MEMBERS = 2          # prepare_stage3 --ensemble-members and train_stage3 --ensemble
+FGVC_BATCH = 128       # train_stage3 --fgvc --batch-size
+H_NOISE_RATIO = 0.25
+
+
+def h_train_plan(g_out: dict, stage3: Path, flat: Path) -> list:
+    """Path h's trainers in order: ``(name, (name, module, argv, history
+    names, export))``; each runs at batch ``TRAIN_BATCH`` unless its argv sets
+    one."""
+    s3 = ["--dataset-dir", str(stage3)]
+    s2 = ["--stage2-checkpoint", str(g_out["stage2"])]
+    rect_out, fgvc_out = WORK / "train_h" / "rect", WORK / "train_h" / "ab_fgvc"
+    teachers = ["--stage1-checkpoint", str(g_out["stage1"]), *s2,
+                "--stage3-rect-checkpoint", str(rect_out / "stage3_rect_best_variables.npz"),
+                "--stage3-ab-checkpoint", str(fgvc_out / "stage3_ab_fgvc_best_variables.npz")]
+    g_data = ["--dataset-dir", str(g_out["dataset"])]
+    return [
+        ("rect", ("rect", train_stage3, [*s3, "--head", "RECT", "--epochs", "2", *s2],
+                  ["stage3_rect"], "stage3_rect_best_variables.npz")),
+        ("rect_noise", ("rect_noise", train_stage3, [*s3, "--head", "RECT", "--epochs", "2", *s2,
+                                       "--noise-ratio", str(H_NOISE_RATIO),
+                                       "--noise-dataset-dir", str(g_out["dataset"])],
+                        ["stage3_rect"], "stage3_rect_best_variables.npz")),
+        ("ab_fgvc", ("ab_fgvc", train_stage3, [*s3, "--head", "AB", "--fgvc", "--epochs", "2", *s2,
+                                    "--batch-size", str(FGVC_BATCH)],
+                     ["stage3_ab_fgvc"], "stage3_ab_fgvc_best_variables.npz")),
+        ("ab_ensemble", ("ab_ensemble", train_stage3, [*s3, "--head", "AB", "--ensemble", str(H_MEMBERS),
+                                        "--epochs", "2", *s2],
+                         [f"stage3_ab_member{i}" for i in range(1, H_MEMBERS + 1)],
+                         "ensemble/ensemble.json")),
+        ("v5_ab", ("v5_ab", train_stage3, [*s3, "--variant", "v5", "--head", "AB", "--epochs", "1"],
+                   ["v5_stage3_AB"], "v5_stage3_AB_best_variables.npz")),
+        ("flat", ("flat", train_stage2_flat, ["--dataset-dir", str(flat), "--freeze-epochs", "1",
+                                      "--epochs", "2"],
+                  ["stage2_flat"], "stage2_flat_best_variables.npz")),
+        ("unified", ("unified", train_unified, [*g_data, "--epochs", "2"], ["unified"],
+                     "unified_best_variables.npz")),
+        ("unified_kd", ("unified_kd", train_unified, [*g_data, "--epochs", "1", "--distill-weight", "0.5",
+                                        *teachers], ["unified"],
+                        "unified_best_variables.npz")),
+    ]
+
+
+def run_h_cli(name: str, module, argv: list, histories: list, export: str, dev) -> dict:
+    """One of path h's training CLIs; returns its histories, output directory
+    and seconds."""
+    out = WORK / "train_h" / name
+    batch = [] if "--batch-size" in argv else ["--batch-size", str(TRAIN_BATCH)]
+    t0 = time.perf_counter()
+    quietly(module.main, [*argv, "--block-size", str(HW), *batch, "--output-dir", str(out),
+                          "--device", dev.type])
+    seconds = time.perf_counter() - t0
+    if not (out / export).exists():
+        raise AssertionError(f"{name}: no {export}")
+    return {"out": out, "seconds": seconds,
+            "histories": {h: json.loads((out / f"{h}_history.json").read_text())
+                          for h in histories}}
+
+
+def report_h_runs(runs: list, smi: str) -> None:
+    """Each trainer's epochs (phase, losses, val macro-F1, seconds,
+    samples/s) and its run line; every loss finite."""
+    for run in runs:
+        best = {}
+        for recipe, history in run["histories"].items():
+            for h in history:
+                emit("train_epoch", path="h_train", run=run["name"], recipe=recipe,
+                     epoch=h["epoch"], train_phase=h.get("phase"),
+                     train_loss=h["train_loss"], val_loss=h["val_loss"],
+                     val_macro_f1=h["val_metrics"]["macro_f1"],
+                     val_accuracy=h["val_metrics"]["accuracy"],
+                     train_seconds=h["train_seconds"], samples_per_s=h["throughput"],
+                     nvidia_smi=smi)
+            losses = [v for h in history for v in (h["train_loss"], h["val_loss"])]
+            if not history or not all(map(math.isfinite, losses)):
+                raise AssertionError(f"{run['name']}: no epoch, or a loss is not finite")
+            best[recipe] = max(h["val_metrics"]["macro_f1"] for h in history)
+        emit("train_run", path="h_train", run=run["name"], seconds=run["seconds"],
+             best_val_macro_f1=best, launches=run["launches"],
+             epochs={k: len(v) for k, v in run["histories"].items()})
+
+
+def _to_device(tree, dev):
+    """Every tensor of a nest of dicts and lists moved to ``dev``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, dev) for v in tree]
+    return tree
+
+
+def check_h_step_parity(runs: dict, g_out: dict, dev) -> None:
+    """One fp32 step of the trained FGVC model (CutMix, the center loss,
+    the clipped AdamW over model and centers) and of the trained unified model
+    with distillation (teacher columns from path g's stage 1 and 2 and this
+    path's RECT and FGVC models), each on the card against the same step on
+    the CPU with the same draws."""
+    val = g_out["val"]
+    samples = val.samples[:STEP_PARITY_ROWS]
+    images = torch.from_numpy(samples).float() / 1023.0
+    fgvc_vars = load_variables_npz(runs["ab_fgvc"]["out"] / "stage3_ab_fgvc_best_variables.npz")
+    ab = np.clip(val.labels["stage3_AB"][:STEP_PARITY_ROWS], 0, None)
+    fgvc_draw = fgvc_draws(torch.Generator().manual_seed(SEED + 11), images)
+
+    def fgvc_step(device):
+        model = load_jax_variables(FGVCModel(), fgvc_vars).to(device).train()
+        centers = nn.Parameter(torch.tensor(fgvc_vars["centers"]["centers"], device=device))
+        opt = TrainOptimizer([("all", [*model.parameters(), centers],
+                               adamw(cosine_schedule(1e-3, 10), grad_clip=1.0))])
+
+        def step():
+            total, _, _, _ = fgvc_loss(model, centers, images.to(device),
+                                       torch.from_numpy(ab).to(device),
+                                       _to_device(fgvc_draw, device), 0.001, 4)
+            opt.zero_grad()
+            total.backward(inputs=opt.params)
+            opt.step()
+            return total.detach()
+
+        return captured_step(model, opt, step)
+
+    def fgvc_loss64(model, device, centers):
+        return fgvc_loss(model, centers, images.to(device).double(),
+                         torch.from_numpy(ab).to(device).long(),
+                         _to_device(fgvc_draw, device), 0.001, 4)[0]
+
+    check_step_pair("h_train", "fgvc", fgvc_step, lambda d, choices: fp64_grads(
+        load_jax_variables(FGVCModel(), fgvc_vars), fgvc_loss64, d, choices,
+        {"centers": torch.from_numpy(fgvc_vars["centers"]["centers"])}), dev)
+
+    teachers = PipelineModels(*(load_model(path, cls) for path, cls in (
+        (g_out["stage1"], Stage1Model), (g_out["stage2"], Stage2Model),
+        (runs["rect"]["out"] / "stage3_rect_best_variables.npz", Stage3RectModel),
+        (runs["ab_fgvc"]["out"] / "stage3_ab_fgvc_best_variables.npz", FGVCModel))))
+    subset = val.take(np.arange(STEP_PARITY_ROWS))
+    packed = pack_unified_labels(subset, compute_teacher_logits(teachers, samples,
+                                                                device="cpu"))
+    uni_vars = load_variables_npz(runs["unified_kd"]["out"] / "unified_best_variables.npz")
+    loss_fn = make_unified_loss(class_counts(val.labels["stage2"], 3),
+                                class_counts(val.labels["stage3_AB"], 4), distill_weight=0.5)
+    noise_draw = draw_pipeline(UNIFIED_NOISE_ONLY, torch.Generator().manual_seed(SEED + 12),
+                               images)
+
+    def unified_step(device):
+        model = load_jax_variables(UnifiedV6Model(), uni_vars).to(device)
+        opt = as_optimizer(model, adamw(cosine_schedule(1e-3, 10)))
+        draws = _to_device(noise_draw, device)
+        cfg = StepConfig(
+            loss_fn=loss_fn, label_key="unified", num_classes=8,
+            augment_labeled=lambda gen, x, y: apply_pipeline(UNIFIED_NOISE_ONLY, x, y, draws),
+            predictions_fn=make_unified_predictions(), metric_labels_fn=unified_metric_labels)
+        step = make_train_step(model, opt, cfg)
+        batch = {"samples": torch.from_numpy(samples).to(device),
+                 "unified": torch.from_numpy(packed).to(device)}
+        return captured_step(model, opt, lambda: step(
+            TrainState(model, opt), batch, torch.Generator(device=device))["loss"])
+
+    def unified_loss64(model, device):
+        x, y = apply_pipeline(UNIFIED_NOISE_ONLY, images.to(device).double(),
+                              torch.from_numpy(packed).to(device).double(),
+                              _to_device(noise_draw, device))
+        return loss_fn(model(x), y)
+
+    check_step_pair("h_train", "unified_distilled", unified_step, lambda d, choices: fp64_grads(
+        load_jax_variables(UnifiedV6Model(), uni_vars), unified_loss64, d, choices), dev)
+
+
+def h_serving_plan(g_out: dict, runs: dict) -> list:
+    """The fully trained ladder (path g's stage 1 and 2, this path's RECT and
+    AB-FGVC) folded in bf16 with each front; the trained unified model folded
+    with each front; the trained AB ensemble on the plain graph."""
+    ladder = ["--stage1-checkpoint", str(g_out["stage1"]),
+              "--stage2-checkpoint", str(g_out["stage2"]),
+              "--stage3-rect-checkpoint",
+              str(runs["rect"]["out"] / "stage3_rect_best_variables.npz")]
+    fgvc = ["--stage3-ab-checkpoint",
+            str(runs["ab_fgvc"]["out"] / "stage3_ab_fgvc_best_variables.npz"), "--ab-fgvc"]
+    unified = ["--variant", "unified", "--folded", "--unified-checkpoint",
+               str(runs["unified"]["out"] / "unified_best_variables.npz")]
+    return [
+        *((f"h_{mode}", (f"h_{mode}", ["--folded", "--fused-front", mode, *ladder, *fgvc]))
+          for mode in ("off", "on", "g1")),
+        *((f"h_unified_{mode}", (f"h_unified_{mode}", [*unified, "--fused-front", mode]))
+          for mode in ("off", "on", "g1")),
+        ("h_ensemble", ("h_ensemble", [*ladder, "--stage3-ab-ensemble-dir",
+                                       str(runs["ab_ensemble"]["out"] / "ensemble")])),
+    ]
+
+
+def check_h_serving(runs: list, n_val: int) -> None:
+    """Each run's outputs; the fronts' labels against their family's ``off``
+    run (at least ``G_FRONT_AGREEMENT``) and K1 / K2 at their expected
+    counts: one launch a batch for each folded stage (the FGVC AB stage has
+    its own unfolded forward, so three stages per-stage; one for unified)."""
+    by_name = {run["name"]: run for run in runs}
+    batches = -(-n_val // BATCH)
+    expect = {"h_on": {"fused_front": 3 * batches}, "h_g1": {"fused_front_g1": 3 * batches},
+              "h_unified_on": {"fused_front": batches},
+              "h_unified_g1": {"fused_front_g1": batches}}
+    for run in runs:
+        base = by_name["h_unified_off" if "unified" in run["name"] else "h_off"]
+        agree = float((run["final"] == base["final"]).mean())
+        emit("end_to_end", path="h_serving", run=run["name"], samples=run["samples"],
+             blocks_per_s=run["blocks_per_s"], launches=run["launches"],
+             expected_launches=expect.get(run["name"], {}), final_agrees_with_off=agree,
+             final_agrees_with_ladder_off=float((run["final"] == by_name["h_off"]["final"])
+                                                .mean()))
+        if (run["samples"] != n_val or not np.isfinite(run["stage1_prob"]).all()
+                or not np.isin(run["final"], np.arange(8)).all()):
+            raise AssertionError(f"{run['name']}: bad outputs")
+        if run["name"] != "h_ensemble" and agree < G_FRONT_AGREEMENT:
+            raise AssertionError(f"{run['name']}: {agree} of the labels equal off's")
+        if run["launches"] != expect.get(run["name"], {}):
+            raise AssertionError(f"{run['name']}: launches {run['launches']}, expected "
+                                 f"{expect.get(run['name'], {})}")
+
+
+H_STEP_BATCHES = {"fgvc": FGVC_BATCH, "unified": TRAIN_BATCH}
+
+
+def h_step_timing(runs: dict, train: Bundle, stage3: Path, dev, smi: str) -> None:
+    """Step ms of the FGVC composite step (batch 128, on the AB train split)
+    and the unified step (batch 256, hard labels), fp32, on the trained
+    exports: CUDA events, each sample the mean of 10 steps, the median of
+    ABBA turns; kernels, host launch calls, device busy ms and idle share per
+    step (``torch.profiler``). Neither may launch a port kernel."""
+    rng = np.random.default_rng(SEED + 13)
+    fgvc_vars = load_variables_npz(runs["ab_fgvc"]["out"] / "stage3_ab_fgvc_best_variables.npz")
+    model = load_jax_variables(FGVCModel(), fgvc_vars).to(dev)
+    centers = nn.Parameter(torch.tensor(fgvc_vars["centers"]["centers"], device=dev))
+    opt = TrainOptimizer([("all", [*model.parameters(), centers],
+                           adamw(cosine_schedule(1e-3, 1000), grad_clip=1.0))])
+    ab = Bundle.load(stage3 / "AB" / f"block_{HW}" / "train.npz")
+    idx = rng.integers(0, len(ab), FGVC_BATCH)
+    fgvc_batch = {"samples": torch.from_numpy(ab.samples[idx]).to(dev),
+                  "stage3_AB": torch.from_numpy(ab.labels["stage3_AB"][idx]).to(dev)}
+    fgvc_step = make_fgvc_train_step(model, opt, centers)
+    fgvc_state = TrainState(model, opt)
+
+    uni_model = load_jax_variables(
+        UnifiedV6Model(), load_variables_npz(runs["unified"]["out"] / "unified_best_variables.npz")
+    ).to(dev)
+    recipe = unified_recipe(class_counts(train.labels["stage2"], 3),
+                            class_counts(train.labels["stage3_AB"], 4))
+    uni_opt = as_optimizer(uni_model, adamw(cosine_schedule(1e-3, 1000)))
+    cfg = StepConfig(loss_fn=recipe.loss_fn, label_key="unified",
+                     augment_labeled=recipe.augment_labeled, num_classes=8,
+                     predictions_fn=recipe.predictions_fn,
+                     metric_labels_fn=recipe.metric_labels_fn)
+    idx = rng.integers(0, len(train), TRAIN_BATCH)
+    uni_batch = {"samples": torch.from_numpy(train.samples[idx]).to(dev),
+                 "unified": torch.from_numpy(pack_unified_labels(train.take(idx))).to(dev)}
+    uni_step = make_train_step(uni_model, uni_opt, cfg)
+    uni_state = TrainState(uni_model, uni_opt)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    fns = {"fgvc": lambda: fgvc_step(fgvc_state, fgvc_batch, gen),
+           "unified": lambda: uni_step(uni_state, uni_batch, gen)}
+    for fn in fns.values():
+        for _ in range(3):
+            fn()
+    samples_ms = {name: [] for name in fns}
+    for name in ["fgvc", "unified", "unified", "fgvc"]:
+        samples_ms[name].append(time_ms(fns[name], iters=10, warmup=1))
+    for name, fn in fns.items():
+        trace = trace_calls(fn)
+        ms, busy = float(np.median(samples_ms[name])), trace["device_busy_ms"]
+        launched = launched_by(fn)
+        emit("train_step", path="h_train", model=name, batch=H_STEP_BATCHES[name],
+             dtype="fp32", step_ms=ms, samples_ms=samples_ms[name],
+             samples_per_s=H_STEP_BATCHES[name] / ms * 1e3, kernels_per_step=trace["kernels"],
+             host_launch_calls_per_step=trace["host_launch_calls"], device_busy_ms=busy,
+             idle_share=None if busy is None else max(0.0, 1.0 - busy / ms),
+             port_kernels_per_step=launched, nvidia_smi=smi)
+        if launched:
+            raise AssertionError(f"the {name} train step launched a port kernel")
+
+
+def run_path_h(g_out: dict, dev, smi: str) -> dict:
+    """Path h: ``prepare_stage3`` on path g's corpus, then every stage-3,
+    flatten and unified trainer through its CLI, which must launch none of
+    K1-K5; one FGVC and one distilled unified step on the card against the
+    CPU; then the fully trained ladder, the unified model and the ensemble
+    served (K1, K2). Returns the serving runs' launches."""
+    t0 = time.perf_counter()
+    stage3 = WORK / "stage3_dataset"
+    corpus_val, corpus_train = g_out["val"], Bundle.load(
+        g_out["dataset"] / f"block_{HW}" / "train.npz")
+    flat = save_split(WORK / "flat_dataset", HW, *(
+        build_flatten_bundle(BlockSet(samples=b.samples, labels=b.labels["stage0"], qps=b.qps))
+        for b in (corpus_train, corpus_val)), "flatten").parent
+    _, prep_launches = drive("h_prepare", [("prepare_stage3", None)], lambda _: {
+        "printed": quietly(prepare_stage3.main, [
+            "--dataset-dir", str(g_out["dataset"]), "--out", str(stage3),
+            "--block-size", str(HW), "--ensemble-members", str(H_MEMBERS)])})
+    meta = {head: json.loads((stage3 / head / f"block_{HW}" / "metadata.json").read_text())
+            for head in ("RECT", "AB")}
+    ab_train = Bundle.load(stage3 / "AB" / f"block_{HW}" / "train.npz")
+    emit("h_setup", seconds=time.perf_counter() - t0, stage3=meta,
+         ab_oversampled_train=len(ab_train),
+         ab_members=sorted(p.name for p in (stage3 / "AB" / f"block_{HW}").glob("train_v*")),
+         flatten_counts=class_counts(Bundle.load(flat / f"block_{HW}" / "train.npz")
+                                     .labels["flatten"], 7))
+    if len(ab_train) <= meta["AB"]["train"] or any(prep_launches.values()):
+        raise AssertionError("prepare_stage3: AB not oversampled, or a kernel launched")
+
+    runs, launches = drive("h_train", h_train_plan(g_out, stage3, flat),
+                           lambda arg: run_h_cli(*arg, dev))
+    report_h_runs(runs, smi)
+    if any(launches.values()):
+        raise AssertionError(f"training launched port kernels: {launches}")
+    by_name = {run["name"]: run for run in runs}
+    rect_phases = [h["phase"] for h in by_name["rect"]["histories"]["stage3_rect"]]
+    if rect_phases != ["frozen"] * 5 + ["unfrozen"]:  # --epochs 2: 5 frozen, 1 unfrozen
+        raise AssertionError(f"RECT phases {rect_phases}")
+    check_h_step_parity(by_name, g_out, dev)
+    serving, serving_launches = drive("h_serving", h_serving_plan(g_out, by_name),
+                                      lambda arg: run_cli(g_out["dataset"], *arg, dev))
+    check_h_serving(serving, len(g_out["val"]))
+    h_step_timing(by_name, corpus_train, stage3, dev, smi)
+    emit("h_done", seconds=time.perf_counter() - t0)
     return serving_launches
 
 
@@ -2530,11 +3068,14 @@ def main() -> int:
         models, ckpts, dataset, next(run for run in cli_runs if run["name"] == "on"), dev)
 
     # path g: training on the card, then the trained checkpoints served
-    g_launches = run_path_g(ckpts, dev, smi)
+    g_launches, g_out = run_path_g(ckpts, dev, smi)
+
+    # path h: the rest of training on path g's corpus, then the trained ladder served
+    h_launches = run_path_h(g_out, dev, smi)
 
     launches = {k: cli_launches[k] + k5_launches[k] + api_launches[k] + tree_launches[k]
                 + serving_launches[k] + int8_launches[k] + f_launches[k] + pt_launches[k]
-                + g_launches[k] for k in _build.KERNELS}
+                + g_launches[k] + h_launches[k] for k in _build.KERNELS}
     for name in KERNELS:
         if launches[name] == 0:
             raise AssertionError(f"{name} was never launched by a main path")

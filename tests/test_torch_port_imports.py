@@ -66,7 +66,9 @@ def test_fresh_interpreter_imports_the_port_without_jax_or_av1tpu():
                    "cli.analyze_confusion", "cli.certify_serving", "quant.ptq",
                    "models.jax_import", "data.sampling", "data.synth", "data.records",
                    "train.losses", "train.schedules", "train.trainer", "train.checkpoint",
-                   "train.stages", "cli.train_stage1", "cli.train_stage2"):
+                   "train.stages", "cli.train_stage1", "cli.train_stage2", "data.noise",
+                   "train.fgvc_step", "train.unified", "cli.prepare_stage3",
+                   "cli.train_stage3", "cli.train_stage2_flat", "cli.train_unified"):
         assert f"av1tpu_torch.{module}" in report["imported"]
     assert report["bad"] == []
 
@@ -203,13 +205,24 @@ def test_entry_points_default_to_the_card(fn):
 
 
 def test_training_entry_points_default_to_the_card():
-    from av1tpu_torch.cli import train_stage1, train_stage2
+    from av1tpu_torch.cli import (
+        train_stage1,
+        train_stage2,
+        train_stage2_flat,
+        train_stage3,
+        train_unified,
+    )
     from av1tpu_torch.cli.common import add_common_train_args
+    from av1tpu_torch.train.fgvc_step import create_fgvc_state
     from av1tpu_torch.train.stages import filter_through_stage1, train_stage
+    from av1tpu_torch.train.unified import compute_teacher_logits
     import argparse
 
-    for fn in (train_stage, filter_through_stage1):
+    for fn in (train_stage, filter_through_stage1, create_fgvc_state, compute_teacher_logits):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+    for cli in (train_stage3, train_stage2_flat, train_unified):
+        assert "add_common_train_args(parser)" in inspect.getsource(cli.main)
+        assert "check_train_args(parser, args)" in inspect.getsource(cli.main)
     parser = argparse.ArgumentParser()
     add_common_train_args(parser)
     assert parser.parse_args(["--dataset-dir", "d", "--output-dir", "o"]).device == "cuda"
