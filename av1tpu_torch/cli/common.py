@@ -1,6 +1,7 @@
 """Shared CLI plumbing: dataset splits, checkpoint and model loading (npz
 or a reference ``.pt``), one model's outputs over a split, the int8
-calibration subsample, and the trainers' common flags and outputs.
+calibration subsample, the trainers' common flags and outputs, and the
+PNGs that are skipped where matplotlib is not installed.
 
 Dataset bundles are ``av1tpu_torch.data.bundles``, the port's own copy of
 the JAX package's format (same npz keys and ``metadata.json``)."""
@@ -18,6 +19,7 @@ from torch import nn
 from av1tpu_torch.data.bundles import Bundle
 from av1tpu_torch.data.records import NORM_10BIT
 from av1tpu_torch.eval.hierarchy import on_device, run_pipeline_batched
+from av1tpu_torch.eval.plots import plot_training_curves
 from av1tpu_torch.models.jax_import import load_jax_variables
 from av1tpu_torch.models.torch_import import import_any, load_torch_checkpoint
 from av1tpu_torch.train.checkpoint import load_variables_npz, save_variables_npz
@@ -131,12 +133,27 @@ def export_best(result, model_name: str, output_dir: Path) -> Optional[Path]:
                               variables_of(result.best_state.model), compress=False)
 
 
+def save_plot(draw: Callable[[Path], Any], path: Path) -> None:
+    """``draw(path)`` writes a PNG (a function of ``eval.plots``). Where
+    matplotlib does not import, print one line saying so and go on: the
+    CLIs that draw serve and train without it."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        print(f"{path.name} not written: matplotlib is not installed")
+        return
+    draw(path)
+
+
 def write_history(result, output_dir: Path, name: str) -> None:
-    """``<name>_history.json`` and ``<name>_summary.json``, as the JAX CLIs
-    write them (the curves PNG waits for the plots, ROADMAP M12)."""
+    """``<name>_history.json``, ``<name>_training_curves.png`` and
+    ``<name>_summary.json``, as the JAX CLIs write them."""
     out = Path(output_dir)
     out.mkdir(parents=True, exist_ok=True)
     result.save_history(out / f"{name}_history.json")
+    if result.history:
+        save_plot(lambda path: plot_training_curves(result.history, path),
+                  out / f"{name}_training_curves.png")
     (out / f"{name}_summary.json").write_text(json.dumps({
         "best_value": result.best_value,
         "epochs": len(result.history),
@@ -145,5 +162,5 @@ def write_history(result, output_dir: Path, name: str) -> None:
 
 
 __all__ = ["add_common_train_args", "check_train_args", "export_best", "load_model",
-           "load_model_variables", "load_split", "model_outputs",
+           "load_model_variables", "load_split", "model_outputs", "save_plot",
            "train_calibration_blocks", "write_history"]

@@ -11,7 +11,8 @@ port): v6, unified, v5 and flatten.
         --output-dir runs/pipeline_eval
 
 Writes the files of ``av1tpu.cli.run_pipeline_eval`` (metrics JSON,
-predictions npz, optional CSV, text report) except the confusion PNG.
+predictions npz, optional CSV, confusion PNG, text report); where matplotlib
+is not installed it prints that the PNG was not written and goes on.
 ``--variant unified --unified-checkpoint ...`` serves the single-trunk
 family; ``--tta``, ``--stage3-ab-ensemble-dir`` and ``--capacity`` (a float
 or ``auto`` with ``--calibration-dir``) select the plain graph's options and
@@ -49,6 +50,7 @@ from av1tpu_torch.cli.common import (
     load_model,
     load_model_variables,
     load_split,
+    save_plot,
     train_calibration_blocks,
 )
 from av1tpu_torch.eval import (
@@ -72,6 +74,7 @@ from av1tpu_torch.eval import (
     write_text_report,
 )
 from av1tpu_torch.eval.html_report import load_sweep
+from av1tpu_torch.eval.plots import plot_confusion_matrix
 from av1tpu_torch.models import (
     FGVCModel,
     HierarchicalModel,
@@ -400,6 +403,10 @@ def main(argv=None) -> None:
             for i in range(len(final))
         ]
         write_predictions_csv(out_dir / f"pipeline_predictions_{args.split}.csv", rows)
+    save_plot(lambda path: plot_confusion_matrix(
+        np.asarray(metrics["confusion_matrix"]), class_names, path,
+        title=f"{args.variant} pipeline ({args.split})"),
+        out_dir / f"pipeline_confusion_{args.split}.png")
     summary = {
         "accuracy": metrics["accuracy"],
         "macro_f1": metrics["macro_f1"],

@@ -7,7 +7,9 @@
         --stage1-checkpoint runs/stage1/stage1_best_variables.npz \
         [--scratch | --use-adapters | --pipeline-aware]
 
-Trains on the card (``--device cpu`` on the CPU).
+Trains on the card (``--device cpu`` on the CPU). ``--use-adapters
+--stage1-checkpoint`` seeds the adapter model's ``backbone_<x>`` trunk from
+stage 1's ``backbone/<x>``, which the JAX CLI does not (``seed_from_stage1``).
 """
 from __future__ import annotations
 
@@ -29,7 +31,11 @@ from av1tpu_torch.cli.common import (
 from av1tpu_torch.data.bundles import class_counts, filter_stage2_v6
 from av1tpu_torch.models import Stage1Model, load_jax_variables
 from av1tpu_torch.models.layers import init_like_flax
-from av1tpu_torch.train.checkpoint import transplant_backbone, tree_shapes
+from av1tpu_torch.train.checkpoint import (
+    transplant_backbone,
+    transplant_flat_backbone,
+    tree_shapes,
+)
 from av1tpu_torch.train.stages import (
     filter_through_stage1,
     stage2_recipe,
@@ -37,6 +43,43 @@ from av1tpu_torch.train.stages import (
     v5_stage2_recipe,
     variables_of,
 )
+
+
+def seed_from_stage1(fresh: dict, stage1_vars: dict, variant: str):
+    """The init ``(params, batch_stats)`` of stage 2 from a fresh model's
+    variables and stage 1's (None, None where nothing can be seeded).
+
+    v5 takes stage 1's full state where the shapes match (010:111-115). v6
+    takes stage 1's backbone (reference 004:327-349): under ``backbone``, or,
+    for the adapter model, whose trunk is ``backbone_<x>``, stage 1's
+    ``backbone/<x>`` onto ``backbone_<x>``. The JAX CLI transplants under
+    ``backbone`` there too, a key the adapter model never reads, and trains
+    the adapters over a random frozen trunk; the reference loads the stage-1
+    backbone (SURVEY.md §1), and so does this port."""
+    if variant == "v5":
+        init_params, init_stats = fresh["params"], fresh["batch_stats"]
+        for col, src in ((init_params, stage1_vars.get("params", {})),
+                         (init_stats, stage1_vars.get("batch_stats", {}))):
+            for k in list(col):
+                if k in src and tree_shapes(src[k]) == tree_shapes(col[k]):
+                    col[k] = src[k]
+        print("seeded full v5 state from stage-1 checkpoint (010:111-115)")
+        return init_params, init_stats
+    flat = "backbone" not in fresh["params"]
+    transplant = transplant_flat_backbone if flat else transplant_backbone
+    try:
+        init_params = transplant(fresh["params"], stage1_vars["params"], prefix="backbone")
+        init_stats = transplant(fresh["batch_stats"], stage1_vars.get("batch_stats", {}),
+                                prefix="backbone")
+    except (KeyError, ValueError) as exc:
+        print(f"backbone transplant skipped: {exc}")
+        return None, None
+    if flat:
+        names = sorted(f"backbone_{x}" for x in stage1_vars["params"]["backbone"])
+        print(f"seeded {', '.join(names)} from stage-1 checkpoint's backbone/<x>")
+    else:
+        print("seeded backbone from stage-1 checkpoint")
+    return init_params, init_stats
 
 
 def main(argv=None) -> None:
@@ -96,31 +139,7 @@ def main(argv=None) -> None:
     if stage1_vars is not None:
         fresh = variables_of(init_like_flax(recipe.model(),
                                             torch.Generator().manual_seed(args.seed)))
-        if args.variant == "v5":
-            # v5 010:111-115 loads the FULL stage-1 state (strict=False): the
-            # backbone and the trained stage1_head carry into the shared model
-            init_params, init_stats = fresh["params"], fresh["batch_stats"]
-            for col, src in ((init_params, stage1_vars.get("params", {})),
-                             (init_stats, stage1_vars.get("batch_stats", {}))):
-                for k in list(col):
-                    if k in src and tree_shapes(src[k]) == tree_shapes(col[k]):
-                        col[k] = src[k]
-            print("seeded full v5 state from stage-1 checkpoint (010:111-115)")
-        elif "backbone" not in fresh["params"]:
-            # the adapter model's trunk is backbone_*: the JAX CLI transplants
-            # the stage-1 backbone under a key that model never reads
-            print("backbone transplant skipped: the model has no 'backbone' subtree")
-        else:
-            # seed the backbone from stage 1 (reference 004:327-349)
-            try:
-                init_params = transplant_backbone(fresh["params"], stage1_vars["params"],
-                                                  prefix="backbone")
-                init_stats = transplant_backbone(fresh["batch_stats"],
-                                                 stage1_vars.get("batch_stats", {}),
-                                                 prefix="backbone")
-                print("seeded backbone from stage-1 checkpoint")
-            except (KeyError, ValueError) as exc:
-                print(f"backbone transplant skipped: {exc}")
+        init_params, init_stats = seed_from_stage1(fresh, stage1_vars, args.variant)
 
     result = train_stage(recipe, train_b, val_b, seed=args.seed, init_params=init_params,
                          init_batch_stats=init_stats, checkpoint_dir=args.output_dir,

@@ -125,6 +125,26 @@ def transplant_backbone(target_params: Dict, source_params: Dict,
     return target
 
 
+def transplant_flat_backbone(target_params: Dict, source_params: Dict,
+                             prefix: str = "backbone") -> Dict:
+    """Copy the ``prefix`` subtree of a JAX variable tree onto a tree that
+    names the same modules ``<prefix>_<x>`` at its top level (the adapter
+    model's trunk: ``backbone_conv1``, ``backbone_layer1_0``, ...): each
+    ``source[prefix][x]`` replaces ``target[f"{prefix}_{x}"]``, whose shapes
+    must match; the other subtrees stay."""
+    target = copy.deepcopy(dict(target_params))
+    if prefix not in source_params:
+        raise KeyError(f"source has no '{prefix}' subtree")
+    for name, src in source_params[prefix].items():
+        key = f"{prefix}_{name}"
+        if key not in target:
+            raise KeyError(f"target has no '{key}' subtree for source '{prefix}/{name}'")
+        if tree_shapes(src) != tree_shapes(target[key]):
+            raise ValueError(f"'{prefix}/{name}' and '{key}' differ in shape")
+        target[key] = copy.deepcopy(src)
+    return target
+
+
 def merge_v5_pipeline_variables(stage2_vars: Dict[str, Any],
                                 specialist_vars: Dict[str, Dict[str, Any]]) -> Dict[str, Any]:
     """The merged v5 multi-head eval checkpoint (013_run_pipeline_eval.py:
@@ -180,4 +200,4 @@ def load_variables_npz(path: Path) -> Dict[str, Any]:
 
 __all__ = ["load_variables_npz", "merge_v5_pipeline_variables", "restore_checkpoint",
            "save_checkpoint", "save_variables_npz", "states_equal", "transplant_backbone",
-           "tree_shapes"]
+           "transplant_flat_backbone", "tree_shapes"]

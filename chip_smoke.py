@@ -137,6 +137,27 @@ Run from the root of a checkout. Phases, one JSON line each:
           ``--stage3-ab-ensemble-dir``; then the step ms, kernels, host launch
           calls, busy ms and idle share of the FGVC step at batch 128 and the
           unified step at 256;
+       i. the data layer on the card's machine, inside the port's
+          ``utils.profiling.trace`` (a ``torch.profiler`` trace of the path,
+          then ``device_memory_stats()``): six 1920x1080 frames rendered
+          by ``synth_tree.render_superblocks`` from ``sample_trees`` (one tree
+          per 64 px superblock) written as a yuv420p10le clip, with one
+          ``partition_frame_<n>.txt`` dump per frame naming every reached
+          node of its trees at 64/32/16/8 px that lies inside the frame (its
+          mode, a QP drawn per block); ``make -C native`` builds the C++
+          reader (a failed build fails the path); the port's ``prepare_data
+          --formats reference npz`` once with the native reader and once
+          with numpy: byte-equal outputs (npz by members), blocks per size
+          equal to the trees' in-frame nodes; ``prepare_dataset --variant v6
+          --block-size 64 32 16 8`` from the reference layout and from the
+          npz: equal bundles; then ``run_pipeline_eval --variant v6 --folded
+          --batch-size 4096 --fused-front off|on|g1`` on the 16 and 8 px
+          datasets with path d's models of that size, bf16 (after a warm-up)
+          and fp32 (K1, K2 at both sizes): an fp32 front's labels equal the
+          fp32 ``off`` run's on 99.9%, a bf16 front's agree with the fp32
+          ``off`` run's at least as well as the bf16 ``off`` run's do (less
+          three standard errors), each beside path a's agreement of ``on``
+          and ``g1`` with ``off``;
      each run prints blocks/s (or frames/s and superblocks/s), its launches,
      and its agreement with its path's ``off`` run;
   6. predict: the CUDA-event time of one 4,096-block bf16 predict on a
@@ -176,13 +197,16 @@ import itertools
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
 import types
+import zipfile
 from dataclasses import replace
 from pathlib import Path
 from typing import Callable, NamedTuple, Optional
+from unittest import mock
 
 import numpy as np
 import torch
@@ -199,6 +223,8 @@ from av1tpu_torch.cli import (  # noqa: E402
     compare_thresholds,
     optimize_thresholds,
     predict_trees,
+    prepare_data,
+    prepare_dataset,
     prepare_stage3,
     run_pipeline_eval,
     train_stage1,
@@ -207,8 +233,8 @@ from av1tpu_torch.cli import (  # noqa: E402
     train_stage3,
     train_unified,
 )
-from av1tpu_torch.codec.partitions import map_to_stage2_v6  # noqa: E402
-from av1tpu_torch.codec.tree import LEVEL_SIZES, NODES_PER_LEVEL  # noqa: E402
+from av1tpu_torch.codec.partitions import BSIZE_INDEX_TO_PIXELS, map_to_stage2_v6  # noqa: E402
+from av1tpu_torch.codec.tree import LEVEL_OFFSETS, LEVEL_SIZES, NODES_PER_LEVEL  # noqa: E402
 from av1tpu_torch.data.bundles import (  # noqa: E402
     Bundle,
     build_flatten_bundle,
@@ -218,6 +244,11 @@ from av1tpu_torch.data.bundles import (  # noqa: E402
 )
 from av1tpu_torch.data.records import BlockSet  # noqa: E402
 from av1tpu_torch.data.synth import reference_shaped_corpus  # noqa: E402
+from av1tpu_torch.data.synth_tree import (  # noqa: E402
+    _node_origin,
+    render_superblocks,
+    sample_trees,
+)
 from av1tpu_torch.eval import (  # noqa: E402
     PipelineModels,
     make_flatten_pipeline,
@@ -239,6 +270,8 @@ from av1tpu_torch.eval import (  # noqa: E402
 from av1tpu_torch.eval.ensemble import _stacking_features, _stacking_objective  # noqa: E402
 from av1tpu_torch.ingest import (  # noqa: E402
     Yuv420p10Geometry,
+    etl,
+    native,
     read_y_frames_batch,
     tile_frames,
 )
@@ -304,6 +337,7 @@ from av1tpu_torch.train.trainer import (  # noqa: E402
     run_train_epoch_resident,
     to_device,
 )
+from av1tpu_torch.utils import profiling  # noqa: E402
 from av1tpu_torch.train.unified import (  # noqa: E402
     UNIFIED_NOISE_ONLY,
     compute_teacher_logits,
@@ -815,11 +849,13 @@ def quietly(main: Callable, argv: list) -> str:
     return printed.getvalue()
 
 
-def run_cli(dataset: Path, name: str, args: list, dev, bf16: bool = True) -> dict:
-    """The port's ``run_pipeline_eval`` on path a's dataset, bf16 (or fp32),
-    batch 4096, with ``args`` (variant, serving options, checkpoints)."""
+def run_cli(dataset: Path, name: str, args: list, dev, bf16: bool = True,
+            block_size: int = HW) -> dict:
+    """The port's ``run_pipeline_eval`` on path a's dataset (or another at
+    ``block_size``), bf16 (or fp32), batch 4096, with ``args`` (variant,
+    serving options, checkpoints)."""
     out = WORK / "runs" / name
-    argv = ["--dataset-dir", str(dataset), "--block-size", str(HW),
+    argv = ["--dataset-dir", str(dataset), "--block-size", str(block_size),
             "--output-dir", str(out), "--batch-size", str(BATCH),
             "--stage1-threshold", str(THRESHOLD), *(["--bf16"] if bf16 else []),
             "--device", dev.type, *args]
@@ -1129,14 +1165,7 @@ def write_clip() -> Path:
     """Eight structured 1080p frames as a yuv420p10le file (about 50 MB)."""
     f, h, w = CLIP
     luma = structured_luma(np.random.default_rng(SEED + 4), (f, -(-h // 16) * 16, w))[:, :h]
-    path = WORK / f"clip_{w}x{h}_30.yuv"
-    path.parent.mkdir(parents=True, exist_ok=True)
-    chroma = np.full(2 * (h // 2) * (w // 2), 512, "<u2").tobytes()
-    with open(path, "wb") as out:
-        for plane in luma:
-            out.write(plane.astype("<u2").tobytes())
-            out.write(chroma)
-    return path
+    return write_yuv(WORK / f"clip_{w}x{h}_30.yuv", luma)
 
 
 def write_cascade_checkpoints(models: dict) -> dict:
@@ -2588,6 +2617,251 @@ def run_path_h(g_out: dict, dev, smi: str) -> dict:
     return serving_launches
 
 
+# ---------------------------------------------------------------------------
+# Path i: a raw clip -> prepare_data -> prepare_dataset -> K1 / K2 serving
+# ---------------------------------------------------------------------------
+
+I_CLIP = (6, 1080, 1920)  # frames, height, width: 1080p luma, the size users encode
+I_SIZES = (16, 8)         # the levels served: the sizes K1 and K2 take
+I_QP_RANGE = (60, 140)    # a QP drawn per dumped block
+I_FP32_AGREEMENT = 0.999  # least share of an fp32 front's labels equal to fp32 off's
+DUMP_BSIZE = {px: index for index, px in BSIZE_INDEX_TO_PIXELS.items()}
+
+
+def write_yuv(path: Path, luma: np.ndarray) -> Path:
+    """``(F, H, W)`` uint16 luma as a yuv420p10le file, chroma flat at 512."""
+    _, h, w = luma.shape
+    path.parent.mkdir(parents=True, exist_ok=True)
+    chroma = np.full(2 * ((h + 1) // 2) * ((w + 1) // 2), 512, "<u2").tobytes()
+    with open(path, "wb") as out:
+        for plane in luma:
+            out.write(plane.astype("<u2").tobytes())
+            out.write(chroma)
+    return path
+
+
+def tree_clip(root: Path, clip: tuple, seed: int) -> dict:
+    """A yuv420p10le clip rendered from partition trees, and its encoder dumps.
+
+    One tree per 64 px superblock (``synth_tree.sample_trees``), rendered by
+    ``render_superblocks``; the frames hold the superblocks in raster order,
+    cropped to ``clip``'s height and width. ``partition_frame_<n>.txt`` names
+    every reached node of frame n's trees that lies inside the frame, in the
+    dump's seven fields (order hint, frame type 0, block-size index, row and
+    column in 4 px units, the node's mode, a QP drawn per block), each size in
+    raster order. Returns the clip, the dump directory, the trees and the
+    in-frame nodes per size."""
+    frames, h, w = clip
+    rows, cols = -(-h // 64), -(-w // 64)
+    rng = np.random.default_rng(seed)
+    trees = sample_trees(frames * rows * cols, rng)
+    sbs = render_superblocks(trees, rng)[..., 0]
+    luma = (sbs.reshape(frames, rows, cols, 64, 64).transpose(0, 1, 3, 2, 4)
+            .reshape(frames, rows * 64, cols * 64)[:, :h, :w])
+    yuv = write_yuv(root / f"clip_{w}x{h}_30.yuv", luma)
+    dumps = root / "dumps"
+    dumps.mkdir(parents=True, exist_ok=True)
+    sb_row = np.repeat(np.arange(rows), cols)[:, None] * 64
+    sb_col = np.tile(np.arange(cols), rows)[:, None] * 64
+    nodes_in_frame = dict.fromkeys(LEVEL_SIZES, 0)
+    for f, frame_trees in enumerate(trees.reshape(frames, rows * cols, -1)):
+        lines = []
+        for level, (size, nodes, off) in enumerate(
+                zip(LEVEL_SIZES, NODES_PER_LEVEL, LEVEL_OFFSETS)):
+            origin = np.array([_node_origin(level, j) for j in range(nodes)])
+            r, c = sb_row + origin[:, 0], sb_col + origin[:, 1]
+            modes = frame_trees[:, off:off + nodes]
+            keep = (modes >= 0) & (r + size <= h) & (c + size <= w)
+            order = np.lexsort((c[keep], r[keep]))
+            r, c, modes = r[keep][order], c[keep][order], modes[keep][order]
+            qps = rng.integers(*I_QP_RANGE, len(modes))
+            lines += [f"{f} 0 {DUMP_BSIZE[size]} {a // 4} {b // 4} {m} {q}"
+                      for a, b, m, q in zip(r, c, modes, qps)]
+            nodes_in_frame[size] += len(modes)
+        (dumps / f"partition_frame_{f}.txt").write_text("\n".join(lines) + "\n")
+    return {"yuv": yuv, "dumps": dumps, "trees": trees, "nodes": nodes_in_frame}
+
+
+def differing_files(a: Path, b: Path) -> list:
+    """The files under ``a`` and ``b`` that differ: by bytes, an npz or an
+    xlsx workbook by its members (zip headers hold the time of writing); a
+    file on one side only counts too."""
+    files = {side: sorted(str(f.relative_to(side)) for f in side.rglob("*") if f.is_file())
+             for side in (a, b)}
+    differ = sorted(set(files[a]) ^ set(files[b]))
+    for name in sorted(set(files[a]) & set(files[b])):
+        if name.endswith((".npz", ".xlsx")):
+            with zipfile.ZipFile(a / name) as za, zipfile.ZipFile(b / name) as zb:
+                same = (za.namelist() == zb.namelist()
+                        and all(za.read(m) == zb.read(m) for m in za.namelist()))
+        else:
+            same = (a / name).read_bytes() == (b / name).read_bytes()
+        if not same:
+            differ.append(name)
+    return differ
+
+
+@contextlib.contextmanager
+def counted(module, name: str):
+    """Count the calls of ``module.name`` inside the block."""
+    real, calls = getattr(module, name), []
+
+    def wrapper(*args, **kwargs):
+        calls.append(None)
+        return real(*args, **kwargs)
+
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def run_prepare_data(raw: dict, out: Path, use_native: bool) -> dict:
+    """The port's ``prepare_data --formats reference npz`` on the clip, its
+    frames read by the native reader or (``use_native`` off) by numpy, one
+    frame at a time; the reader that ran is counted."""
+    argv = ["--yuv", str(raw["yuv"]), "--dumps", str(raw["dumps"]), "--out", str(out),
+            "--formats", "reference", "npz"]
+    with contextlib.ExitStack() as stack:
+        if not use_native:
+            stack.enter_context(mock.patch.object(etl, "native_available", lambda: False))
+        reads = stack.enter_context(counted(etl, "read_y_frames" if use_native
+                                            else "read_y_frame"))
+        t0 = time.perf_counter()
+        quietly(prepare_data.main, argv)
+        seconds = time.perf_counter() - t0
+    report = json.loads((out / f"{raw['yuv'].stem}_etl_report.json").read_text())
+    return {"seconds": seconds, "reads": len(reads), "report": report}
+
+
+def i_serving_plan(dataset: Path, tree_dirs: dict) -> list:
+    """``run_pipeline_eval --variant v6 --folded --fused-front off|on|g1`` at
+    each of ``I_SIZES`` with path d's models of that size, in bf16 (after a
+    warm-up) and in fp32."""
+    plan = []
+    for size in I_SIZES:
+        ckpts = {name: tree_dirs[size] / f"{stem}_best_variables.npz"
+                 for name, stem in STAGE_CKPT.items()}
+        for precision, modes in (("bf16", ("off_warmup", "off", "on", "g1")),
+                                 ("fp32", ("off", "on", "g1"))):
+            for mode in modes:
+                name = f"{size}px_{precision}_{mode}"
+                plan.append((name, (dataset, f"i_{name}", [
+                    "--folded", "--fused-front", mode.split("_")[0], *v6_checkpoints(ckpts)],
+                    precision == "bf16", size)))
+    return plan
+
+
+def check_i_serving(runs: list, n_val: dict, path_a_agreement: float) -> None:
+    """Each run's labels, probabilities and kernels (K1 for ``on``, K2 for
+    ``g1``, at each size). Against the fp32 ``off`` run of its size: an fp32
+    front's labels equal on ``I_FP32_AGREEMENT`` (the fp32 kernels are the
+    plain graph within rounding); a bf16 front's labels equal on at least the
+    share the bf16 ``off`` run's do, less three binomial standard errors (the
+    front adds no error beyond bf16's own). Each run's agreement with the
+    ``off`` run of its precision is emitted beside path a's."""
+    by_name = {run["name"]: run for run in runs}
+    for run in runs:
+        size, precision, mode = run["name"].split("_", 2)
+        n = n_val[int(size[:-2])]
+        ref = by_name[f"{size}_fp32_off"]["final"]
+        agree = {"off": float((run["final"] == by_name[f"{size}_{precision}_off"]["final"])
+                              .mean()),
+                 "fp32_off": float((run["final"] == ref).mean())}
+        bf16_off = float((by_name[f"{size}_bf16_off"]["final"] == ref).mean())
+        bound = (I_FP32_AGREEMENT if precision == "fp32"
+                 else bf16_off - 3 * math.sqrt(max(bf16_off * (1 - bf16_off), 1 / n) / n))
+        finite = bool(np.isfinite(run["stage1_prob"]).all())
+        emit("end_to_end", path="i_serving", run=run["name"], samples=run["samples"],
+             blocks_per_s=run["blocks_per_s"], launches=run["launches"],
+             final_agrees_with_off=agree["off"], final_agrees_with_fp32_off=agree["fp32_off"],
+             least_agreement_with_fp32_off=bound, path_a_agreement=path_a_agreement,
+             classes=int(len(np.unique(run["final"]))), finite=finite)
+        if run["samples"] != n or len(run["final"]) != n or not finite:
+            raise AssertionError(f"path i {run['name']}: bad outputs")
+        if not np.isin(run["final"], np.arange(8)).all() or len(np.unique(run["final"])) < 2:
+            raise AssertionError(f"path i {run['name']}: labels outside 0..7 or constant")
+        for kernel in FRONT_KERNELS.get(mode, []):
+            if run["launches"].get(kernel, 0) == 0:
+                raise AssertionError(f"path i {run['name']}: {kernel} never launched")
+        if agree["fp32_off"] < bound:
+            raise AssertionError(f"path i {run['name']}: {agree['fp32_off']:.5f} of the "
+                                 f"labels equal fp32 off's, below {bound:.5f}")
+
+
+def run_path_i(tree_dirs: dict, path_a_agreement: float, dev) -> dict:
+    """Path i, inside ``utils.profiling.trace``: a 1080p clip rendered from
+    partition trees and its dumps; the native library built with ``make``;
+    ``prepare_data --formats reference npz`` with the native reader and with
+    numpy (byte-equal outputs; blocks per size equal to the trees' in-frame
+    nodes); ``prepare_dataset --variant v6 --block-size 64 32 16 8`` from the
+    reference layout and from the npz (equal bundles); then the 16 and 8 px
+    datasets served on the card with fronts off / on / g1 (K1, K2), bf16 and
+    fp32. Returns the serving runs' launches."""
+    root = WORK / "path_i"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    with profiling.trace(root / "trace", "path_i") as prof:
+        raw = tree_clip(root / "raw", I_CLIP, SEED + 9)
+        t_clip = time.perf_counter() - t0
+        make = subprocess.run(["make", "-B", "-C", str(ROOT / "native")],
+                              capture_output=True, text=True)
+        if make.returncode != 0 or not native.native_available():
+            raise AssertionError(f"make -C native failed: {make.stderr[-2000:]}")
+        etl_runs = {name: run_prepare_data(raw, root / name, use_native)
+                    for name, use_native in (("native", True), ("numpy", False))}
+        differ = differing_files(root / "native", root / "numpy")
+        blocks = {int(k): v for k, v in etl_runs["native"]["report"]["blocks_per_size"].items()}
+        emit("i_etl", clip=list(I_CLIP), clip_bytes=raw["yuv"].stat().st_size,
+             clip_seconds=t_clip, nodes_in_frame=raw["nodes"], blocks_per_size=blocks,
+             **{f"{name}_seconds": run["seconds"] for name, run in etl_runs.items()},
+             **{f"{name}_reads": run["reads"] for name, run in etl_runs.items()},
+             differing_files=differ, warnings=etl_runs["native"]["report"]["warnings"])
+        if differ:
+            raise AssertionError(f"path i: native and numpy ETL outputs differ: {differ}")
+        if blocks != raw["nodes"]:
+            raise AssertionError(f"path i: blocks per size {blocks}, trees {raw['nodes']}")
+        if etl_runs["native"]["reads"] != 1 or etl_runs["numpy"]["reads"] != I_CLIP[0]:
+            raise AssertionError(f"path i: readers ran {etl_runs['native']['reads']} / "
+                                 f"{etl_runs['numpy']['reads']} times")
+
+        t1 = time.perf_counter()
+        sizes = [str(size) for size in LEVEL_SIZES]
+        for name, extra in (("dataset_reference", ["--raw", str(root / "native")]),
+                            ("dataset_npz", ["--raw", str(root / "native" / "npz"),
+                                             "--format", "npz"])):
+            quietly(prepare_dataset.main, [*extra, "--out", str(root / name),
+                                           "--variant", "v6", "--block-size", *sizes])
+        differ = differing_files(root / "dataset_reference", root / "dataset_npz")
+        meta = {size: json.loads((root / "dataset_reference" / f"block_{size}"
+                                  / "metadata.json").read_text()) for size in LEVEL_SIZES}
+        emit("i_dataset", seconds=time.perf_counter() - t1, differing_files=differ,
+             rows={size: [m["train_samples"], m["val_samples"]] for size, m in meta.items()})
+        if differ:
+            raise AssertionError(f"path i: the bundles from the reference layout and "
+                                 f"from the npz differ: {differ}")
+
+        dataset = root / "dataset_reference"
+        runs, launches = drive("i_serving", i_serving_plan(dataset, tree_dirs),
+                               lambda arg: run_cli(*arg[:3], dev, bf16=arg[3],
+                                                   block_size=arg[4]))
+        check_i_serving(runs, {size: meta[size]["val_samples"] for size in I_SIZES},
+                        path_a_agreement)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    kernels, busy_us = device_busy(prof.events())
+    trace_file = root / "trace" / "path_i.pt.trace.json"
+    emit("i_done", seconds=time.perf_counter() - t0, traced_seconds=traced_s,
+         traced_device_events=kernels, device_busy_s=busy_us / 1e6,
+         device_idle_share=1 - busy_us / 1e6 / traced_s,
+         trace_bytes=trace_file.stat().st_size,
+         device_memory_stats=profiling.device_memory_stats())
+    if kernels == 0:
+        raise AssertionError("path i: the trace holds no device event")
+    return launches
+
+
 def device_time_by_kernel(fn: Callable, top: int = 8) -> list:
     """The ``top`` kernel names by device ms in one traced call of ``fn``:
     ``[name, calls, ms]``."""
@@ -2704,21 +2978,31 @@ def trace_calls(fn: Callable, repeats: int = 3) -> dict:
             fn()
         torch.cuda.synchronize()
     events = prof.events()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.device_type == DeviceType.CUDA)
     launch_calls = sum(e.device_type == DeviceType.CPU and "LaunchKernel" in e.name
                        for e in events) / repeats
-    if not spans:
+    kernels, busy_us = device_busy(events)
+    if not kernels:
         return {"kernels": None, "device_busy_ms": None, "host_launch_calls": launch_calls}
+    return {"kernels": kernels / repeats, "device_busy_ms": busy_us / 1e3 / repeats,
+            "host_launch_calls": launch_calls}
+
+
+def device_busy(events) -> tuple:
+    """``(device events, busy us)`` of a ``torch.profiler`` trace: the count of
+    its device events and the union of their intervals."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return 0, 0.0
     busy, (lo, hi) = 0.0, spans[0]
     for start, end in spans[1:]:
         if start > hi:
             busy, lo, hi = busy + hi - lo, start, end
         else:
             hi = max(hi, end)
-    busy += hi - lo
-    return {"kernels": len(spans) / repeats, "device_busy_ms": busy / 1e3 / repeats,
-            "host_launch_calls": launch_calls}
+    return len(spans), busy + hi - lo
 
 
 def launched_by(fn: Callable) -> dict:
@@ -3073,9 +3357,16 @@ def main() -> int:
     # path h: the rest of training on path g's corpus, then the trained ladder served
     h_launches = run_path_h(g_out, dev, smi)
 
+    # path i: a raw 1080p clip through prepare_data and prepare_dataset, then
+    # served at 16 and 8 px with path d's models (path a's fronts' agreement
+    # with off is emitted beside its runs')
+    path_a_agreement = min(float((run["final"] == base["final"]).mean())
+                           for run in cli_runs if run["name"] in ("on", "g1"))
+    i_launches = run_path_i(tree_dirs, path_a_agreement, dev)
+
     launches = {k: cli_launches[k] + k5_launches[k] + api_launches[k] + tree_launches[k]
                 + serving_launches[k] + int8_launches[k] + f_launches[k] + pt_launches[k]
-                + g_launches[k] + h_launches[k] for k in _build.KERNELS}
+                + g_launches[k] + h_launches[k] + i_launches[k] for k in _build.KERNELS}
     for name in KERNELS:
         if launches[name] == 0:
             raise AssertionError(f"{name} was never launched by a main path")

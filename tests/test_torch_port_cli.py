@@ -4,12 +4,13 @@ the same npz checkpoints and a 1,024-block dataset, fp32.
 
 Predictions agree under the margin guard (labels identical where every
 decision behind them has a margin above 1e-3), stage-1 probabilities to
-1e-4, and the metrics JSON is identical except for the throughput. The
-same weights served from reference-shaped ``.pt`` files write the npz run's
-files.
+1e-4, and the metrics JSON is identical except for the throughput, so the
+confusion PNG is the JAX CLI's byte for byte. The same weights served from
+reference-shaped ``.pt`` files write the npz run's files.
 """
 import json
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -33,7 +34,16 @@ PORT_CLASSES = {"stage1": tm.Stage1Model, "stage2": tm.Stage2Model,
 @pytest.fixture(scope="module")
 def setup(tmp_path_factory):
     ws = cli_workspace(tmp_path_factory.mktemp("torch_port_cli"))
-    return ws["root"], ws["dataset"], ws["ckpts"], ws["margins"]
+    yield ws["root"], ws["dataset"], ws["ckpts"], ws["margins"]
+    shutil.rmtree(ws["root"])  # full-width checkpoints, ~220 MB
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's ``tmp_path``, removed after the test: the tests here write
+    full-width checkpoints, and pytest keeps its last three runs."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.mark.parametrize("mode, fgvc, extra", [
@@ -71,6 +81,9 @@ def test_cli_matches_jax_cli(setup, tmp_path, mode, fgvc, extra):
     if "--csv" in extra:
         assert (tmp_path / "port" / "pipeline_predictions_val.csv").exists()
     assert (tmp_path / "port" / "pipeline_report_val.txt").exists()
+    # equal metrics: the confusion PNG is the JAX CLI's, byte for byte
+    png = "pipeline_confusion_val.png"
+    assert (tmp_path / "port" / png).read_bytes() == (tmp_path / "jax" / png).read_bytes()
 
 
 def test_cli_imports_no_jax(setup, tmp_path):

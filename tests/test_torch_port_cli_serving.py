@@ -18,6 +18,7 @@ and the metrics JSON has the same keys and counts within the rows that differ.
 """
 import csv
 import json
+import shutil
 
 import numpy as np
 import pytest
@@ -88,7 +89,8 @@ def ws(tmp_path_factory):
     ws["members"] = members
     ws["ensemble"] = ws["root"] / "ensemble"
     save_ensemble(ws["ensemble"], [jax_variables(m) for m in members])
-    return ws
+    yield ws
+    shutil.rmtree(ws["root"])  # full-width checkpoints, ~430 MB
 
 
 @pytest.fixture(scope="module")

@@ -12,6 +12,7 @@ the CSV and the text report's metric table are the JAX CLI's.
 import csv
 import functools
 import json
+import shutil
 import types
 
 import numpy as np
@@ -98,7 +99,8 @@ def ws(tmp_path_factory):
                                                   jax_variables(model), compress=False)
         files[f"{name}.pt"] = root / f"{name}.pt"
         torch.save({"model_state_dict": model.state_dict()}, files[f"{name}.pt"])
-    return {"root": root, "dataset": dataset, "val": val, "files": files, "margins": margins}
+    yield {"root": root, "dataset": dataset, "val": val, "files": files, "margins": margins}
+    shutil.rmtree(root)  # full-width checkpoints, ~175 MB
 
 
 RUNS = {  # mode -> run_pipeline_eval arguments, checkpoints by file name

@@ -58,8 +58,11 @@ def test_fresh_interpreter_imports_the_port_without_jax_or_av1tpu():
                          capture_output=True, text=True, cwd=ROOT, timeout=600)
     assert out.returncode == 0, out.stderr[-2000:]
     report = json.loads(out.stdout.strip().splitlines()[-1])
-    assert len(report["imported"]) >= 43
+    assert len(report["imported"]) >= 56
     for module in ("codec.tree", "ingest.yuv", "ingest.tiler", "train.augment",
+                   "ingest.partition_dump", "ingest.xlsx", "ingest.etl", "ingest.native",
+                   "data.synth_tree", "eval.plots", "utils.profiling", "cli.prepare_data",
+                   "cli.prepare_dataset", "cli.analysis_report", "cli.visualize_blocks",
                    "eval.unified", "eval.tree_infer", "eval.tree_metrics",
                    "cli.predict_trees", "eval.gated", "eval.ensemble", "eval.compare",
                    "eval.html_report", "cli.optimize_thresholds", "cli.compare_thresholds",
@@ -71,6 +74,63 @@ def test_fresh_interpreter_imports_the_port_without_jax_or_av1tpu():
                    "cli.train_stage3", "cli.train_stage2_flat", "cli.train_unified"):
         assert f"av1tpu_torch.{module}" in report["imported"]
     assert report["bad"] == []
+
+
+NO_MATPLOTLIB = """
+import importlib, json, pkgutil, sys
+sys.modules["matplotlib"] = None  # as on a machine without matplotlib
+sys.path.insert(0, {root!r})
+import av1tpu_torch
+names = ["av1tpu_torch"] + [m.name for m in pkgutil.walk_packages(
+    av1tpu_torch.__path__, "av1tpu_torch.")] + ["chip_smoke"]
+failed = {{}}
+for name in names:
+    try:
+        importlib.import_module(name)
+    except ImportError as exc:
+        failed[name] = str(exc)
+print(json.dumps({{"imported": names, "failed": failed}}))
+"""
+
+
+@pytest.fixture(scope="module")
+def without_matplotlib():
+    """Every module of the port, and ``chip_smoke``, imported in a fresh
+    interpreter where ``import matplotlib`` fails."""
+    out = subprocess.run([sys.executable, "-c", NO_MATPLOTLIB.format(root=str(ROOT))],
+                         capture_output=True, text=True, cwd=ROOT, timeout=600)
+    assert out.returncode == 0, out.stderr[-2000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", [
+    "cli.run_pipeline_eval", "cli.prepare_data", "cli.prepare_dataset", "cli.train_stage1",
+    "cli.train_stage2", "cli.train_stage3", "cli.train_stage2_flat", "cli.train_unified",
+    "cli.prepare_stage3", "eval.plots", "eval.html_report", "cli.common"])
+def test_the_clis_import_without_matplotlib(without_matplotlib, module):
+    assert f"av1tpu_torch.{module}" in without_matplotlib["imported"]
+    assert without_matplotlib["failed"] == {}
+
+
+def test_new_modules_import_nothing_of_jax_or_av1tpu():
+    """The modules of the data layer, the ETL, the plots, the reports and the
+    profiling, each alone in a fresh interpreter."""
+    modules = ["ingest.partition_dump", "ingest.xlsx", "ingest.etl", "ingest.native",
+               "data.synth_tree", "data.records", "eval.plots", "eval.html_report",
+               "utils.profiling", "cli.prepare_data", "cli.prepare_dataset",
+               "cli.analysis_report", "cli.visualize_blocks"]
+    code = (f"import importlib, json, sys\nsys.path.insert(0, {str(ROOT)!r})\n"
+            "bad = {}\n"
+            f"for name in {modules!r}:\n"
+            "    before = set(sys.modules)\n"
+            "    importlib.import_module('av1tpu_torch.' + name)\n"
+            "    bad[name] = sorted(m for m in set(sys.modules) - before if m.split('.')[0]\n"
+            "                       in ('jax', 'jaxlib', 'flax', 'optax', 'av1tpu'))\n"
+            "print(json.dumps(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, timeout=600)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {m: [] for m in modules}
 
 
 def test_no_source_line_imports_jax_or_av1tpu():

@@ -1,13 +1,14 @@
 """The port's training CLIs beside the JAX package's, on one synthetic 8 px
 dataset: ``train_stage1`` and ``train_stage2`` write the JAX CLIs' file names
-(but the curves PNG, which waits for the plots), the same npz keys and
+(the curves PNG included), the same npz keys and
 shapes, the same ``meta.json``, history and summary keys; the JAX package's
 serving loader (``av1tpu.cli.common.load_model_variables``, through which
 its ``run_pipeline_eval`` reads every checkpoint) reads the port's exports,
 and flax's forward on them equals the port's. Then the port CLIs' other
 flags: ``--use-hard-mining``, ``--bf16``, ``--variant v5`` (stage 1, then
 stage 2 seeded with the full stage-1 state), ``--scratch``,
-``--use-adapters``, ``--pipeline-aware``, ``--resume``, and the refusals.
+``--use-adapters`` (its frozen trunk seeded from stage 1, which the JAX CLI
+does not do), ``--pipeline-aware``, ``--resume``, and the refusals.
 The JAX stage-2 run takes ``--scratch`` (one phase, one compile); its files
 are the default run's.
 """
@@ -64,6 +65,12 @@ def _npz_shapes(path):
         return {k: z[k].shape for k in z.files}
 
 
+def _leaves(tree, prefix=()):
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    return {k: v for key, sub in tree.items() for k, v in _leaves(sub, prefix + (key,)).items()}
+
+
 def _keys(tree):
     if isinstance(tree, dict):
         return {k: _keys(v) for k, v in tree.items()}
@@ -76,11 +83,11 @@ def _keys(tree):
 def test_cli_files_match_the_jax_cli(runs, name):
     ours = runs["s1" if name == "stage1" else "s2"]
     theirs = runs["jax_s1" if name == "stage1" else "jax_s2"]
-    want = {p.name for p in theirs.iterdir()} - {f"{name}_training_curves.png"}
+    want = {p.name for p in theirs.iterdir()}
     assert {p.name for p in ours.iterdir()} == want
     assert want >= {f"{name}_best", f"{name}_last", f"{name}_final",
                     f"{name}_best_variables.npz", f"{name}_history.json",
-                    f"{name}_summary.json"}
+                    f"{name}_summary.json", f"{name}_training_curves.png"}
     export = f"{name}_best_variables.npz"
     assert _npz_shapes(ours / export) == _npz_shapes(theirs / export)
     for ckpt in ("best", "last", "final"):
@@ -183,7 +190,16 @@ def test_stage2_flags(runs, cli, flags, capsys):
         # stage 1's head rides along untrained (the 5-way loss does not reach it)
         assert sorted(s2["stage1_head"]) == sorted(s1)
     if "--use-adapters" in flags:
-        assert "backbone transplant skipped" in printed
+        # stage 1's backbone/<x> seeds the adapter model's backbone_<x>, which
+        # the adapter phase keeps frozen: its parameters end as stage 1's
+        assert "seeded backbone_bn1, backbone_conv1, backbone_layer1_0" in printed
+        s1 = load_variables_npz(stage1)["params"]["backbone"]
+        s2 = load_variables_npz(out / "stage2_final" / "variables.npz")["params"]
+        for x, tree in s1.items():
+            got = _leaves(s2[f"backbone_{x}"])
+            assert sorted(got) == sorted(_leaves(tree))
+            for path, value in _leaves(tree).items():
+                assert got[path].tobytes() == value.tobytes(), (x, path)
 
 
 def test_resume_continues_the_epochs(runs, cli):

@@ -5,7 +5,7 @@ beside the JAX package's CLIs, on one synthetic 8 px dataset and its
 Three JAX CLIs run, on one device as the port: ``train_stage3 --head AB
 --fgvc`` and ``train_unified`` at ``--epochs 1``, and ``run_pipeline_eval
 --stage3-ab-ensemble-dir`` on the port's ``ensemble/``. Each port training run beside them writes the same file
-names (but the curves PNG, which waits for the plots), the same npz keys and
+names (the curves PNG included), the same npz keys and
 shapes (the FGVC export with its ``centers/centers``), the same checkpoint
 ``meta.json`` keys, and history and summary keys. ``train_unified`` goes
 through the recipe path that every recipe CLI shares (``train_stage``,
@@ -139,8 +139,7 @@ def _files_match(runs, name, tmp_path):
     ours, theirs = runs[name], runs[f"jax_{ref_name}"]
     ref_recipe = EXPORTS[ref_name][0]
     export = f"{recipe}_best_variables.npz"
-    want = {p.name.replace(ref_recipe, recipe) for p in theirs.iterdir()} - {
-        f"{recipe}_training_curves.png"}
+    want = {p.name.replace(ref_recipe, recipe) for p in theirs.iterdir()}
     assert {p.name for p in ours.iterdir()} == want
     shapes = (_npz_shapes(theirs / export) if ref_name == name
               else _flax_shapes(flax_cls, tmp_path / "flax.npz"))
@@ -301,7 +300,7 @@ def test_v5_specialist_and_flatten(runs, cli):
     assert {p.name for p in flat.iterdir()} == {
         "stage2_flat_best", "stage2_flat_last", "stage2_flat_final",
         "stage2_flat_best_variables.npz", "stage2_flat_history.json",
-        "stage2_flat_summary.json"}
+        "stage2_flat_summary.json", "stage2_flat_training_curves.png"}
     _served_equal(flat / "stage2_flat_best_variables.npz")
 
 

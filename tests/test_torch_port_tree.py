@@ -9,6 +9,9 @@ predictors are the fp32 folded pipelines of sixteen seeded stage models (four
 stages at four block sizes) and of four unified models, carried across with
 ``to_jax_variables``; their decisions agree exactly unless a logit margin sits
 inside float noise, and a seed whose margins do is replaced, not tolerated.
+The cascades run on the superblocks of a ``tree_corpus`` of the port's
+``data.synth_tree``, whose ground-truth trees the composed trees are scored
+against with ``tree_accuracy``, equal in both packages.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +28,7 @@ from av1tpu.ingest import tiler as jax_tiler
 from av1tpu.ingest import yuv as jax_yuv
 from av1tpu_torch.codec import tree as port_tree
 from av1tpu_torch.codec.partitions import PARTITION_SPLIT
+from av1tpu_torch.data.synth_tree import tree_corpus
 from av1tpu_torch.eval import (
     PipelineModels,
     make_unified_pipeline_folded,
@@ -51,6 +55,16 @@ CAPACITIES = {  # name -> level_capacities
     "gated_exact": {32: 0.9, 16: 0.8, 8: 0.7},
     "gated_overflow": {32: 0.5, 16: 0.2, 8: 0.05},
 }
+# The seeded models keep about 4% of the corpus's 8 px nodes alive: the
+# folded cascade overflows that level at a capacity of 2%.
+FOLDED_CAPACITIES = {**CAPACITIES, "gated_overflow": {32: 0.5, 16: 0.2, 8: 0.02}}
+
+
+def _corpus(seed, n):
+    """``(superblocks (n, 64, 64) uint16, ground-truth trees (n, 85))`` of the
+    port's ``tree_corpus``."""
+    sbs, trees, _ = tree_corpus(n, seed=seed)
+    return sbs[..., 0], trees
 
 
 def _level_modes(seed, n):
@@ -100,7 +114,7 @@ def test_tree_helpers_equal_the_jax_package():
 
 def test_tree_accuracy_equals_the_jax_package():
     pred = port_tree.assemble_trees(_level_modes(4, 40))
-    true = port_tree.assemble_trees(_level_modes(5, 40))
+    true = _corpus(5, 40)[1].astype(pred.dtype)
     true[:10] = pred[:10]
     got = tree_accuracy(pred, true)
     assert got == jax_metrics.tree_accuracy(pred, true)
@@ -203,7 +217,7 @@ def test_cascade_with_stub_predictors_equals_jax(case):
     """Batches of 100 leave ragged tails at every level. Under overflow the
     kept nodes, and at dead slots the evaluated ones, depend on the order in
     which the selection takes equal scores: ``modes_*`` is compared whole."""
-    sbs = superblocks_u16(11, 10)
+    sbs = _corpus(11, 10)[0]
     want = jax_infer.predict_partition_trees(
         sbs, {s: _jax_stub for s in LEVEL_SIZES}, batch_size=100,
         level_capacities=CAPACITIES[case])
@@ -220,7 +234,7 @@ def test_cascade_with_stub_predictors_equals_jax(case):
 
 
 def test_gate_is_exact_when_k_covers_the_live_set():
-    sbs = superblocks_u16(12, 8)
+    sbs = _corpus(12, 8)[0]
     preds = {s: _port_stub for s in LEVEL_SIZES}
     dense = predict_partition_trees(sbs, preds, 64, device="cpu")
     gated = predict_partition_trees(sbs, preds, 64, device="cpu",
@@ -232,7 +246,7 @@ def test_gate_is_exact_when_k_covers_the_live_set():
 
 
 def test_as_numpy_false_returns_tensors_with_the_same_values():
-    sbs = superblocks_u16(13, 6)
+    sbs = _corpus(13, 6)[0]
     preds = {s: _port_stub for s in LEVEL_SIZES}
     caps = CAPACITIES["gated_overflow"]
     host = predict_partition_trees(sbs, preds, 64, level_capacities=caps, device="cpu")
@@ -321,12 +335,15 @@ def predictors():
 ])
 def test_cascade_with_folded_predictors_equals_jax(predictors, family, case):
     jax_preds, port_preds = predictors(family)
-    sbs = superblocks_u16(310, 12)
+    sbs, truth = _corpus(310, 12)
     want = jax_infer.predict_partition_trees(
-        sbs, jax_preds, batch_size=128, level_capacities=CAPACITIES[case])
+        sbs, jax_preds, batch_size=128, level_capacities=FOLDED_CAPACITIES[case])
     got = predict_partition_trees(sbs, port_preds, batch_size=128,
-                                  level_capacities=CAPACITIES[case], device="cpu")
+                                  level_capacities=FOLDED_CAPACITIES[case], device="cpu")
     _assert_same_result(got, want)
+    # the composed trees scored against the corpus's ground truth
+    accuracy = tree_accuracy(got["trees"], truth)
+    assert accuracy == jax_metrics.tree_accuracy(want["trees"], truth)
     trees = want["trees"]
     assert len(np.unique(trees[trees >= 0])) >= 4  # several modes, not one
     reached = (trees >= 0).sum(axis=1)

@@ -10,6 +10,7 @@ above 1e-3, and ``stage1_prob`` agrees to 1e-4. A ``.pt`` gives the port the
 JAX package's variable tree bitwise.
 """
 import functools
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -292,6 +293,14 @@ def test_bridge_round_trip_is_bitwise(v5_variables, v6_variables, tree):
 # ---------------------------------------------------------------------------
 # Reference .pt checkpoints
 # ---------------------------------------------------------------------------
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's ``tmp_path``, removed after the test: the tests here write
+    full-width checkpoints, and pytest keeps its last three runs."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
 
 REFERENCE = {  # name -> (reference module, port class)
     "v5": (ref.TorchHierarchicalModel, tm.HierarchicalModel),
