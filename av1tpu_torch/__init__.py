@@ -23,12 +23,22 @@ Layer map:
                       the reference .pt import (models.torch_import)
     quant.ptq         BN folding, the folded float forward and int8 serving
     kernels           hand-written CUDA kernels (csrc/) with their plain twins
+    parallel          the (data, model) mesh on torch.distributed: batch and
+                      parameter sharding, the collectives of a data- or
+                      model-sharded step, multi-process initialization (one
+                      process per device; the JAX NamedSharding objects
+                      batch_sharding and replicated have no torch meaning)
     eval              per-stage, unified, gated, v5 and flatten pipelines,
                       batching, ensembles, the 64->32->16->8 tree cascade,
                       metrics, report writers
     cli               run_pipeline_eval (v6, unified, v5, flatten),
-                      predict_trees, the operating-point tools and the
-                      train_stage1 / train_stage2 trainers
+                      predict_trees, the operating-point tools, the trainers
+                      and the data tools; under torchrun every serving CLI
+                      shards over the processes (--single-device keeps one)
+                      and every trainer takes --num-model-shards
 """
 
+from av1tpu_torch import parallel
+
 __version__ = "0.1.0"
+__all__ = ["parallel"]

@@ -31,7 +31,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from av1tpu_torch.cli.common import load_model, load_split, train_calibration_blocks
+from av1tpu_torch.cli.common import (
+    add_single_device_arg,
+    cli_log,
+    load_model,
+    load_split,
+    serving_mesh,
+    train_calibration_blocks,
+)
 from av1tpu_torch.codec.partitions import raw_to_v6_final
 from av1tpu_torch.eval import (
     PipelineModels,
@@ -53,14 +60,16 @@ from av1tpu_torch.models import (
     Stage3RectModel,
     UnifiedV6Model,
 )
+from av1tpu_torch.parallel.mesh import is_writer
 from av1tpu_torch.quant import make_unified_pipeline_int8, make_v6_pipeline_int8
 
 
-def _evaluate(name, predict, samples, labels, batch_size, device, reference_final):
+def _evaluate(name, predict, samples, labels, batch_size, device, reference_final,
+              mesh=None):
     # one warm-up batch, so that the timed pass excludes first-call costs
-    run_pipeline_batched(predict, samples[:batch_size], batch_size, device)
+    run_pipeline_batched(predict, samples[:batch_size], batch_size, device, mesh=mesh)
     start = time.perf_counter()
-    out = run_pipeline_batched(predict, samples, batch_size, device)
+    out = run_pipeline_batched(predict, samples, batch_size, device, mesh=mesh)
     seconds = time.perf_counter() - start
     final = np.asarray(out["final"])
     metrics = compute_metrics(labels, final)
@@ -75,7 +84,7 @@ def _evaluate(name, predict, samples, labels, batch_size, device, reference_fina
         "agreement_vs_flax": agreement,
         "throughput_superblocks_per_sec": len(labels) / seconds,
     }
-    print(json.dumps(row), flush=True)
+    cli_log(json.dumps(row))
     return row, final
 
 
@@ -100,9 +109,7 @@ def main(argv=None) -> None:
     parser.add_argument("--capacity-margin", type=float, default=0.1)
     parser.add_argument("--skip-int8", action="store_true")
     parser.add_argument("--calib-samples", type=int, default=512)
-    parser.add_argument("--single-device", action="store_true",
-                        help="accepted for compatibility: one device is the "
-                        "only mode until ROADMAP M11")
+    add_single_device_arg(parser)
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                         help="cuda needs a GPU; nothing falls back to the CPU")
     parser.add_argument("--unified-checkpoint", type=Path, default=None,
@@ -116,6 +123,7 @@ def main(argv=None) -> None:
     if args.device == "cuda" and not torch.cuda.is_available():
         parser.error("--device cuda: no CUDA device is available")
     device = torch.device(args.device)
+    mesh = serving_mesh(args)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     train_b, val_b, _ = load_split(args.dataset_dir, args.block_size)
     bundle = val_b if args.split == "val" else train_b
@@ -131,23 +139,23 @@ def main(argv=None) -> None:
 
     def evaluate(name, predict, reference_final):
         return _evaluate(name, predict, samples, labels, args.batch_size, device,
-                         reference_final)
+                         reference_final, mesh)
 
     threshold = args.stage1_threshold
     rows = []
     # the plain nn.Module graph: the semantics reference
     row, flax_final = evaluate("flax", make_v6_pipeline(
-        models, stage1_threshold=threshold, input_dtype=dtype, device=device), None)
+        models, stage1_threshold=threshold, input_dtype=dtype, device=device, mesh=mesh), None)
     rows.append(row)
     row, _ = evaluate("folded", make_v6_pipeline_folded(
-        models, stage1_threshold=threshold, float_dtype=dtype, device=device),
+        models, stage1_threshold=threshold, float_dtype=dtype, device=device, mesh=mesh),
         flax_final)
     rows.append(row)
     calib = None if args.skip_int8 else train_calibration_blocks(train_b.samples,
                                                                  args.calib_samples)
     if calib is not None:
         row, _ = evaluate("int8", make_v6_pipeline_int8(
-            models, calib, stage1_threshold=threshold, float_dtype=dtype, device=device),
+            models, calib, stage1_threshold=threshold, float_dtype=dtype, device=device, mesh=mesh),
             flax_final)
         rows.append(row)
 
@@ -157,7 +165,7 @@ def main(argv=None) -> None:
         capacity = auto_capacity(sweep_rows, threshold, args.capacity_margin)
     row, _ = evaluate(f"gated(folded, capacity={capacity:.3f})", make_v6_pipeline_gated(
         models, capacity=capacity, stage1_threshold=threshold, input_dtype=dtype,
-        folded=True, device=device), flax_final)
+        folded=True, device=device, mesh=mesh), flax_final)
     rows.append(row)
 
     if args.unified_checkpoint is not None:
@@ -168,22 +176,24 @@ def main(argv=None) -> None:
         # families differ; the folded row below is the certification (same
         # weights, transformed graph)
         row, uni_final = evaluate("unified", make_unified_pipeline(
-            unified, stage1_threshold=uni_thr, input_dtype=dtype, device=device),
+            unified, stage1_threshold=uni_thr, input_dtype=dtype, device=device, mesh=mesh),
             flax_final)
         row["agreement_reference"] = "cascade flax (family divergence)"
         rows.append(row)
         row, _ = evaluate("unified(folded)", make_unified_pipeline_folded(
-            unified, stage1_threshold=uni_thr, float_dtype=dtype, device=device),
+            unified, stage1_threshold=uni_thr, float_dtype=dtype, device=device, mesh=mesh),
             uni_final)
         row["agreement_reference"] = "unified flax"
         rows.append(row)
         if calib is not None:
             row, _ = evaluate("unified(int8)", make_unified_pipeline_int8(
                 unified, calib, stage1_threshold=uni_thr, float_dtype=dtype,
-                device=device), uni_final)
+                device=device, mesh=mesh), uni_final)
             row["agreement_reference"] = "unified flax"
             rows.append(row)
 
+    if not is_writer():
+        return
     out = Path(args.output_dir)
     out.mkdir(parents=True, exist_ok=True)
     payload = {

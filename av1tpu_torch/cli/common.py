@@ -1,6 +1,7 @@
 """Shared CLI plumbing: dataset splits, checkpoint and model loading (npz
 or a reference ``.pt``), one model's outputs over a split, the int8
-calibration subsample, the trainers' common flags and outputs, and the
+calibration subsample, the trainers' common flags and outputs, the mesh
+of a world of processes (``torchrun``; rank 0 prints and writes), and the
 PNGs that are skipped where matplotlib is not installed.
 
 Dataset bundles are ``av1tpu_torch.data.bundles``, the port's own copy of
@@ -22,6 +23,13 @@ from av1tpu_torch.eval.hierarchy import on_device, run_pipeline_batched
 from av1tpu_torch.eval.plots import plot_training_curves
 from av1tpu_torch.models.jax_import import load_jax_variables
 from av1tpu_torch.models.torch_import import import_any, load_torch_checkpoint
+from av1tpu_torch.parallel.mesh import (
+    default_mesh,
+    init_from_env,
+    is_writer,
+    make_mesh,
+    world_size,
+)
 from av1tpu_torch.train.checkpoint import load_variables_npz, save_variables_npz
 from av1tpu_torch.train.stages import variables_of
 
@@ -102,7 +110,9 @@ def add_common_train_args(parser: argparse.ArgumentParser) -> None:
                         help="forward under bfloat16 autocast (fp32 parameters, "
                         "BN statistics and loss)")
     parser.add_argument("--num-model-shards", type=int, default=1,
-                        help="model-axis size of a device mesh: only 1 (ROADMAP M11)")
+                        help="model-axis size of the device mesh over the world's "
+                        "processes (torchrun): the wide layers' output channels "
+                        "split over that many ranks, the batch over the rest")
     parser.add_argument("--resume", type=Path, default=None,
                         help="checkpoint dir (…_last/…_best/…_final) to resume from")
     parser.add_argument("--checkpoint-every", type=int, default=10,
@@ -114,12 +124,48 @@ def add_common_train_args(parser: argparse.ArgumentParser) -> None:
 
 
 def check_train_args(parser: argparse.ArgumentParser, args) -> None:
-    """Refuse what the port's trainers do not run."""
-    if args.num_model_shards != 1:
-        parser.error("--num-model-shards > 1: multi-device training is ROADMAP M11, "
-                     "not ported")
+    """Refuse what the port's trainers do not run, then join the world of
+    processes that ``torchrun`` started (nothing in a world of one)."""
     if args.device == "cuda" and not torch.cuda.is_available():
         parser.error("--device cuda: no CUDA device is available")
+    if args.num_model_shards < 1:
+        parser.error("--num-model-shards must be at least 1")
+    init_from_env(args.device)
+    if world_size() % args.num_model_shards:
+        parser.error(f"--num-model-shards {args.num_model_shards} does not divide the "
+                     f"world of {world_size()} processes")
+
+
+def make_cli_mesh(num_model_shards: int = 1):
+    """The trainers' mesh: ``None`` in a world of one process with one model
+    shard (no collectives at all), else a ``(data, model)`` mesh over the
+    world with ``num_model_shards`` on the model axis."""
+    if world_size() == 1 and num_model_shards == 1:
+        return None
+    return make_mesh(num_model=num_model_shards)
+
+
+def serving_mesh(args):
+    """The serving CLIs' mesh: join the ``torchrun`` world, then ``None``
+    with ``--single-device`` or in a world of one, else a data-parallel mesh
+    over every process (the JAX CLIs' ``default_mesh()``)."""
+    init_from_env(args.device)
+    mesh = None if args.single_device else default_mesh()
+    if mesh is not None:
+        cli_log(f"sharding inference over mesh {{'data': {world_size()}, 'model': 1}}")
+    return mesh
+
+
+def cli_log(message: str) -> None:
+    """Print on rank 0 only (every line once in a world of processes)."""
+    if is_writer():
+        print(message)
+
+
+def add_single_device_arg(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--single-device", action="store_true",
+                        help="no mesh: serve on this process's device alone "
+                        "(default: shard the batches over every torchrun process)")
 
 
 def export_best(result, model_name: str, output_dir: Path) -> Optional[Path]:
@@ -147,7 +193,9 @@ def save_plot(draw: Callable[[Path], Any], path: Path) -> None:
 
 def write_history(result, output_dir: Path, name: str) -> None:
     """``<name>_history.json``, ``<name>_training_curves.png`` and
-    ``<name>_summary.json``, as the JAX CLIs write them."""
+    ``<name>_summary.json``, as the JAX CLIs write them (rank 0 only)."""
+    if not is_writer():
+        return
     out = Path(output_dir)
     out.mkdir(parents=True, exist_ok=True)
     result.save_history(out / f"{name}_history.json")
@@ -161,6 +209,7 @@ def write_history(result, output_dir: Path, name: str) -> None:
     }, indent=2))
 
 
-__all__ = ["add_common_train_args", "check_train_args", "export_best", "load_model",
-           "load_model_variables", "load_split", "model_outputs", "save_plot",
+__all__ = ["add_common_train_args", "add_single_device_arg", "check_train_args",
+           "cli_log", "export_best", "load_model", "load_model_variables", "load_split",
+           "make_cli_mesh", "model_outputs", "save_plot", "serving_mesh",
            "train_calibration_blocks", "write_history"]

@@ -19,7 +19,12 @@ from pathlib import Path
 
 import torch
 
-from av1tpu_torch.cli.common import load_model, load_split
+from av1tpu_torch.cli.common import (
+    add_single_device_arg,
+    load_model,
+    load_split,
+    serving_mesh,
+)
 from av1tpu_torch.codec.partitions import V6_EVAL_CLASS_NAMES, raw_to_v6_final
 from av1tpu_torch.eval import PipelineModels, make_v6_pipeline, run_pipeline_batched
 from av1tpu_torch.eval.compare import compare_operating_points, render_markdown
@@ -30,6 +35,7 @@ from av1tpu_torch.models import (
     Stage3ABModel,
     Stage3RectModel,
 )
+from av1tpu_torch.parallel.mesh import is_writer
 
 
 def main(argv=None) -> None:
@@ -48,15 +54,14 @@ def main(argv=None) -> None:
     parser.add_argument("--ab-fgvc", action="store_true", default=True)
     parser.add_argument("--no-ab-fgvc", dest="ab_fgvc", action="store_false")
     parser.add_argument("--bf16", action="store_true")
-    parser.add_argument("--single-device", action="store_true",
-                        help="accepted for compatibility: one device is the "
-                        "only mode until ROADMAP M11")
+    add_single_device_arg(parser)
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                         help="cuda needs a GPU; nothing falls back to the CPU")
     args = parser.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         parser.error("--device cuda: no CUDA device is available")
 
+    mesh = serving_mesh(args)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     train_b, val_b, _ = load_split(args.dataset_dir, args.block_size)
     bundle = val_b if args.split == "val" else train_b
@@ -67,8 +72,11 @@ def main(argv=None) -> None:
         load_model(args.stage3_ab_checkpoint, FGVCModel if args.ab_fgvc else Stage3ABModel),
     )
     predict = make_v6_pipeline(models, stage1_threshold=args.thresholds[0],
-                               input_dtype=dtype, device=args.device)
-    outputs = run_pipeline_batched(predict, bundle.samples, args.batch_size, args.device)
+                               input_dtype=dtype, device=args.device, mesh=mesh)
+    outputs = run_pipeline_batched(predict, bundle.samples, args.batch_size, args.device,
+                                   mesh=mesh)
+    if not is_writer():
+        return
     labels = raw_to_v6_final(bundle.labels["stage0"])
 
     report = compare_operating_points(

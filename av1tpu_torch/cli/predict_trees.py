@@ -31,7 +31,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from av1tpu_torch.cli.common import load_model_variables
+from av1tpu_torch.cli.common import (
+    add_single_device_arg,
+    load_model_variables,
+    serving_mesh,
+)
 from av1tpu_torch.codec.tree import LEVEL_SIZES, tree_depth_stats
 from av1tpu_torch.eval import (
     PipelineModels,
@@ -52,6 +56,7 @@ from av1tpu_torch.models import (
     UnifiedV6Model,
     load_jax_variables,
 )
+from av1tpu_torch.parallel.mesh import is_writer
 from av1tpu_torch.quant import make_unified_pipeline_int8, make_v6_pipeline_int8
 
 CKPT_NAMES = {
@@ -66,7 +71,7 @@ FUSED_FRONT = {"off": False, "on": True, "g1": "g1"}
 def build_level_predictor(
     model_dir: Path, threshold: float, dtype, ab_fgvc: bool, device="cuda",
     folded: bool = False, tta: bool = False, tta_align_ab: bool = False,
-    unified: bool = False, use_fused_front=False, int8_calib=None,
+    unified: bool = False, use_fused_front=False, int8_calib=None, mesh=None,
 ):
     """One level's ``predict`` from the checkpoints in ``model_dir``; the
     int8 pipeline when ``int8_calib`` (uint16 calibration blocks) is given."""
@@ -79,16 +84,16 @@ def build_level_predictor(
         if int8_calib is not None:
             return make_unified_pipeline_int8(
                 model, int8_calib, stage1_threshold=threshold, float_dtype=dtype,
-                use_fused_front=use_fused_front, device=device,
+                use_fused_front=use_fused_front, device=device, mesh=mesh,
             )
         if folded:
             return make_unified_pipeline_folded(
                 model, stage1_threshold=threshold, float_dtype=dtype,
-                use_fused_front=use_fused_front, device=device,
+                use_fused_front=use_fused_front, device=device, mesh=mesh,
             )
         return make_unified_pipeline(
             model, stage1_threshold=threshold, input_dtype=dtype, tta=tta,
-            tta_align_ab=tta_align_ab, device=device,
+            tta_align_ab=tta_align_ab, device=device, mesh=mesh,
         )
     loaded = {
         key: load_jax_variables(cls(), load_model_variables(model_dir / fname)).eval()
@@ -110,16 +115,16 @@ def build_level_predictor(
     if int8_calib is not None:
         return make_v6_pipeline_int8(
             models, int8_calib, stage1_threshold=threshold, float_dtype=dtype,
-            use_fused_front=use_fused_front, device=device,
+            use_fused_front=use_fused_front, device=device, mesh=mesh,
         )
     if folded:
         return make_v6_pipeline_folded(
             models, stage1_threshold=threshold, float_dtype=dtype,
-            use_fused_front=use_fused_front, device=device,
+            use_fused_front=use_fused_front, device=device, mesh=mesh,
         )
     return make_v6_pipeline(
         models, stage1_threshold=threshold, input_dtype=dtype, device=device,
-        tta=tta, tta_align_ab=tta_align_ab,
+        tta=tta, tta_align_ab=tta_align_ab, mesh=mesh,
     )
 
 
@@ -203,9 +208,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--bf16", action="store_true")
     parser.add_argument("--no-ab-fgvc", dest="ab_fgvc", action="store_false",
                         default=True)
-    parser.add_argument("--single-device", action="store_true",
-                        help="accepted for compatibility: one device is the "
-                        "only mode until ROADMAP M11")
+    add_single_device_arg(parser)
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                         help="cuda needs a GPU; nothing falls back to the CPU")
     parser.add_argument("--level-capacity", type=float, nargs=4,
@@ -295,6 +298,7 @@ def main(argv=None) -> None:
     if args.device == "cuda" and not torch.cuda.is_available():
         parser.error("--device cuda: no CUDA device is available")
     device = torch.device(args.device)
+    mesh = serving_mesh(args)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     try:
         thresholds = normalize_thresholds(args.stage1_threshold)
@@ -309,18 +313,19 @@ def main(argv=None) -> None:
             args.ab_fgvc, device=device, folded=args.folded,
             tta=args.tta, tta_align_ab=tta_align_ab, unified=args.unified,
             use_fused_front=FUSED_FRONT[args.fused_front],
-            int8_calib=calib_by_size[size],
+            int8_calib=calib_by_size[size], mesh=mesh,
         )
         for size, threshold in zip(LEVEL_SIZES, thresholds)
     }
 
     out_dir = Path(args.output_dir)
-    out_dir.mkdir(parents=True, exist_ok=True)
+    if is_writer():  # under a mesh every rank holds the whole result; rank 0 writes it
+        out_dir.mkdir(parents=True, exist_ok=True)
     summary = {}
     capacities = None
     if args.level_capacity is not None:
         capacities = dict(zip(LEVEL_SIZES, args.level_capacity))
-        if capacities[64] < 1.0:
+        if capacities[64] < 1.0 and is_writer():
             # the root level always evaluates dense (every root node is
             # alive by definition), so a sub-1.0 C64 would silently do
             # nothing: say so instead of accepting it quietly
@@ -363,7 +368,7 @@ def main(argv=None) -> None:
             result = predict_partition_trees(
                 sbs, predictors, args.batch_size,
                 level_capacities=capacities, as_numpy=args.serial_io,
-                device=device,
+                device=device, mesh=mesh,
             )
             # everything is launched: kick off the next group's IO, then
             # block on this group's outputs
@@ -380,10 +385,9 @@ def main(argv=None) -> None:
                 frame_result = split_group_result(
                     result, len(group), frame_sbs, j
                 )
-                np.savez(
-                    out_dir / f"trees_frame{frame_index}.npz",
-                    grid_shape=grid_shape, **frame_result,
-                )
+                if is_writer():
+                    np.savez(out_dir / f"trees_frame{frame_index}.npz",
+                             grid_shape=grid_shape, **frame_result)
                 stats = tree_depth_stats(frame_result["trees"])
                 stats["superblocks"] = int(frame_result["trees"].shape[0])
                 # group wall-clock amortized per frame
@@ -394,8 +398,9 @@ def main(argv=None) -> None:
                     if key.startswith(("overflow_", "group_overflow_")):
                         stats[key] = int(value)
                 summary[str(frame_index)] = stats
-    (out_dir / "tree_stats.json").write_text(json.dumps(summary, indent=2))
-    print(json.dumps(summary, indent=2))
+    if is_writer():
+        (out_dir / "tree_stats.json").write_text(json.dumps(summary, indent=2))
+        print(json.dumps(summary, indent=2))
 
 
 if __name__ == "__main__":

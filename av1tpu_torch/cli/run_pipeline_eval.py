@@ -1,5 +1,6 @@
-"""CLI: end-to-end hierarchical pipeline evaluation on one device (PyTorch
-port): v6, unified, v5 and flatten.
+"""CLI: end-to-end hierarchical pipeline evaluation (PyTorch port): v6,
+unified, v5 and flatten, on one device or, under ``torchrun``, sharded over
+every process (``--single-device`` keeps one).
 
     python -m av1tpu_torch.cli.run_pipeline_eval --variant v6 --folded \
         --fused-front on --bf16 \
@@ -47,10 +48,13 @@ from av1tpu_torch.codec.partitions import (
     raw_to_v6_final,
 )
 from av1tpu_torch.cli.common import (
+    add_single_device_arg,
+    cli_log,
     load_model,
     load_model_variables,
     load_split,
     save_plot,
+    serving_mesh,
     train_calibration_blocks,
 )
 from av1tpu_torch.eval import (
@@ -86,6 +90,7 @@ from av1tpu_torch.models import (
     UnifiedV6Model,
     load_jax_variables,
 )
+from av1tpu_torch.parallel.mesh import is_writer
 from av1tpu_torch.quant import make_unified_pipeline_int8, make_v6_pipeline_int8
 
 FUSED_FRONT = {"off": False, "on": True, "g1": "g1"}
@@ -146,9 +151,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--reference-compat-labels", action="store_true",
                         help="reproduce the reference's misaligned raw-vs-"
                         "reordered label comparison (quirk Q7)")
-    parser.add_argument("--single-device", action="store_true",
-                        help="accepted for compatibility: one device is the "
-                        "only mode until ROADMAP M11")
+    add_single_device_arg(parser)
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                         help="cuda needs a GPU; nothing falls back to the CPU")
     parser.add_argument("--fused-front", choices=tuple(FUSED_FRONT),
@@ -172,12 +175,12 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def build_v6(args, dtype, device):
+def build_v6(args, dtype, device, mesh=None):
     ab_ensemble = None
     if args.stage3_ab_ensemble_dir is not None:
         ab_ensemble, _ = load_ensemble(args.stage3_ab_ensemble_dir)
         stage3_ab = load_jax_variables(Stage3ABModel(), ab_ensemble[0]).eval()
-        print(f"AB ensemble: {len(ab_ensemble)} members (soft vote)")
+        cli_log(f"AB ensemble: {len(ab_ensemble)} members (soft vote)")
     else:
         stage3_ab = load_model(args.stage3_ab_checkpoint,
                                FGVCModel if args.ab_fgvc else Stage3ABModel)
@@ -200,29 +203,29 @@ def build_v6(args, dtype, device):
         return make_v6_pipeline_int8(
             models, args.calib_images, stage1_threshold=args.stage1_threshold,
             float_dtype=dtype, use_fused_front=FUSED_FRONT[args.fused_front],
-            device=device,
+            device=device, mesh=mesh,
         )
     if args.capacity is not None:
         if args.tta or ab_ensemble is not None:
             raise SystemExit("--capacity is incompatible with --tta/ensembles")
         return make_v6_pipeline_gated(
             models, capacity=args.capacity, stage1_threshold=args.stage1_threshold,
-            input_dtype=dtype, folded=args.folded, device=device,
+            input_dtype=dtype, folded=args.folded, device=device, mesh=mesh,
         )
     if args.folded:
         return make_v6_pipeline_folded(
             models, stage1_threshold=args.stage1_threshold, float_dtype=dtype,
-            use_fused_front=FUSED_FRONT[args.fused_front], device=device,
+            use_fused_front=FUSED_FRONT[args.fused_front], device=device, mesh=mesh,
         )
     return make_v6_pipeline(
         models, stage1_threshold=args.stage1_threshold, input_dtype=dtype,
         device=device, tta=args.tta,
         tta_align_ab=args.tta and args.tta_align_ab is not False,
-        ab_ensemble_vars=ab_ensemble,
+        ab_ensemble_vars=ab_ensemble, mesh=mesh,
     )
 
 
-def build_unified(args, dtype, device):
+def build_unified(args, dtype, device, mesh=None):
     model = load_model(args.unified_checkpoint, UnifiedV6Model)
     if args.tta_align_ab and not args.tta:
         raise SystemExit("--tta-align-ab requires --tta")
@@ -232,41 +235,44 @@ def build_unified(args, dtype, device):
         return make_unified_pipeline_int8(
             model, args.calib_images, stage1_threshold=args.stage1_threshold,
             float_dtype=dtype, use_fused_front=FUSED_FRONT[args.fused_front],
-            device=device,
+            device=device, mesh=mesh,
         )
     if args.folded:
         if args.tta:
             raise SystemExit("--folded is incompatible with --tta")
         return make_unified_pipeline_folded(
             model, stage1_threshold=args.stage1_threshold, float_dtype=dtype,
-            use_fused_front=FUSED_FRONT[args.fused_front], device=device,
+            use_fused_front=FUSED_FRONT[args.fused_front], device=device, mesh=mesh,
         )
     return make_unified_pipeline(
         model, stage1_threshold=args.stage1_threshold, input_dtype=dtype,
         tta=args.tta, tta_align_ab=args.tta_align_ab is not False, device=device,
+        mesh=mesh,
     )
 
 
-def build_v5(args, qps, device):
+def build_v5(args, qps, device, mesh=None):
     """The v5 pipeline and the QPs it takes: the bundle's ``qps`` / 255 for a
     QP-conditioned checkpoint (a ``qp_embed`` tree), else None."""
     variables = load_model_variables(args.v5_checkpoint)
     use_qp = "qp_embed" in variables.get("params", {})
     if use_qp:
-        print("QP-conditioned v5 checkpoint: feeding per-sample QPs")
+        cli_log("QP-conditioned v5 checkpoint: feeding per-sample QPs")
     model = load_jax_variables(HierarchicalModel(use_qp=use_qp), variables).eval()
     predict = make_v5_pipeline(
         model, stage1_threshold=args.stage1_threshold,
         available_specialists=tuple(args.available_specialists), device=device,
+        mesh=mesh,
     )
     return predict, (qps.astype(np.float32) / 255.0 if use_qp else None)
 
 
-def build_flatten(args, dtype, device):
+def build_flatten(args, dtype, device, mesh=None):
     return make_flatten_pipeline(
         load_model(args.stage1_checkpoint, Stage1Model),
         load_model(args.flatten_checkpoint, Stage2FlatModel),
         stage1_threshold=args.stage1_threshold, input_dtype=dtype, device=device,
+        mesh=mesh,
     )
 
 
@@ -287,7 +293,7 @@ def resolve_capacity(parser, args) -> None:
             parser.error("--capacity auto requires --calibration-dir")
         rows, _ = load_sweep(args.calibration_dir)
         args.capacity = auto_capacity(rows, args.stage1_threshold, args.capacity_margin)
-        print(f"auto capacity: {args.capacity:.3f} "
+        cli_log(f"auto capacity: {args.capacity:.3f} "
               f"(gate rate @ th {args.stage1_threshold} + "
               f"{args.capacity_margin:.0%} margin)")
         return
@@ -331,6 +337,7 @@ def main(argv=None) -> None:
     if args.device == "cuda" and not torch.cuda.is_available():
         parser.error("--device cuda: no CUDA device is available")
     device = torch.device(args.device)
+    mesh = serving_mesh(args)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
 
     train_b, val_b, _ = load_split(args.dataset_dir, args.block_size)
@@ -342,22 +349,25 @@ def main(argv=None) -> None:
                          if args.int8 else None)
     qps = None  # per-sample QPs for a QP-conditioned v5 checkpoint
     if args.variant == "v5":
-        predict, qps = build_v5(args, bundle.qps, device)
+        predict, qps = build_v5(args, bundle.qps, device, mesh)
         class_names = [PARTITION_ID_TO_NAME[i] for i in range(10)]
     elif args.variant == "flatten":
         # raw partition ids: the flatten classes map onto them
-        predict = build_flatten(args, dtype, device)
+        predict = build_flatten(args, dtype, device, mesh)
         class_names = [PARTITION_ID_TO_NAME[i].replace("PARTITION_", "")
                        for i in range(8)]
     else:
         build = build_v6 if args.variant == "v6" else build_unified
-        predict = build(args, dtype, device)
+        predict = build(args, dtype, device, mesh)
         class_names = list(V6_EVAL_CLASS_NAMES)
 
     start = time.perf_counter()
-    out = run_pipeline_batched(predict, bundle.samples, args.batch_size, device, qps=qps)
+    out = run_pipeline_batched(predict, bundle.samples, args.batch_size, device, qps=qps,
+                               mesh=mesh)
     seconds = time.perf_counter() - start
     throughput = len(bundle) / seconds
+    if not is_writer():  # every rank holds the whole result; rank 0 reports it
+        return
 
     raw_labels = bundle.labels["stage0"]
     v6_family = args.variant in ("v6", "unified")

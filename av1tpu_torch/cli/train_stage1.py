@@ -18,8 +18,10 @@ import torch
 from av1tpu_torch.cli.common import (
     add_common_train_args,
     check_train_args,
+    cli_log,
     export_best,
     load_split,
+    make_cli_mesh,
     write_history,
 )
 from av1tpu_torch.train.stages import stage1_recipe, train_stage, v5_stage1_recipe
@@ -42,6 +44,7 @@ def main(argv=None) -> None:
                         "(the reference kept it dormant, quirk Q6)")
     args = parser.parse_args(argv)
     check_train_args(parser, args)
+    mesh = make_cli_mesh(args.num_model_shards)
 
     train_b, val_b, _ = load_split(args.dataset_dir, args.block_size)
     steps_per_epoch = max(len(train_b) // args.batch_size, 1)
@@ -60,10 +63,11 @@ def main(argv=None) -> None:
     recipe = replace(recipe, input_shape=(args.block_size, args.block_size, 1))
     result = train_stage(recipe, train_b, val_b, seed=args.seed,
                          checkpoint_dir=args.output_dir, resume_from=args.resume,
-                         checkpoint_every=args.checkpoint_every, device=args.device)
+                         checkpoint_every=args.checkpoint_every, device=args.device, mesh=mesh,
+                         log=cli_log)
     export_best(result, recipe.name, args.output_dir)
     write_history(result, args.output_dir, recipe.name)
-    print(f"best val {recipe.best_metric}: {result.best_value:.4f}")
+    cli_log(f"best val {recipe.best_metric}: {result.best_value:.4f}")
 
 
 if __name__ == "__main__":

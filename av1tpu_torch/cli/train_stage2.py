@@ -23,9 +23,11 @@ import torch
 from av1tpu_torch.cli.common import (
     add_common_train_args,
     check_train_args,
+    cli_log,
     export_best,
     load_model_variables,
     load_split,
+    make_cli_mesh,
     write_history,
 )
 from av1tpu_torch.data.bundles import class_counts, filter_stage2_v6
@@ -63,7 +65,7 @@ def seed_from_stage1(fresh: dict, stage1_vars: dict, variant: str):
             for k in list(col):
                 if k in src and tree_shapes(src[k]) == tree_shapes(col[k]):
                     col[k] = src[k]
-        print("seeded full v5 state from stage-1 checkpoint (010:111-115)")
+        cli_log("seeded full v5 state from stage-1 checkpoint (010:111-115)")
         return init_params, init_stats
     flat = "backbone" not in fresh["params"]
     transplant = transplant_flat_backbone if flat else transplant_backbone
@@ -72,13 +74,13 @@ def seed_from_stage1(fresh: dict, stage1_vars: dict, variant: str):
         init_stats = transplant(fresh["batch_stats"], stage1_vars.get("batch_stats", {}),
                                 prefix="backbone")
     except (KeyError, ValueError) as exc:
-        print(f"backbone transplant skipped: {exc}")
+        cli_log(f"backbone transplant skipped: {exc}")
         return None, None
     if flat:
         names = sorted(f"backbone_{x}" for x in stage1_vars["params"]["backbone"])
-        print(f"seeded {', '.join(names)} from stage-1 checkpoint's backbone/<x>")
+        cli_log(f"seeded {', '.join(names)} from stage-1 checkpoint's backbone/<x>")
     else:
-        print("seeded backbone from stage-1 checkpoint")
+        cli_log("seeded backbone from stage-1 checkpoint")
     return init_params, init_stats
 
 
@@ -100,6 +102,7 @@ def main(argv=None) -> None:
     parser.add_argument("--stage1-threshold", type=float, default=0.45)
     args = parser.parse_args(argv)
     check_train_args(parser, args)
+    mesh = make_cli_mesh(args.num_model_shards)
 
     train_b, val_b, _ = load_split(args.dataset_dir, args.block_size)
     train_b = filter_stage2_v6(train_b)
@@ -116,7 +119,7 @@ def main(argv=None) -> None:
         train_b = filter_through_stage1(
             train_b, load_jax_variables(Stage1Model(), stage1_vars),
             threshold=args.stage1_threshold, device=args.device, dtype=dtype)
-        print(f"pipeline-aware filter: {before} -> {len(train_b)} samples")
+        cli_log(f"pipeline-aware filter: {before} -> {len(train_b)} samples")
 
     counts = class_counts(train_b.labels["stage2"], 3)
     steps_per_epoch = max(len(train_b) // args.batch_size, 1)
@@ -144,10 +147,11 @@ def main(argv=None) -> None:
     result = train_stage(recipe, train_b, val_b, seed=args.seed, init_params=init_params,
                          init_batch_stats=init_stats, checkpoint_dir=args.output_dir,
                          resume_from=args.resume, checkpoint_every=args.checkpoint_every,
-                         device=args.device)
+                         device=args.device, mesh=mesh,
+                         log=cli_log)
     export_best(result, recipe.name, args.output_dir)
     write_history(result, args.output_dir, recipe.name)
-    print(f"best val {recipe.best_metric}: {result.best_value:.4f}")
+    cli_log(f"best val {recipe.best_metric}: {result.best_value:.4f}")
 
 
 if __name__ == "__main__":

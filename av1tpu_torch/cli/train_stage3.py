@@ -26,9 +26,11 @@ import torch
 from av1tpu_torch.cli.common import (
     add_common_train_args,
     check_train_args,
+    cli_log,
     export_best,
     load_model_variables,
     load_split,
+    make_cli_mesh,
     write_history,
 )
 from av1tpu_torch.data.bundles import Bundle, class_counts, filter_stage3
@@ -36,13 +38,14 @@ from av1tpu_torch.data.noise import build_noisy_bundle
 from av1tpu_torch.eval.ensemble import save_ensemble
 from av1tpu_torch.models import FGVCModel, load_jax_variables
 from av1tpu_torch.models.layers import init_like_flax
+from av1tpu_torch.parallel.mesh import is_writer, place_params
 from av1tpu_torch.train.checkpoint import save_variables_npz, tree_shapes
 from av1tpu_torch.train.fgvc_step import (
     create_fgvc_state,
     make_fgvc_eval_step,
     make_fgvc_train_step,
 )
-from av1tpu_torch.train.schedules import adamw, cosine_schedule
+from av1tpu_torch.train.schedules import TrainOptimizer, adamw, cosine_schedule
 from av1tpu_torch.train.stages import (
     epoch_seeds,
     squared_inverse_freq_weights,
@@ -80,7 +83,7 @@ def _load_stage2_vars(args):
     if args.stage2_checkpoint is None:
         return None
     if not Path(args.stage2_checkpoint).exists():
-        print(f"stage2 checkpoint {args.stage2_checkpoint} not found; training from scratch")
+        cli_log(f"stage2 checkpoint {args.stage2_checkpoint} not found; training from scratch")
         return None
     return load_model_variables(args.stage2_checkpoint)
 
@@ -114,11 +117,11 @@ def _stage2_init(model_factory, stage2_vars, seed: int, v5: bool = False):
         return None, None
     fresh = variables_of(init_like_flax(model_factory(), torch.Generator().manual_seed(seed)))
     params, stats = _graft_stage2(fresh, stage2_vars, v5=v5)
-    print("stage-2 weights grafted into stage-3 init")
+    cli_log("stage-2 weights grafted into stage-3 init")
     return params, stats
 
 
-def train_fgvc(args, train_b: Bundle, val_b: Bundle, stage2_vars=None) -> None:
+def train_fgvc(args, train_b: Bundle, val_b: Bundle, stage2_vars=None, mesh=None) -> None:
     """The production AB path: the FGVC model with CutMix CE and the center
     loss (``train.fgvc_step``), balanced epochs, device-resident when the
     data fits; the best epoch's variables and centers go to
@@ -133,11 +136,14 @@ def train_fgvc(args, train_b: Bundle, val_b: Bundle, stage2_vars=None) -> None:
     if stage2_vars is not None:  # 006:697-702: FGVC starts from the stage-2 backbone
         params, stats = _graft_stage2(variables_of(model), stage2_vars, v5=False)
         load_jax_variables(model, {"params": params, "batch_stats": stats})
-        print("stage-2 backbone grafted into FGVC init (006:697-702)")
+        cli_log("stage-2 backbone grafted into FGVC init (006:697-702)")
     arrays = {"samples": train_b.samples, "stage3_AB": train_b.labels["stage3_AB"]}
     val_arrays = {"samples": val_b.samples, "stage3_AB": val_b.labels["stage3_AB"]}
+    if mesh is not None:  # the optimizer is rebuilt over the sharded parameters
+        place_params(model, mesh)
+        state.optimizer = TrainOptimizer([("all", [*model.parameters(), state.centers], spec)])
     train_step = make_fgvc_train_step(model, state.optimizer, state.centers,
-                                      compute_dtype=dtype)
+                                      compute_dtype=dtype, mesh=mesh)
     eval_step = make_fgvc_eval_step(model, compute_dtype=dtype)
     resident = resident_eligible(arrays)
     if resident:
@@ -145,7 +151,6 @@ def train_fgvc(args, train_b: Bundle, val_b: Bundle, stage2_vars=None) -> None:
         device_val, n_val = resident_eval_arrays(val_arrays, device)
 
     best, history = -np.inf, []
-    args.output_dir.mkdir(parents=True, exist_ok=True)
     for epoch in range(epochs):
         aug_seed, dropout_seed = epoch_seeds(args.seed + 1, epoch)
         gen = torch.Generator(device=device).manual_seed(aug_seed)
@@ -160,16 +165,16 @@ def train_fgvc(args, train_b: Bundle, val_b: Bundle, stage2_vars=None) -> None:
                 state, tr = run_train_epoch(
                     train_step, state, arrays, args.batch_size, gen,
                     epoch_seed=args.seed + epoch, num_classes=4,
-                    balance_labels=arrays["stage3_AB"], device=device)
+                    balance_labels=arrays["stage3_AB"], device=device, mesh=mesh)
         if resident:
             ev = run_eval_resident(eval_step, state, device_val, n_val, args.batch_size, 4)
         else:
-            ev = run_eval(eval_step, state, val_arrays, args.batch_size, 4, device)
+            ev = run_eval(eval_step, state, val_arrays, args.batch_size, 4, device, mesh)
         value = ev.metrics["macro_f1"]
         history.append({"epoch": epoch, "train_loss": tr.loss, "val_loss": ev.loss,
                         "val_metrics": ev.metrics, "throughput": tr.throughput,
                         "train_seconds": tr.seconds})
-        print(f"[stage3_ab_fgvc] epoch {epoch}: loss={tr.loss:.4f} val_macro_f1={value:.4f}")
+        cli_log(f"[stage3_ab_fgvc] epoch {epoch}: loss={tr.loss:.4f} val_macro_f1={value:.4f}")
         if value > best:
             best = value
             save_variables_npz(
@@ -177,8 +182,11 @@ def train_fgvc(args, train_b: Bundle, val_b: Bundle, stage2_vars=None) -> None:
                 {**variables_of(model),
                  "centers": {"centers": state.centers.detach().cpu().numpy()}},
                 compress=False)
-    (args.output_dir / "stage3_ab_fgvc_history.json").write_text(json.dumps(history, indent=2))
-    print(f"best val macro_f1: {best:.4f}")
+    if is_writer():
+        args.output_dir.mkdir(parents=True, exist_ok=True)
+        (args.output_dir / "stage3_ab_fgvc_history.json").write_text(
+            json.dumps(history, indent=2))
+    cli_log(f"best val macro_f1: {best:.4f}")
 
 
 def _noisy_train(parser, args, train_b: Bundle, label_key: str, num_classes: int) -> Bundle:
@@ -203,11 +211,11 @@ def _noisy_train(parser, args, train_b: Bundle, label_key: str, num_classes: int
     train_b = build_noisy_bundle(train_b, sources, label_key=label_key,
                                  num_label_classes=num_classes, noise_ratio=args.noise_ratio,
                                  seed=args.seed, label_distribution=label_dist)
-    print(f"noise injection: ratio={args.noise_ratio}, total={len(train_b)} samples")
+    cli_log(f"noise injection: ratio={args.noise_ratio}, total={len(train_b)} samples")
     return train_b
 
 
-def _train_ensemble(args, stage2_vars) -> None:
+def _train_ensemble(args, stage2_vars, mesh=None) -> None:
     """``--ensemble N``: N plain AB members, member i on ``train_v<i>`` from
     seed ``seed + 100 i``, each with its fresh head and the shared stage-2
     backbone (ensemble reference 265-271); the best states go to
@@ -226,13 +234,15 @@ def _train_ensemble(args, stage2_vars) -> None:
         m_params, m_stats = _stage2_init(recipe.model, stage2_vars, seed)
         result = train_stage(recipe, m_train, m_val, seed=seed, init_params=m_params,
                              init_batch_stats=m_stats, checkpoint_dir=args.output_dir,
-                             checkpoint_every=args.checkpoint_every, device=args.device)
+                             checkpoint_every=args.checkpoint_every, device=args.device,
+                             mesh=mesh,                         log=cli_log)
         export_best(result, recipe.name, args.output_dir)
         write_history(result, args.output_dir, recipe.name)
         if result.best_state is not None:
             members.append(variables_of(result.best_state.model))
-    save_ensemble(args.output_dir / "ensemble", members,
-                  meta={"members": len(members), "epochs": total_epochs})
+    if is_writer():
+        save_ensemble(args.output_dir / "ensemble", members,
+                      meta={"members": len(members), "epochs": total_epochs})
 
 
 def main(argv=None) -> None:
@@ -254,6 +264,7 @@ def main(argv=None) -> None:
     parser.add_argument("--stage2-checkpoint", type=Path, default=None)
     args = parser.parse_args(argv)
     check_train_args(parser, args)
+    mesh = make_cli_mesh(args.num_model_shards)
 
     train_b, val_b = load_head_split(args.dataset_dir, args.head, args.block_size)
     if len(train_b) == 0 or len(val_b) == 0:
@@ -271,10 +282,10 @@ def main(argv=None) -> None:
     stage2_vars = _load_stage2_vars(args)
 
     if args.head == "AB" and args.fgvc:
-        train_fgvc(args, train_b, val_b, stage2_vars)
+        train_fgvc(args, train_b, val_b, stage2_vars, mesh)
         return
     if args.head == "AB" and args.ensemble:
-        _train_ensemble(args, stage2_vars)
+        _train_ensemble(args, stage2_vars, mesh)
         return
 
     if args.variant == "v5":
@@ -300,10 +311,11 @@ def main(argv=None) -> None:
     result = train_stage(recipe, train_b, val_b, seed=args.seed, init_params=init_params,
                          init_batch_stats=init_stats, checkpoint_dir=args.output_dir,
                          resume_from=args.resume, checkpoint_every=args.checkpoint_every,
-                         device=args.device)
+                         device=args.device, mesh=mesh,
+                         log=cli_log)
     export_best(result, recipe.name, args.output_dir)
     write_history(result, args.output_dir, recipe.name)
-    print(f"best val {recipe.best_metric}: {result.best_value:.4f}")
+    cli_log(f"best val {recipe.best_metric}: {result.best_value:.4f}")
 
 
 if __name__ == "__main__":

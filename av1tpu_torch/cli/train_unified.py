@@ -28,9 +28,11 @@ import torch
 from av1tpu_torch.cli.common import (
     add_common_train_args,
     check_train_args,
+    cli_log,
     export_best,
     load_model,
     load_split,
+    make_cli_mesh,
     write_history,
 )
 from av1tpu_torch.data.bundles import class_counts
@@ -92,6 +94,7 @@ def main(argv=None) -> None:
     parser.add_argument("--no-ab-fgvc", dest="ab_fgvc", action="store_false")
     args = parser.parse_args(argv)
     check_train_args(parser, args)
+    mesh = make_cli_mesh(args.num_model_shards)
 
     train_b, val_b, _ = load_split(args.dataset_dir, args.block_size)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
@@ -102,7 +105,7 @@ def main(argv=None) -> None:
             parser.error("--distill-weight requires the four teacher checkpoints: "
                          + ", ".join("--" + m.replace("_", "-") for m in missing))
         teachers = _load_teachers(args)
-        print(f"computing dense teacher logits ({len(train_b)} train + {len(val_b)} val "
+        cli_log(f"computing dense teacher logits ({len(train_b)} train + {len(val_b)} val "
               "rows) ...")
         teacher_train, teacher_val = (
             compute_teacher_logits(teachers, b.samples, batch_size=args.teacher_batch_size,
@@ -122,10 +125,11 @@ def main(argv=None) -> None:
     recipe = replace(recipe, input_shape=(args.block_size, args.block_size, 1))
     result = train_stage(recipe, train_b, val_b, seed=args.seed,
                          checkpoint_dir=args.output_dir, resume_from=args.resume,
-                         checkpoint_every=args.checkpoint_every, device=args.device)
+                         checkpoint_every=args.checkpoint_every, device=args.device, mesh=mesh,
+                         log=cli_log)
     export_best(result, recipe.name, args.output_dir)
     write_history(result, args.output_dir, recipe.name)
-    print(f"best val {recipe.best_metric}: {result.best_value:.4f}")
+    cli_log(f"best val {recipe.best_metric}: {result.best_value:.4f}")
 
 
 if __name__ == "__main__":

@@ -457,24 +457,36 @@ __device__ __forceinline__ void block_s1_mma(bf16* a_hi, bf16* a_lo, bf16* h_hi,
 }
 
 // The SE gates of SPB samples of PS positions x CH channels at pitch IP:
-// gate[s][c] = sigmoid(d1 . relu(d0 . mean_p a[s][p])). `hid` is SPB x HID.
+// gate[s][c] = sigmoid(d1 . relu(d0 . mean_p a[s][p])). `hid` is SPB x HID;
+// with fewer items than threads (E = 16) the positions are split in PARTS,
+// whose sums lie after `hid` and are added in part order: the mean, and so
+// the kernel's output, is the same on every run and at every batch size.
 template <int PS, int CH, int HID, int SPB, int IP>
 __device__ void se_gate_mma(const bf16* a_hi, const bf16* a_lo, const bf16* d0, const bf16* d1,
                             float* gate, float* hid) {
   constexpr int ITEMS = SPB * CH;
   constexpr int PARTS = ITEMS >= THREADS ? 1 : THREADS / ITEMS;  // splits of the positions
   static_assert(PS % PARTS == 0, "positions must split evenly");
-  for (int i = threadIdx.x; i < ITEMS; i += THREADS) gate[i] = 0.f;
-  __syncthreads();
+  static_assert(SPB * (CH + HID) + (PARTS > 1 ? PARTS * ITEMS : 0) <= PLANE / 2,
+                "the SE scratch fits in the mid-block plane");
+  float* part_sums = hid + SPB * HID;  // PARTS x ITEMS, when PARTS > 1
   for (int i = threadIdx.x; i < ITEMS * PARTS; i += THREADS) {
     const int item = i % ITEMS, part = i / ITEMS;
     const int base = ((item / CH) * PS + part * (PS / PARTS)) * IP + item % CH;
     float sum = 0.f;
     for (int p = 0; p < PS / PARTS; ++p)
       sum += __bfloat162float(a_hi[base + p * IP]) + __bfloat162float(a_lo[base + p * IP]);
-    if (PARTS == 1) gate[item] = sum; else atomicAdd(gate + item, sum);
+    if (PARTS == 1) gate[item] = sum; else part_sums[part * ITEMS + item] = sum;
   }
   __syncthreads();
+  if (PARTS > 1) {
+    for (int i = threadIdx.x; i < ITEMS; i += THREADS) {
+      float sum = 0.f;
+      for (int part = 0; part < PARTS; ++part) sum += part_sums[part * ITEMS + i];
+      gate[i] = sum;
+    }
+    __syncthreads();
+  }
   for (int i = threadIdx.x; i < SPB * HID; i += THREADS) {
     const float* gs = gate + (i / HID) * CH;
     const bf16* w = d0 + (i % HID) * CH;

@@ -108,10 +108,13 @@ def make_v6_pipeline_folded(
     ``predict(images_u16) -> dict``, the output contract of
     ``make_v6_pipeline``. ``use_fused_front`` is False, True (K1) or
     ``"g1"`` (K2). ``use_pallas_groups`` (the JAX package's name) selects
-    kernel K5 for layer groups 1 and 2 with their SE gates."""
+    kernel K5 for layer groups 1 and 2 with their SE gates. With ``mesh``
+    (``parallel.mesh``) each rank holds the folded stages on its own
+    ``device`` and runs its rows of every batch there, the kernels
+    included; the JAX package's ``shard_map`` wrappers have no counterpart
+    here (``run_pipeline_batched(mesh=...)`` does the slicing and the
+    gather)."""
     check_fused_front_option(use_fused_front)
-    if mesh is not None:
-        raise NotImplementedError("multi-device inference waits for ROADMAP M11")
     device = torch.device(device)
     fns = [
         _folded_stage_fn(m, float_dtype, use_fused_front, use_pallas_groups, device)

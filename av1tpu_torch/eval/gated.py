@@ -20,10 +20,12 @@ from __future__ import annotations
 from typing import Callable, Dict
 
 import torch
+import torch.distributed as dist
 
 from av1tpu_torch.data.records import NORM_10BIT
 from av1tpu_torch.eval.folded import _folded_stage_fn
 from av1tpu_torch.eval.hierarchy import PipelineModels, on_device, v6_route
+from av1tpu_torch.parallel.mesh import DATA_AXIS, axis_group, gather_group, local_rows
 from av1tpu_torch.quant.ptq import is_plain_stage
 
 
@@ -81,12 +83,18 @@ def make_v6_pipeline_gated(
     the K places. ``predict.accepts_valid`` tells ``run_pipeline_batched`` to
     pad the last batch and pass it. ``folded`` runs each stage's BN-folded
     forward (``eval.folded``) without the fused kernels, as the JAX package
-    does; an FGVC AB stage runs through its own forward."""
+    does; an FGVC AB stage runs through its own forward.
+
+    With ``mesh`` (``parallel.mesh``) ``images`` are this rank's rows of the
+    batch and ``valid`` the batch's count of real rows: the stage-1
+    probabilities are gathered over the data group, so that K and the top-K
+    are taken over the global batch, stages 2 and 3 run on each rank's share
+    of the K rows, and the per-sample outputs come back as this rank's rows
+    (``overflow`` is global). A rank-local top-K would give other labels."""
     if not 0.0 < capacity <= 1.0:
         raise ValueError("capacity must be in (0, 1]")
-    if mesh is not None:
-        raise NotImplementedError("multi-device inference waits for ROADMAP M11")
     device = torch.device(device)
+    group = axis_group(mesh, DATA_AXIS)
     if folded:
         f1, stage2_fn, rect_fn = (
             _folded_stage_fn(m, input_dtype, False, False, device)
@@ -104,14 +112,37 @@ def make_v6_pipeline_gated(
             on_device(m, device, input_dtype) for m in (
                 models.stage1, models.stage2, models.stage3_rect, models.stage3_ab))
 
+    def normalized(images):
+        return (images.to(torch.float32) / norm_scale).to(input_dtype)
+
+    def selected_heads(x_sel):
+        s2 = torch.argmax(stage2_fn(x_sel), dim=-1).to(torch.int32)
+        rect = torch.argmax(rect_fn(x_sel), dim=-1).to(torch.int32)
+        ab = torch.argmax(ab_fn(x_sel), dim=-1).to(torch.int32)
+        return s2, v6_route(torch.ones_like(s2), s2, rect, ab)
+
+    def sharded_heads(images, topk_idx):
+        """Stages 2 and 3 on the K selected rows of the global batch, each
+        data rank on its contiguous share of them (the index padded with its
+        first entry to a multiple of the ranks), the results gathered."""
+        ranks, rank = dist.get_world_size(group), dist.get_rank(group)
+        k = topk_idx.shape[0]
+        per = -(-k // ranks)
+        idx = torch.cat([topk_idx, topk_idx[:1].expand(per * ranks - k)])
+        x_all = normalized(gather_group(images, group))
+        s2, final = selected_heads(x_all.index_select(0, idx[rank * per:(rank + 1) * per]))
+        return gather_group(s2, group)[:k], gather_group(final, group)[:k]
+
     @torch.inference_mode()
     def predict(images: torch.Tensor, valid=None) -> Dict[str, torch.Tensor]:
-        n = images.shape[0]
+        x = normalized(images)
+        # Under a mesh the gate runs on this rank's rows and the K places
+        # are taken over the global batch, as one process takes them.
+        s1_prob = gather_group(torch.sigmoid(stage1_fn(x).float()), group)
+        n = s1_prob.shape[0]
         if valid is None:
             valid = n
         k = max(1, int(-(-capacity * n // 1)))  # ceil, as the JAX package computes it
-        x = (images.to(torch.float32) / norm_scale).to(input_dtype)
-        s1_prob = torch.sigmoid(stage1_fn(x).float())
         # Padding rows (run_pipeline_batched repeats the tail's first row)
         # must never take one of the K places from a real gate-passing row.
         row_ok = torch.arange(n, device=x.device) < valid
@@ -119,12 +150,10 @@ def make_v6_pipeline_gated(
         order = torch.argsort(torch.where(row_ok, s1_prob, -1.0),
                               descending=True, stable=True)
         topk_idx = order[:k]
-        x_sel = x.index_select(0, topk_idx)
-
-        s2_pred_k = torch.argmax(stage2_fn(x_sel), dim=-1).to(torch.int32)
-        rect_pred_k = torch.argmax(rect_fn(x_sel), dim=-1).to(torch.int32)
-        ab_pred_k = torch.argmax(ab_fn(x_sel), dim=-1).to(torch.int32)
-        final_k = v6_route(torch.ones_like(s2_pred_k), s2_pred_k, rect_pred_k, ab_pred_k)
+        if group is None:
+            s2_pred_k, final_k = selected_heads(x.index_select(0, topk_idx))
+        else:
+            s2_pred_k, final_k = sharded_heads(images, topk_idx)
 
         # scatter back; unselected gate-passers fall back to SPLIT (1)
         final = torch.ones((n,), dtype=torch.int32, device=x.device)
@@ -134,10 +163,10 @@ def make_v6_pipeline_gated(
         s2_full[topk_idx] = s2_pred_k
         overflow = ((s1_pred == 1) & (s2_full < 0)).sum().to(torch.int32)
         return {
-            "final": final,
-            "stage1_prob": s1_prob,
-            "stage1_pred": s1_pred,
-            "stage2_pred": s2_full,
+            "final": local_rows(final, group),
+            "stage1_prob": local_rows(s1_prob, group),
+            "stage1_pred": local_rows(s1_pred, group),
+            "stage2_pred": local_rows(s2_full, group),
             "overflow": overflow,
         }
 

@@ -1,5 +1,5 @@
 """Dense hierarchical inference (v6, v5, flatten) and batched streaming on
-one device.
+one device or over a mesh's data axis.
 
 Counterpart of ``av1tpu.eval.hierarchy``: all four stage models run on the
 whole batch and ``v6_route`` resolves the hierarchy with masks, so the
@@ -26,6 +26,13 @@ from torch import nn
 from av1tpu_torch.codec.partitions import flatten_to_raw
 from av1tpu_torch.data.records import NORM_10BIT
 from av1tpu_torch.models.jax_import import load_jax_variables
+from av1tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    axis_group,
+    axis_size,
+    gather_group,
+    shard_batch,
+)
 from av1tpu_torch.quant.ptq import _sigmoid  # XLA's sigmoid, rounded op by op
 from av1tpu_torch.train.augment import align_tta_ab_logits, tta_views
 
@@ -129,13 +136,13 @@ def make_v6_pipeline(
     VERT_A/VERT_B evidence pools instead of cancelling. ``ab_ensemble_vars``
     replaces the single AB model with soft voting (the mean of the members'
     softmax) over checkpoint variable trees of ``models.stage3_ab``'s class,
-    in the layout ``cli.common.load_model_variables`` returns."""
+    in the layout ``cli.common.load_model_variables`` returns. With
+    ``mesh`` (``parallel.mesh``) the models stay replicated on this rank's
+    ``device``; ``run_pipeline_batched(mesh=...)`` gives each rank its rows."""
     if stacked:
         raise NotImplementedError(
             "stacked backbones are not ported (ROADMAP Queue 1, 'Drop, don't port')"
         )
-    if mesh is not None:
-        raise NotImplementedError("multi-device inference waits for ROADMAP M11")
     s1, s2, s3r, s3a = (on_device(m, device, input_dtype) for m in (
         models.stage1, models.stage2, models.stage3_rect, models.stage3_ab
     ))
@@ -179,9 +186,8 @@ def make_v5_pipeline(
     the RECT head gives 1 + its argmax, AB 4 + its argmax, 1TO4 8 + its
     argmax. A specialist missing from ``available_specialists`` falls back to
     its group's first member (1, 4, 8). ``qp`` (per sample, normalized as in
-    training) reaches a QP-conditioned model and is ignored by any other."""
-    if mesh is not None:
-        raise NotImplementedError("multi-device inference waits for ROADMAP M11")
+    training) reaches a QP-conditioned model and is ignored by any other.
+    ``mesh``: the model stays replicated on this rank's ``device``."""
     model = on_device(model, device, torch.float32)
     has = {head: head in available_specialists for head in ("RECT", "AB", "1TO4")}
 
@@ -228,9 +234,8 @@ def make_flatten_pipeline(
     device): ``predict(images_u16) -> dict`` on ``device``. Stage 1 runs
     without its temperature. In ``input_dtype`` (the models cast to it, as
     ``make_v6_pipeline`` does) the gate's sigmoid and threshold work in that
-    dtype, as the JAX graph's do; ``stage1_prob`` comes back as fp32."""
-    if mesh is not None:
-        raise NotImplementedError("multi-device inference waits for ROADMAP M11")
+    dtype, as the JAX graph's do; ``stage1_prob`` comes back as fp32.
+    ``mesh``: the models stay replicated on this rank's ``device``."""
     s1 = on_device(stage1_model, device, input_dtype)
     flat = on_device(flat_model, device, input_dtype)
     remap = torch.as_tensor(flatten_to_raw(np.arange(7)), dtype=torch.int32,
@@ -292,6 +297,7 @@ def run_pipeline_batched(
     device="cuda",
     as_numpy: bool = True,
     qps=None,
+    mesh=None,
 ) -> Dict[str, np.ndarray]:
     """Stream a dataset through ``predict_fn`` in batches of ``batch_size``
     on one device (the card unless the caller passes ``"cpu"``; ``"cuda"``
@@ -311,10 +317,22 @@ def run_pipeline_batched(
 
     ``qps`` (per sample, for a QP-conditioned v5 predictor, normalized as in
     training: qp / 255) is sliced and uploaded beside ``samples`` and passed
-    as the predictor's second argument; ``accepts_valid`` takes precedence."""
+    as the predictor's second argument; ``accepts_valid`` takes precedence.
+
+    With ``mesh`` (``parallel.mesh``; every rank calls with the same
+    ``samples``) ``batch_size`` rounds up to a multiple of the data axis,
+    every batch is padded on the device to ``batch_size`` rows (copies of its
+    first row), each rank runs its contiguous slice of every batch, and the
+    outputs are all-gathered over the data group, so that every rank returns
+    the whole result, as the JAX package replicates it. ``valid`` is then
+    the batch's count of real rows; a 0-d output is the same on every rank.
+    A mesh with one data rank streams as no mesh does."""
     device = torch.device(device)
     n = int(samples.shape[0])
     accepts_valid = getattr(predict_fn, "accepts_valid", False)
+    if axis_size(mesh, DATA_AXIS) > 1:
+        return _run_sharded(predict_fn, samples, batch_size, device, as_numpy, qps, mesh,
+                            accepts_valid)
     staging = None
     if isinstance(samples, np.ndarray) and device.type == "cuda":
         staging = _Staging((min(batch_size, n),) + samples.shape[1:],
@@ -337,6 +355,38 @@ def run_pipeline_batched(
         else:
             result = predict_fn(chunk)
         for key, value in result.items():
+            outputs.setdefault(key, []).append(value)
+    gathered = {k: torch.cat([torch.atleast_1d(t) for t in v])[:n]
+                for k, v in outputs.items()}
+    if not as_numpy:
+        return gathered
+    return {k: v.cpu().numpy() for k, v in gathered.items()}
+
+
+def _run_sharded(predict_fn, samples, batch_size, device, as_numpy, qps, mesh,
+                 accepts_valid) -> Dict[str, np.ndarray]:
+    """``run_pipeline_batched`` over the data axis of ``mesh``."""
+    n = int(samples.shape[0])
+    num_data = axis_size(mesh, DATA_AXIS)
+    batch_size = -(-batch_size // num_data) * num_data
+    group = axis_group(mesh, DATA_AXIS)
+    outputs: Dict[str, List[torch.Tensor]] = {}
+    for start in range(0, n, batch_size):
+        chunk = samples[start:start + batch_size]
+        valid = int(chunk.shape[0])
+        if isinstance(chunk, np.ndarray):
+            chunk = torch.from_numpy(np.ascontiguousarray(chunk))
+        chunk = shard_batch(_pad_rows(chunk.to(device), batch_size), mesh)
+        if accepts_valid:
+            result = predict_fn(chunk, valid)
+        elif qps is not None:
+            q = torch.as_tensor(qps[start:start + batch_size]).to(device)
+            result = predict_fn(chunk, shard_batch(_pad_rows(q, batch_size), mesh))
+        else:
+            result = predict_fn(chunk)
+        for key, value in result.items():
+            if value.dim() > 0:
+                value = gather_group(value, group)
             outputs.setdefault(key, []).append(value)
     gathered = {k: torch.cat([torch.atleast_1d(t) for t in v])[:n]
                 for k, v in outputs.items()}

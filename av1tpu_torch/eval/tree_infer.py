@@ -81,7 +81,12 @@ def predict_partition_trees(
     truncating that subtree. Among equally alive (or equally dead) nodes the
     selection takes the lowest indices first, as ``jax.lax.top_k`` does, so
     both packages evaluate the same nodes. Level 64 is always dense (every
-    root is alive)."""
+    root is alive).
+
+    ``mesh`` (``parallel.mesh``; every rank passes the same superblocks and
+    predictors built with the same mesh) shards every level's batches over
+    the data axis. Each level's outputs come back whole on every rank, so
+    the node selection of the next level is the same everywhere."""
     missing = [s for s in LEVEL_SIZES if s not in level_predictors]
     if missing:
         raise ValueError(f"missing level predictors for sizes: {missing}")
@@ -89,9 +94,6 @@ def predict_partition_trees(
     bad = {s: c for s, c in caps.items() if not 0.0 < c <= 1.0}
     if bad:
         raise ValueError(f"level capacities must be in (0, 1]: {bad}")
-    if mesh is not None:
-        raise NotImplementedError("multi-device inference waits for ROADMAP M11")
-
     device = torch.device(device)
     if isinstance(superblocks, np.ndarray):
         superblocks = torch.from_numpy(np.ascontiguousarray(superblocks))
@@ -120,7 +122,7 @@ def predict_partition_trees(
             out = run_pipeline_batched(
                 level_predictors[size],
                 blocks.index_select(0, idx).view(torch.uint16),
-                batch_size=level_batch, device=device, as_numpy=False,
+                batch_size=level_batch, device=device, as_numpy=False, mesh=mesh,
             )
             final = torch.zeros((total,), dtype=out["final"].dtype, device=device)
             final[idx] = out["final"]
@@ -135,7 +137,7 @@ def predict_partition_trees(
             level_batch = min(batch_size, -(-total // 256) * 256)
             out = run_pipeline_batched(
                 level_predictors[size], blocks.view(torch.uint16),
-                batch_size=level_batch, device=device, as_numpy=False,
+                batch_size=level_batch, device=device, as_numpy=False, mesh=mesh,
             )
             final = out["final"]
         raw_modes = remap[final.long()].reshape(n, nodes)

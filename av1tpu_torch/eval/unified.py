@@ -93,9 +93,8 @@ def make_unified_pipeline(
     frame's class order before averaging
     (``train.augment.align_tta_ab_logits``). Stage-1/2 targets do not depend
     on the view and RECT is invariant under these four views (hflip/vflip/
-    rot180 preserve HORZ vs VERT), so only AB needs the remap."""
-    if mesh is not None:
-        raise NotImplementedError("multi-device inference waits for ROADMAP M11")
+    rot180 preserve HORZ vs VERT), so only AB needs the remap. ``mesh``:
+    the model stays replicated on this rank's ``device``."""
     model = on_device(model, device, input_dtype)
 
     def forward(x):
@@ -125,10 +124,9 @@ def make_unified_pipeline_folded(
     runs stem + maxpool as kernel K1 at 8 and 16 px blocks; ``"g1"`` runs
     the whole stem + maxpool + layer group 1 + SE1 chain as kernel K2. Both
     are built lazily per input extent, and extents above 16 px take the plain
-    front."""
+    front. ``mesh``: the folded model stays replicated on this rank's
+    ``device``, where its kernels run."""
     check_fused_front_option(use_fused_front)
-    if mesh is not None:
-        raise NotImplementedError("multi-device inference waits for ROADMAP M11")
     device = torch.device(device)
     folded32 = cast_tree(fold_backbone(model.backbone), device, torch.float32)
     folded = cast_tree(folded32, device, float_dtype)

@@ -10,10 +10,12 @@ biased batch variance), torch's eval mode.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
-from av1tpu_torch.models.layers import BN_EPS, BatchNorm1d
+from av1tpu_torch.models.layers import BN_EPS, BatchNorm1d, Dropout
 from av1tpu_torch.models.v6 import FEATURE_DIM, ImprovedBackbone
+from av1tpu_torch.parallel.mesh import current_data_group, global_sum
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12):
@@ -47,9 +49,9 @@ class FGVCModel(nn.Module):
         self.backbone = ImprovedBackbone()
         self.feat_proj = nn.Sequential(
             nn.Linear(FEATURE_DIM, feat_dim),
-            BatchNorm1d(feat_dim, eps=BN_EPS), nn.ReLU(), nn.Dropout(0.3),
+            BatchNorm1d(feat_dim, eps=BN_EPS), nn.ReLU(), Dropout(0.3),
             nn.Linear(feat_dim, feat_dim),
-            BatchNorm1d(feat_dim, eps=BN_EPS), nn.ReLU(), nn.Dropout(0.3),
+            BatchNorm1d(feat_dim, eps=BN_EPS), nn.ReLU(), Dropout(0.3),
         )
         self.classifier = CosineClassifier(num_classes, feat_dim)
 
@@ -73,8 +75,11 @@ def init_centers(gen: torch.Generator, num_classes: int = 4, feat_dim: int = 512
 def center_loss(features: torch.Tensor, labels: torch.Tensor,
                 centers: torch.Tensor) -> torch.Tensor:
     """Summed squared distance of each sample to its class center over the
-    batch size (Wen et al., 2016; ``006:199-214``)."""
-    return torch.sum((features - centers[labels.long()]) ** 2) / features.shape[0]
+    batch size (Wen et al., 2016; ``006:199-214``); over the global batch
+    inside ``parallel.mesh.data_parallel``."""
+    group = current_data_group()
+    rows = features.shape[0] * (1 if group is None else dist.get_world_size(group))
+    return global_sum((features - centers[labels.long()]) ** 2) / rows
 
 
 __all__ = ["CosineClassifier", "FGVCModel", "center_loss", "init_centers", "l2_normalize"]

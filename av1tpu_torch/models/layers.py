@@ -26,6 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from av1tpu_torch.parallel.mesh import all_reduce_sum, current_data_group
+
 BN_EPS = 1e-5  # flax BatchNorm's default epsilon
 # flax's lecun_normal: a normal truncated at 2 std, rescaled to unit variance
 _TRUNC_STD = 0.87962566103423978
@@ -36,10 +38,24 @@ def _flax_train_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
     """flax ``nn.BatchNorm``'s train mode over ``dims`` (every axis but the
     channel axis 1): statistics in at least float32, the fast variance
     ``E[x^2] - E[x]^2`` clipped at 0, the running statistics moved by the
-    batch mean and this biased variance, the result in ``x``'s dtype."""
+    batch mean and this biased variance, the result in ``x``'s dtype.
+
+    Inside ``parallel.mesh.data_parallel`` the statistics are the global
+    batch's, as under the JAX package's GSPMD: sum x, sum x^2 and the row
+    count are all-reduced over the data group, differentiably, so that the
+    running statistics move identically on every rank."""
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
-    mean = xf.mean(dim=dims)
-    var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+    group = current_data_group()
+    if group is None:
+        mean = xf.mean(dim=dims)
+        mean_sq = (xf * xf).mean(dim=dims)
+    else:
+        c = xf.shape[1]
+        count = torch.full((1,), xf.numel() // c, dtype=xf.dtype, device=xf.device)
+        sums = all_reduce_sum(torch.cat([xf.sum(dim=dims), (xf * xf).sum(dim=dims), count]),
+                              group)
+        mean, mean_sq = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
+    var = torch.clamp(mean_sq - mean * mean, min=0.0)
     with torch.no_grad():
         m = bn.momentum
         bn.running_mean.mul_(1 - m).add_(mean * m)
@@ -80,6 +96,27 @@ class BatchNorm1d(nn.BatchNorm1d):
         if not self.training or self.momentum is None:
             return super().forward(x)
         return _flax_train_norm(self, x, (0,))
+
+
+class Dropout(nn.Dropout):
+    """``nn.Dropout`` whose train-mode mask is drawn for the global batch.
+
+    The mask is ``bernoulli(1 - p) / (1 - p)`` over the rows of every data
+    rank (inside ``parallel.mesh.data_parallel``; this rank's rows alone
+    outside it) from the default generator, and this rank keeps its own
+    rows: ranks seeded alike draw the mask one process draws for the same
+    global batch. On the CPU this is ``F.dropout``'s own draw."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        group = current_data_group()
+        ranks = 1 if group is None else torch.distributed.get_world_size(group)
+        rank = 0 if group is None else torch.distributed.get_rank(group)
+        rows = x.shape[0]
+        noise = torch.empty((rows * ranks,) + x.shape[1:], dtype=x.dtype, device=x.device)
+        noise.bernoulli_(1.0 - self.p).div_(1.0 - self.p)
+        return x * noise[rank * rows:(rank + 1) * rows]
 
 
 def init_like_flax(model: nn.Module, gen: torch.Generator) -> nn.Module:
@@ -268,7 +305,7 @@ class MLPHead(nn.Module):
             raise ValueError("one dropout rate per hidden layer")
         layers = []
         for width, rate in zip(hidden, dropout):
-            layers += [nn.Linear(in_dim, width), act(), nn.Dropout(rate)]
+            layers += [nn.Linear(in_dim, width), act(), Dropout(rate)]
             in_dim = width
         layers.append(nn.Linear(in_dim, num_outputs))
         self.head = nn.Sequential(*layers)
@@ -284,7 +321,7 @@ class AdapterModule(nn.Module):
     def __init__(self, channels: int, bottleneck_dim: int = 64, dropout: float = 0.1):
         super().__init__()
         self.down = nn.Linear(channels, bottleneck_dim)
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
         self.up = nn.Linear(bottleneck_dim, channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -305,6 +342,7 @@ __all__ = [
     "BatchNorm2d",
     "ConvBNAct",
     "DepthwiseSeparableConv",
+    "Dropout",
     "DualAttention",
     "MLPHead",
     "SEBlock",

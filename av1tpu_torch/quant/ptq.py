@@ -1037,9 +1037,7 @@ def _calib_input(calib_images, norm_scale: float, device) -> torch.Tensor:
     return images.to(torch.float32) / norm_scale
 
 
-def _check_int8_options(mesh, use_fused_front) -> None:
-    if mesh is not None:
-        raise NotImplementedError("multi-device inference waits for ROADMAP M11")
+def _check_int8_options(use_fused_front) -> None:
     if use_fused_front not in (False, True):
         raise ValueError("use_fused_front must be False or True: the int8 graph has "
                          f"no group-1 hook (got {use_fused_front!r})")
@@ -1065,10 +1063,14 @@ def make_v6_pipeline_int8(
     ``use_fused_front`` runs each int8 stage's stem + maxpool as kernel K1 at
     8 and 16 px (other extents keep the plain stem). ``quant_out``, a list,
     receives the int8 stage models (for the drift checker). Returns
-    ``predict(images_u16) -> dict``, the ``make_v6_pipeline`` contract."""
+    ``predict(images_u16) -> dict``, the ``make_v6_pipeline`` contract. With
+    ``mesh`` every rank quantizes on the same calibration blocks and serves
+    its rows of each batch on its own ``device`` (the JAX package's
+    ``_shard_map_predict`` has no counterpart: ``run_pipeline_batched(mesh=...)``
+    slices and gathers)."""
     from av1tpu_torch.eval.hierarchy import assemble_v6_predict, on_device
 
-    _check_int8_options(mesh, use_fused_front)
+    _check_int8_options(use_fused_front)
     device = torch.device(device)
     calib_x = _calib_input(calib_images, norm_scale, device)
     fns = [quantize_stage(m, calib_x, float_dtype)
@@ -1103,7 +1105,7 @@ def make_unified_pipeline_int8(
     :func:`make_v6_pipeline_int8`; ``model`` is a ``UnifiedV6Model``."""
     from av1tpu_torch.eval.unified import _unified_predict
 
-    _check_int8_options(mesh, use_fused_front)
+    _check_int8_options(use_fused_front)
     device = torch.device(device)
     calib_x = _calib_input(calib_images, norm_scale, device)
     q = quantize_unified(model, calib_x, float_dtype)

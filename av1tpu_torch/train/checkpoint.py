@@ -25,6 +25,8 @@ from typing import TYPE_CHECKING, Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from av1tpu_torch.parallel.mesh import ColumnParallel, barrier, is_writer
+
 if TYPE_CHECKING:
     from av1tpu_torch.train.trainer import TrainState
 
@@ -55,10 +57,36 @@ def _bitwise_equal(a, b) -> bool:
     return a == b
 
 
+def _sharded_layers(state: "TrainState") -> Dict[int, Any]:
+    """Optimizer parameter index -> the ``ColumnParallel`` layer whose rows
+    that parameter holds (model-sharded training), for the state's own
+    model and optimizer (a copy of a state maps to its copies)."""
+    layers = {id(m.weight): m for m in state.model.modules() if isinstance(m, ColumnParallel)}
+    return {i: layers[id(p)] for i, p in enumerate(state.optimizer.params) if id(p) in layers}
+
+
+def _map_moments(optimizer_state: Dict, sharded: Dict[int, Any], fn) -> Dict:
+    """``optimizer_state`` with ``fn(layer, tensor)`` applied to each AdamW
+    moment of a sharded parameter (the step counts are scalars)."""
+    if not sharded or optimizer_state.get("adamw") is None:
+        return optimizer_state
+    adamw = dict(optimizer_state["adamw"])
+    adamw["state"] = {
+        i: {k: fn(sharded[i], v) if i in sharded and torch.is_tensor(v) and v.dim() else v
+            for k, v in st.items()}
+        for i, st in adamw["state"].items()}
+    return {**optimizer_state, "adamw": adamw}
+
+
 def _state_payload(state: "TrainState") -> Dict[str, Any]:
-    """The host copy of a ``TrainState`` that a checkpoint holds."""
-    return _to_host({"model": state.model.state_dict(),
-                     "optimizer": state.optimizer.state_dict(), "step": int(state.step)})
+    """The host copy of a ``TrainState`` that a checkpoint holds. A
+    model-sharded state is gathered whole (a collective over each model
+    group: every rank calls this), so that a checkpoint does not depend on
+    the mesh it was written under."""
+    optimizer = _map_moments(state.optimizer.state_dict(), _sharded_layers(state),
+                             lambda layer, t: layer.full(t))
+    return _to_host({"model": state.model.state_dict(), "optimizer": optimizer,
+                     "step": int(state.step)})
 
 
 def states_equal(a: "TrainState", b: "TrainState") -> bool:
@@ -70,32 +98,39 @@ def states_equal(a: "TrainState", b: "TrainState") -> bool:
 def save_checkpoint(directory: Path, state: "TrainState",
                     meta: Optional[Dict[str, Any]] = None, verify: bool = True) -> Path:
     """Write one checkpoint directory (replacing it); with ``verify``, load it
-    back and raise unless it equals the state bitwise."""
+    back and raise unless it equals the state bitwise. In a world of several
+    processes every rank calls it: rank 0 writes, and every rank waits at a
+    barrier until the directory is complete."""
     directory = Path(directory).absolute()
-    if directory.exists():
-        shutil.rmtree(directory)
-    directory.mkdir(parents=True)
     payload = _state_payload(state)
-    torch.save(payload, directory / STATE_FILE)
-    if meta is not None:
-        (directory / "meta.json").write_text(json.dumps(meta, indent=2, default=str))
-    if verify:
-        restored = torch.load(directory / STATE_FILE, map_location="cpu", weights_only=True)
-        if not _bitwise_equal(payload, restored):
-            raise RuntimeError(
-                f"checkpoint round-trip mismatch at {directory}: saved and restored "
-                "states differ (quirk-Q4 guard)")
+    if is_writer():
+        if directory.exists():
+            shutil.rmtree(directory)
+        directory.mkdir(parents=True)
+        torch.save(payload, directory / STATE_FILE)
+        if meta is not None:
+            (directory / "meta.json").write_text(json.dumps(meta, indent=2, default=str))
+        if verify:
+            restored = torch.load(directory / STATE_FILE, map_location="cpu",
+                                  weights_only=True)
+            if not _bitwise_equal(payload, restored):
+                raise RuntimeError(
+                    f"checkpoint round-trip mismatch at {directory}: saved and restored "
+                    "states differ (quirk-Q4 guard)")
+    barrier(next(state.model.parameters()).device)
     return directory
 
 
 def restore_checkpoint(directory: Path, template: "TrainState"
                        ) -> Tuple["TrainState", Dict[str, Any]]:
     """Load a checkpoint into ``template``'s model and optimizer (in place,
-    on their devices); returns it with the checkpoint's meta."""
+    on their devices); returns it with the checkpoint's meta. Every rank
+    loads the same file; a model-sharded template keeps its rows."""
     directory = Path(directory).absolute()
     payload = torch.load(directory / STATE_FILE, map_location="cpu", weights_only=True)
     template.model.load_state_dict(payload["model"])
-    template.optimizer.load_state_dict(payload["optimizer"])
+    template.optimizer.load_state_dict(_map_moments(
+        payload["optimizer"], _sharded_layers(template), lambda layer, t: layer.own(t)))
     template.step = int(payload["step"])
     meta_path = directory / "meta.json"
     meta = json.loads(meta_path.read_text()) if meta_path.exists() else {}
@@ -168,7 +203,8 @@ def save_variables_npz(path: Path, variables: Dict[str, Any],
                        compress: bool = True) -> Path:
     """Write a nested dict of arrays as one npz of flat keys, compressed as
     the JAX package writes it unless ``compress`` is false (random weights do
-    not compress; both forms load the same way)."""
+    not compress; both forms load the same way). Only rank 0 of a world of
+    several processes writes."""
     flat = {}
 
     def walk(prefix, node):
@@ -180,8 +216,9 @@ def save_variables_npz(path: Path, variables: Dict[str, Any],
 
     walk((), variables)
     path = Path(path)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    (np.savez_compressed if compress else np.savez)(path, **flat)
+    if is_writer():  # rank 0 of a world of several processes
+        path.parent.mkdir(parents=True, exist_ok=True)
+        (np.savez_compressed if compress else np.savez)(path, **flat)
     return path
 
 

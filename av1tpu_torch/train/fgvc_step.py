@@ -27,11 +27,20 @@ from torch import nn
 from av1tpu_torch.data.records import NORM_10BIT
 from av1tpu_torch.models.fgvc import center_loss, init_centers
 from av1tpu_torch.models.layers import init_like_flax
+from av1tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    axis_group,
+    data_parallel,
+    gather_group,
+    own_rows,
+    sync_gradients,
+)
 from av1tpu_torch.train.augment import STAGE3_AB, apply_pipeline, draw_pipeline
 from av1tpu_torch.train.losses import (
     cutmix_apply,
     cutmix_draw,
     mixed_loss,
+    partner_rows,
     weighted_ce_label_smoothing,
 )
 from av1tpu_torch.train.schedules import AdamWSpec, TrainOptimizer
@@ -69,16 +78,20 @@ def fgvc_loss(model: nn.Module, centers: torch.Tensor, images: torch.Tensor,
               labels: torch.Tensor, draws: Mapping[str, object], center_weight: float,
               num_classes: int, compute_dtype: torch.dtype = torch.float32):
     """The composite loss of normalized ``images`` on given ``draws``:
-    ``(total, ce, center, confusion)``. The model runs in its current mode."""
+    ``(total, ce, center, confusion)``. The model runs in its current mode.
+    Inside ``parallel.mesh.data_parallel`` ``images`` and ``labels`` are the
+    global batch, the draws are applied to it, and this rank's rows of the
+    result go through the model (``confusion`` is then this rank's)."""
     images, labels = apply_pipeline(STAGE3_AB, images, labels, draws["augment"])
     images, perm, lam = cutmix_apply(images, draws["cutmix"])
+    images, labels = own_rows(images), own_rows(labels)
     with _autocast(images.device, compute_dtype):
         logits, feats = model(images, return_features=True)
     logits, feats = at_least_fp32(logits), at_least_fp32(feats)
     ce = mixed_loss(lambda lo, ta: weighted_ce_label_smoothing(lo, ta), logits, labels,
                     perm, lam)
     c_loss = (lam * center_loss(feats, labels, centers)
-              + (1.0 - lam) * center_loss(feats, labels[perm], centers))
+              + (1.0 - lam) * center_loss(feats, partner_rows(labels, perm), centers))
     with torch.no_grad():
         conf = confusion_matrix(labels, torch.argmax(logits, dim=-1), num_classes)
     return ce + center_weight * c_loss, ce, c_loss, conf
@@ -87,20 +100,27 @@ def fgvc_loss(model: nn.Module, centers: torch.Tensor, images: torch.Tensor,
 def make_fgvc_train_step(model: nn.Module, optimizer: TrainOptimizer, centers: nn.Parameter,
                          center_weight: float = 0.001, cutmix_alpha: float = 1.0,
                          norm_scale: float = NORM_10BIT, label_key: str = "stage3_AB",
-                         num_classes: int = 4, compute_dtype: torch.dtype = torch.float32):
+                         num_classes: int = 4, compute_dtype: torch.dtype = torch.float32,
+                         mesh=None):
     """``step(state, batch, gen) -> {"loss", "ce", "center", "confusion"}``
     (device tensors), updating the model and the centers in place; the
-    ``train.trainer`` epoch loops run it."""
+    ``train.trainer`` epoch loops run it. With ``mesh`` ``batch`` is this
+    rank's rows: the global batch is gathered, drawn for and mixed as in
+    ``trainer.make_train_step``, and the gradients averaged over the data
+    group."""
+    group = axis_group(mesh, DATA_AXIS)
 
     def train_step(state: TrainState, batch, gen: torch.Generator):
-        images = batch["samples"].to(torch.float32) / norm_scale
-        labels = batch[label_key].long()
+        images = gather_group(batch["samples"], group).to(torch.float32) / norm_scale
+        labels = gather_group(batch[label_key], group).long()
         model.train()
-        total, ce, c_loss, conf = fgvc_loss(model, centers, images, labels,
-                                            fgvc_draws(gen, images, cutmix_alpha),
-                                            center_weight, num_classes, compute_dtype)
-        optimizer.zero_grad()
-        total.backward(inputs=optimizer.params)
+        with data_parallel(mesh):
+            total, ce, c_loss, conf = fgvc_loss(model, centers, images, labels,
+                                                fgvc_draws(gen, images, cutmix_alpha),
+                                                center_weight, num_classes, compute_dtype)
+            optimizer.zero_grad()
+            total.backward(inputs=optimizer.params)
+        sync_gradients(optimizer.params, mesh)
         optimizer.step()
         state.step += 1
         return {"loss": total.detach(), "ce": ce.detach(), "center": c_loss.detach(),

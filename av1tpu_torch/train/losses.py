@@ -5,7 +5,9 @@ Counterpart of ``av1tpu.train.losses``: plain functions on tensors, the same
 formulas written op for op after the JAX package's (and through it after
 ``pesquisa_v6/v6_pipeline/losses.py`` and the v5 stage losses). Every loss
 takes logits and integer labels; rows with a negative label (eval padding)
-contribute nothing, and ``mean`` divides by the valid rows.
+contribute nothing, and ``mean`` divides by the valid rows. Inside
+``parallel.mesh.data_parallel`` every reduction over the batch is over the
+global batch: a rank's loss is the one-process loss of the global batch.
 
 Mixup and CutMix are split into a draw (one lambda, a permutation, CutMix's
 box and gate) and an apply given those draws, so that a test can hold the
@@ -21,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from av1tpu_torch.data.sampling import effective_number_weights
+from av1tpu_torch.parallel.mesh import current_data_group, global_rows, global_sum, own_rows
 
 
 def _sigmoid_bce(logits, targets):
@@ -37,11 +40,13 @@ def _softmax_ce_int(logits, targets):
 
 
 def _reduce_valid(loss, targets, reduction: str):
-    """Reduce ignoring negative targets (eval padding rows)."""
+    """Reduce ignoring negative targets (eval padding rows); the mean over
+    the valid rows of the global batch inside ``parallel.mesh.data_parallel``
+    (numerator and count summed over the data group), the sum this rank's."""
     valid = (targets >= 0).to(loss.dtype)
     loss = loss * valid
     if reduction == "mean":
-        return loss.sum() / torch.clamp(valid.sum(), min=1.0)
+        return global_sum(loss) / torch.clamp(global_sum(valid.detach()), min=1.0)
     if reduction == "sum":
         return loss.sum()
     return loss
@@ -120,29 +125,35 @@ def hard_negative_mining_loss(logits, targets, neg_pos_ratio: float = 3.0,
     """All positives plus the ``num_pos * ratio`` hardest negatives
     (v6 ``HardNegativeMiningLoss``, losses.py:125-172). Negatives are ranked
     by a **stable** sort of the negated losses, as ``jnp.argsort`` ranks them,
-    so that tied losses at the cut keep the lower index."""
+    so that tied losses at the cut keep the lower index. Inside
+    ``parallel.mesh.data_parallel`` the negatives are chosen over the global
+    batch (its losses and positives gathered, without a gradient) and the
+    kept losses summed over it."""
     targets_f = targets.to(logits.dtype)
     if base == "focal":
         per = binary_focal_loss(logits, targets, alpha, gamma, reduction="none")
     else:
         per = _sigmoid_bce(logits, targets_f)
     pos_mask = targets_f > 0.5
-    num_pos = pos_mask.sum()
-    num_neg_keep = torch.minimum((num_pos * neg_pos_ratio).to(torch.int32),
-                                 (~pos_mask).sum().to(torch.int32))
     neg_loss = torch.where(pos_mask, torch.full_like(per, -math.inf), per)
-    order = torch.argsort(-neg_loss.detach(), stable=True)
+    all_pos, all_neg_loss = global_rows(pos_mask), global_rows(neg_loss.detach())
+    num_pos = all_pos.sum()
+    num_neg_keep = torch.minimum((num_pos * neg_pos_ratio).to(torch.int32),
+                                 (~all_pos).sum().to(torch.int32))
+    order = torch.argsort(-all_neg_loss, stable=True)
     ranks = torch.empty_like(order).scatter_(
         0, order, torch.arange(order.shape[0], device=order.device))
-    keep = pos_mask | (ranks < num_neg_keep)
-    total = torch.where(keep, per, torch.zeros_like(per)).sum()
-    return total / torch.clamp(keep.sum(), min=1)
+    keep = own_rows(all_pos | (ranks < num_neg_keep))
+    total = global_sum(torch.where(keep, per, torch.zeros_like(per)))
+    return total / torch.clamp(global_sum(keep), min=1)
 
 
 def masked_mean(per_sample_loss, valid_mask):
-    """Mean over valid samples only."""
+    """Mean over valid samples only (of the global batch inside
+    ``parallel.mesh.data_parallel``)."""
     valid = valid_mask.to(per_sample_loss.dtype)
-    return (per_sample_loss * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+    return (global_sum(per_sample_loss * valid)
+            / torch.clamp(global_sum(valid.detach()), min=1.0))
 
 
 # ---------------------------------------------------------------------------
@@ -214,8 +225,19 @@ def cutmix_batch(gen: torch.Generator, images, alpha: float = 1.0, apply_prob: f
 
 
 def mixed_loss(loss_fn, logits, targets, perm, lam):
-    """``lam * loss(y) + (1-lam) * loss(y[perm])`` (losses.py:120-122)."""
-    return lam * loss_fn(logits, targets) + (1.0 - lam) * loss_fn(logits, targets[perm])
+    """``lam * loss(y) + (1-lam) * loss(y[perm])`` (losses.py:120-122).
+    Inside ``parallel.mesh.data_parallel`` ``perm`` permutes the global
+    batch: each row's partner label comes from the gathered labels."""
+    return (lam * loss_fn(logits, targets)
+            + (1.0 - lam) * loss_fn(logits, partner_rows(targets, perm)))
+
+
+def partner_rows(t, perm):
+    """``t[perm]`` for this rank's rows, ``perm`` a permutation of the global
+    batch (``t[perm]`` outside ``parallel.mesh.data_parallel``)."""
+    if current_data_group() is None:
+        return t[perm]
+    return own_rows(global_rows(t)[perm])
 
 
 # ---------------------------------------------------------------------------
@@ -261,6 +283,7 @@ __all__ = [
     "mixup_batch",
     "mixup_draw",
     "multiclass_focal_loss",
+    "partner_rows",
     "stage1_focal_bce_v5",
     "weighted_ce_label_smoothing",
 ]

@@ -31,7 +31,10 @@ from dataclasses import dataclass
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from av1tpu_torch.parallel.mesh import column_parallel_of
 
 Schedule = Callable[[int], float]
 
@@ -102,10 +105,22 @@ def adamw(lr: Union[float, Schedule], weight_decay: float = 1e-2,
     return AdamWSpec(lr, weight_decay, grad_clip)
 
 
-def _clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> None:
-    """``optax.clip_by_global_norm`` in place, with no host sync: every grad
-    becomes ``g / norm * max_norm`` when ``norm >= max_norm``."""
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+def _clip_by_global_norm(params: Sequence[torch.Tensor], max_norm: float) -> None:
+    """``optax.clip_by_global_norm`` of the params' gradients in place, with
+    no host sync: every grad becomes ``g / norm * max_norm`` when ``norm >=
+    max_norm``. A parameter that holds its rows of a model-sharded layer
+    (``parallel.mesh.ColumnParallel``) adds the squares of the whole layer's
+    gradient, summed over its model group."""
+    grads = [p.grad for p in params]
+    sharded = [p for p in params if column_parallel_of(p) is not None]
+    if not sharded:
+        sq = sum(torch.sum(g * g) for g in grads)
+    else:
+        part = sum(torch.sum(p.grad * p.grad) for p in sharded)
+        dist.all_reduce(part, group=column_parallel_of(sharded[0]).group)  # one model group
+        sq = sum(torch.sum(p.grad * p.grad) for p in params
+                 if column_parallel_of(p) is None) + part
+    norm = torch.sqrt(sq)
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm * max_norm))
@@ -144,7 +159,7 @@ class TrainOptimizer:
                     if p.grad is None:
                         p.grad = torch.zeros_like(p)
                 if spec.grad_clip is not None:
-                    _clip_by_global_norm([p.grad for p in group["params"]], spec.grad_clip)
+                    _clip_by_global_norm(group["params"], spec.grad_clip)
                 group["lr"] = spec.lr_at(self.count)
         self.adamw.step()
         self.count += 1

@@ -49,6 +49,7 @@ from av1tpu_torch.models import (
     to_jax_variables,
 )
 from av1tpu_torch.models.layers import init_like_flax
+from av1tpu_torch.parallel.mesh import place_params
 from av1tpu_torch.train.augment import (
     stage1_augment,
     stage2_augment,
@@ -216,15 +217,24 @@ def train_stage(
     checkpoint_every: int = 10,
     log: Callable[[str], None] = print,
     device="cuda",
+    mesh=None,
 ) -> TrainResult:
     """Run all phases of a recipe on ``device``; returns the final and best
     states. ``init_params`` / ``init_batch_stats`` are JAX-layout trees
     (a transplanted backbone). ``checkpoint_every`` spaces the rolling
     ``_last`` anchor (plus the last epoch of every phase): epochs replay
     deterministically, so a sparse anchor costs recovery time, never
-    correctness."""
+    correctness.
+
+    ``mesh`` (``parallel.mesh``; every rank calls with the same arguments,
+    ``device`` its own card): ``recipe.batch_size`` is the global batch,
+    which the data axis splits; the model axis shards the wide layers
+    (``place_params``). Every rank holds the same state after each step and
+    the same global metrics; rank 0 writes the checkpoints."""
     device = torch.device(device)
     model = _init_model(recipe, seed, init_params, init_batch_stats).to(device)
+    if mesh is not None:
+        model = place_params(model, mesh)
     steps_per_epoch = recipe.steps_per_epoch or max(1, len(train_bundle) // recipe.batch_size)
 
     start_epoch, resume_best, resume_no_improve = 0, None, 0
@@ -292,7 +302,7 @@ def train_stage(
                     else state.step if state is not None else 0)
             state = TrainState(model, _phase_optimizer(phase, model, steps_per_epoch), step)
         resume_state = None
-        train_step = make_train_step(model, state.optimizer, cfg)
+        train_step = make_train_step(model, state.optimizer, cfg, mesh)
         log(f"[{recipe.name}] phase '{phase.name}': {phase.epochs} epochs")
 
         for _ in range(phase.epochs):
@@ -312,13 +322,13 @@ def train_stage(
                     state, tr = run_train_epoch(
                         train_step, state, arrays, recipe.batch_size, gen,
                         epoch_seed=seed + epoch_global, num_classes=recipe.num_classes,
-                        balance_labels=balance_labels, device=device)
+                        balance_labels=balance_labels, device=device, mesh=mesh)
             if resident:
                 ev = run_eval_resident(eval_step, state, device_val, n_val,
                                        recipe.batch_size, recipe.num_classes)
             else:
                 ev = run_eval(eval_step, state, val_arrays, recipe.batch_size,
-                              recipe.num_classes, device)
+                              recipe.num_classes, device, mesh)
             value = ev.metrics[recipe.best_metric]
             history.append({
                 "epoch": epoch_global, "phase": phase.name, "train_loss": tr.loss,

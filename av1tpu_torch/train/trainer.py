@@ -16,6 +16,12 @@ dataset to the device once and gathers each step's batch there from the
 epoch's ``(steps, batch)`` index matrix. It is one loop of eager steps, not a
 captured graph.
 
+Over a mesh (``parallel.mesh``) the streaming loop runs in every process,
+each data rank on its contiguous shard of the epoch order with its share of
+the global batch; the steps gather what the global batch decides (the draws,
+the BatchNorm statistics, the loss) and average the gradients, and the
+metrics come out global on every rank.
+
 ``--bf16`` in the port: the forward runs under ``torch.autocast`` in
 bfloat16 (convolutions and matmuls in bf16 over fp32 parameters), BatchNorm
 statistics are taken in fp32, and the loss is computed in fp32 on the logits
@@ -33,10 +39,27 @@ from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from av1tpu_torch.data.records import NORM_10BIT
-from av1tpu_torch.data.sampling import balanced_epoch_indices, shuffled_epoch_indices
+from av1tpu_torch.data.sampling import (
+    balanced_epoch_indices,
+    host_shard,
+    shuffled_epoch_indices,
+)
+from av1tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    axis_group,
+    axis_index,
+    axis_size,
+    data_parallel,
+    gather_group,
+    local_batch_slice,
+    local_rows,
+    sync_gradients,
+    world_size,
+)
 from av1tpu_torch.train.losses import mixed_loss
 from av1tpu_torch.train.schedules import TrainOptimizer
 
@@ -131,13 +154,25 @@ def _labels(cfg: StepConfig, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
     return labels if labels.is_floating_point() else labels.long()
 
 
-def make_train_step(model: nn.Module, optimizer: TrainOptimizer, cfg: StepConfig):
+def make_train_step(model: nn.Module, optimizer: TrainOptimizer, cfg: StepConfig,
+                    mesh=None):
     """``step(state, batch, gen) -> {"loss", "confusion"}`` (device tensors):
     one update of ``state`` in place. ``batch`` holds device tensors (uint16
     samples, integer labels); ``gen`` is the epoch's device generator, which
-    every augmentation and batch-mix draw comes from."""
+    every augmentation and batch-mix draw comes from.
+
+    With ``mesh`` (``parallel.mesh``) ``batch`` is this rank's rows of the
+    global batch. The global batch is gathered over the data group, its
+    augmentation and batch-mix draws are made from ``gen`` (seeded alike on
+    every rank) and applied to it, and this rank trains on its own rows of
+    the result, inside ``data_parallel``: the BatchNorm statistics and the
+    loss are the global batch's. The gradients are averaged over the data
+    group before the optimizer step, so that every rank takes the step one
+    process takes on the global batch. ``confusion`` is this rank's."""
+    group = axis_group(mesh, DATA_AXIS)
 
     def train_step(state: TrainState, batch, gen: torch.Generator):
+        batch = {k: gather_group(v, group) for k, v in batch.items()}
         images, extra = _inputs(cfg, batch)
         labels = _labels(cfg, batch)
         if cfg.augment_labeled is not None:
@@ -147,17 +182,21 @@ def make_train_step(model: nn.Module, optimizer: TrainOptimizer, cfg: StepConfig
         perm = lam = None
         if cfg.batch_mix is not None:
             images, perm, lam = cfg.batch_mix(gen, images)
+        images, labels = local_rows(images, group), local_rows(labels, group)
+        extra = tuple(local_rows(e, group) for e in extra)
         model.train()
-        with _autocast(images.device, cfg.compute_dtype):
-            outputs = model(images, *extra, **cfg.apply_kwargs)
-        outputs = _as_float(outputs)
-        if perm is not None:
-            loss = mixed_loss(cfg.loss_fn, outputs, labels, perm, lam)
-        else:
-            loss = cfg.loss_fn(outputs, labels)
-        optimizer.zero_grad()
-        if optimizer.params:
-            loss.backward(inputs=optimizer.params)
+        with data_parallel(mesh):
+            with _autocast(images.device, cfg.compute_dtype):
+                outputs = model(images, *extra, **cfg.apply_kwargs)
+            outputs = _as_float(outputs)
+            if perm is not None:
+                loss = mixed_loss(cfg.loss_fn, outputs, labels, perm, lam)
+            else:
+                loss = cfg.loss_fn(outputs, labels)
+            optimizer.zero_grad()
+            if optimizer.params:
+                loss.backward(inputs=optimizer.params)
+        sync_gradients(optimizer.params, mesh)
         optimizer.step()
         state.step += 1
         with torch.no_grad():
@@ -260,8 +299,10 @@ RESIDENT_MAX_BYTES = int(os.environ.get("AV1TPU_RESIDENT_MAX_BYTES", 4 * 1024**3
 
 
 def resident_eligible(arrays: Mapping[str, np.ndarray]) -> bool:
-    """Whether ``train_stage`` keeps the dataset on the device."""
-    if os.environ.get("AV1TPU_STREAM_DATA", "") in ("1", "true"):
+    """Whether ``train_stage`` keeps the dataset on the device: never in a
+    world of more than one process (each rank streams its shard of every
+    global batch, the JAX package's multi-process contract)."""
+    if os.environ.get("AV1TPU_STREAM_DATA", "") in ("1", "true") or world_size() > 1:
         return False
     return sum(a.nbytes for a in arrays.values()) <= RESIDENT_MAX_BYTES
 
@@ -292,16 +333,37 @@ def resident_eval_arrays(arrays: Mapping[str, np.ndarray], device):
 
 
 def _epoch_indices(n: int, batch_size: int, epoch_seed: int,
-                  balance_labels: Optional[np.ndarray]) -> np.ndarray:
-    """The epoch's sample order (balanced or shuffled, from ``epoch_seed``),
-    wrapped around to one batch when the dataset is smaller."""
+                  balance_labels: Optional[np.ndarray], mesh=None) -> Tuple[np.ndarray, int]:
+    """The epoch's sample order (balanced or shuffled, from ``epoch_seed``)
+    and the local batch. Under a mesh with several data ranks each takes its
+    contiguous ``host_shard`` of the global order and ``batch_size / data``
+    rows a step (the JAX package's multi-process contract). The order wraps
+    around to one local batch when it is shorter."""
     if balance_labels is not None:
         indices = balanced_epoch_indices(balance_labels, epoch_seed)
     else:
         indices = shuffled_epoch_indices(n, epoch_seed)
-    if len(indices) < batch_size:
-        indices = np.resize(indices, batch_size)
-    return indices
+    local_batch = batch_size
+    num_data = axis_size(mesh, DATA_AXIS)
+    if num_data > 1:
+        local_batch = local_batch_slice(batch_size, mesh)
+        indices = host_shard(indices, axis_index(mesh, DATA_AXIS), num_data)
+    if len(indices) < local_batch:
+        indices = np.resize(indices, local_batch)
+    return indices, local_batch
+
+
+def _global_totals(totals, mesh):
+    """The epoch's loss sum (its mean over the data ranks) and confusion
+    (their sum): the global metrics, the same on every rank."""
+    group = axis_group(mesh, DATA_AXIS)
+    loss_sum, conf_sum = totals
+    if group is None or loss_sum is None:
+        return totals
+    loss_sum, conf_sum = loss_sum.clone(), conf_sum.clone()
+    dist.all_reduce(loss_sum, group=group)
+    dist.all_reduce(conf_sum, group=group)
+    return loss_sum / dist.get_world_size(group), conf_sum
 
 
 def _epoch_result(loss_sum, conf_sum, steps: int, num_classes: int, start: float,
@@ -323,19 +385,23 @@ def _accumulate(totals, metrics):
 def run_train_epoch(train_step, state: TrainState, arrays: Mapping[str, np.ndarray],
                     batch_size: int, gen: torch.Generator, epoch_seed: int,
                     num_classes: int, balance_labels: Optional[np.ndarray] = None,
-                    device=None) -> Tuple[TrainState, EpochResult]:
+                    device=None, mesh=None) -> Tuple[TrainState, EpochResult]:
     """One streaming epoch: each batch gathered on the host and copied to
-    ``device`` (``gen``'s device by default)."""
+    ``device`` (``gen``'s device by default). ``batch_size`` is the global
+    batch: with ``mesh`` each data rank feeds its rows of its shard of the
+    epoch order to ``train_step`` (made with the same mesh), and the
+    metrics come out global on every rank."""
     device = torch.device(device if device is not None else gen.device)
     n = len(next(iter(arrays.values())))
-    indices = _epoch_indices(n, batch_size, epoch_seed, balance_labels)
+    indices, local_batch = _epoch_indices(n, batch_size, epoch_seed, balance_labels, mesh)
     totals, steps = (None, None), 0
     start = time.perf_counter()
-    for batch in iterate_batches(arrays, indices, batch_size):
+    for batch in iterate_batches(arrays, indices, local_batch):
         metrics = train_step(state, to_device(batch, device), gen)
         totals = _accumulate(totals, metrics)
         steps += 1
-    return state, _epoch_result(*totals, steps, num_classes, start, steps * batch_size)
+    return state, _epoch_result(*_global_totals(totals, mesh), steps, num_classes, start,
+                                steps * batch_size)
 
 
 def run_train_epoch_resident(train_step, state: TrainState,
@@ -347,7 +413,7 @@ def run_train_epoch_resident(train_step, state: TrainState,
     matrix goes up once and each step gathers its batch there. Batches,
     draws and results equal :func:`run_train_epoch`'s."""
     n = len(next(iter(device_arrays.values())))
-    indices = _epoch_indices(n, batch_size, epoch_seed, balance_labels)
+    indices, _ = _epoch_indices(n, batch_size, epoch_seed, balance_labels)
     steps = len(indices) // batch_size
     device = next(iter(device_arrays.values())).device
     idx_mat = torch.from_numpy(np.ascontiguousarray(
@@ -361,16 +427,25 @@ def run_train_epoch_resident(train_step, state: TrainState,
 
 
 def run_eval(eval_step, state: TrainState, arrays: Mapping[str, np.ndarray],
-             batch_size: int, num_classes: int, device) -> EpochResult:
-    """The val pass, streamed; the last batch padded with label -1 rows."""
+             batch_size: int, num_classes: int, device, mesh=None) -> EpochResult:
+    """The val pass, streamed; the last batch padded with label -1 rows.
+    With ``mesh`` each data rank evaluates its slice of every global batch
+    inside ``data_parallel`` and the metrics come out global on every rank."""
     padded, valid = pad_to_multiple(dict(arrays), batch_size)
     n = len(next(iter(padded.values())))
+    idx, local_batch = np.arange(n), batch_size
+    num_data = axis_size(mesh, DATA_AXIS)
+    if num_data > 1:
+        local_batch = local_batch_slice(batch_size, mesh)
+        idx = idx.reshape(-1, num_data, local_batch)[:, axis_index(mesh, DATA_AXIS)]
+        idx = idx.reshape(-1)
     totals, steps = (None, None), 0
     start = time.perf_counter()
-    for batch in iterate_batches(padded, np.arange(n), batch_size, drop_remainder=False):
-        totals = _accumulate(totals, eval_step(state, to_device(batch, device)))
-        steps += 1
-    return _epoch_result(*totals, steps, num_classes, start, valid)
+    with data_parallel(mesh):
+        for batch in iterate_batches(padded, idx, local_batch, drop_remainder=False):
+            totals = _accumulate(totals, eval_step(state, to_device(batch, device)))
+            steps += 1
+    return _epoch_result(*_global_totals(totals, mesh), steps, num_classes, start, valid)
 
 
 def run_eval_resident(eval_step, state: TrainState, device_arrays: Mapping[str, torch.Tensor],

@@ -158,6 +158,24 @@ Run from the root of a checkout. Phases, one JSON line each:
           ``off`` run's at least as well as the bf16 ``off`` run's do (less
           three standard errors), each beside path a's agreement of ``on``
           and ``g1`` with ``off``;
+       j. several processes (``parallel.mesh``) on the one card, each rank
+          a process started by ``torch.multiprocessing`` that meets the
+          others over a ``FileStore``; NCCL refuses two ranks on one
+          device, so: j1 a world of one over NCCL serves path a's models
+          through ``make_mesh(num_data=1)`` with ``g1`` (K2), labels and
+          probabilities bitwise path a's ``g1`` run's; j2 two ranks over
+          gloo serve path a's blocks through ``run_pipeline_eval``'s default
+          mesh (data 2) after a warm-up, ``on`` and ``g1`` (K1, K2 in each
+          rank), labels bitwise path a's; path d's clip through
+          ``predict_trees --level-capacity`` (trees bitwise path d's gated
+          run's) and four frames through K5 + K1 predictors with the same
+          capacities (K5 in each rank; trees bitwise one process's); j3 the
+          two ranks take 20 stage-1 steps at batch 256 on path g's corpus
+          (data 2, deterministic cuDNN; ranks bitwise equal, the divergence
+          from one process over the same global batches emitted) and one
+          data-2 and one model-2 step, each held to one process at path g's
+          step tolerances; every rank's launch counts are summed into the
+          ``kernels`` line;
      each run prints blocks/s (or frames/s and superblocks/s), its launches,
      and its agreement with its path's ``off`` run;
   6. predict: the CUDA-event time of one 4,096-block bf16 predict on a
@@ -210,6 +228,8 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing  # noqa: F401  (spawn_ranks)
 import torch.nn.functional as F
 from torch import nn
 from torch.overrides import TorchFunctionMode
@@ -243,6 +263,7 @@ from av1tpu_torch.data.bundles import (  # noqa: E402
     save_split,
 )
 from av1tpu_torch.data.records import BlockSet  # noqa: E402
+from av1tpu_torch.data.sampling import host_shard  # noqa: E402
 from av1tpu_torch.data.synth import reference_shaped_corpus  # noqa: E402
 from av1tpu_torch.data.synth_tree import (  # noqa: E402
     _node_origin,
@@ -299,6 +320,12 @@ from av1tpu_torch.models import (  # noqa: E402
     to_jax_variables,
 )
 from av1tpu_torch.cli.common import load_model, train_calibration_blocks  # noqa: E402
+from av1tpu_torch.parallel.mesh import (  # noqa: E402
+    ColumnParallel,
+    make_mesh,
+    place_params,
+    shard_batch,
+)
 from av1tpu_torch.quant import ptq  # noqa: E402
 from av1tpu_torch.quant.ptq import (  # noqa: E402
     fold_backbone,
@@ -311,6 +338,7 @@ from av1tpu_torch.train.checkpoint import (  # noqa: E402
     save_variables_npz,
     states_equal,
 )
+from av1tpu_torch.train import trainer  # noqa: E402
 from av1tpu_torch.train.augment import apply_pipeline, draw_pipeline  # noqa: E402
 from av1tpu_torch.train.fgvc_step import (  # noqa: E402
     fgvc_draws,
@@ -849,17 +877,23 @@ def quietly(main: Callable, argv: list) -> str:
     return printed.getvalue()
 
 
+def cli_argv(dataset: Path, name: str, args: list, dev, bf16: bool = True,
+             block_size: int = HW) -> list:
+    """``run_pipeline_eval``'s arguments for :func:`run_cli`."""
+    return ["--dataset-dir", str(dataset), "--block-size", str(block_size),
+            "--output-dir", str(WORK / "runs" / name), "--batch-size", str(BATCH),
+            "--stage1-threshold", str(THRESHOLD), *(["--bf16"] if bf16 else []),
+            "--device", dev.type, *args]
+
+
 def run_cli(dataset: Path, name: str, args: list, dev, bf16: bool = True,
             block_size: int = HW) -> dict:
     """The port's ``run_pipeline_eval`` on path a's dataset (or another at
     ``block_size``), bf16 (or fp32), batch 4096, with ``args`` (variant,
     serving options, checkpoints)."""
     out = WORK / "runs" / name
-    argv = ["--dataset-dir", str(dataset), "--block-size", str(block_size),
-            "--output-dir", str(out), "--batch-size", str(BATCH),
-            "--stage1-threshold", str(THRESHOLD), *(["--bf16"] if bf16 else []),
-            "--device", dev.type, *args]
-    printed = quietly(run_pipeline_eval.main, argv)
+    printed = quietly(run_pipeline_eval.main, cli_argv(dataset, name, args, dev, bf16,
+                                                       block_size))
     summary = json.loads(printed[printed.rindex("{\n"):])  # the CLI's last print
     metrics = json.loads((out / "pipeline_metrics_val.json").read_text())
     preds = np.load(out / "pipeline_predictions_val.npz")
@@ -1184,22 +1218,27 @@ def level_pipeline_models(models: dict, size: int) -> PipelineModels:
     return PipelineModels(*(models[size][name] for name in STAGE_CLASSES))
 
 
+def tree_cli_argv(clip: Path, dirs: dict, name: str, extra: list, dev) -> list:
+    """``predict_trees``' arguments for :func:`run_tree_cli`."""
+    serving = [] if "--int8" in extra else ["--folded"]
+    argv = ["--yuv", str(clip), "--frames", *map(str, range(CLIP[0])),
+            "--output-dir", str(WORK / "trees" / name), "--batch-size", str(BATCH),
+            "--stage1-threshold", str(THRESHOLD), *serving, "--bf16", "--no-ab-fgvc",
+            "--frames-per-batch", str(FRAMES_PER_BATCH), "--device", dev.type, *extra]
+    for size in LEVEL_SIZES:
+        argv += [f"--models-{size}", str(dirs[size])]
+    return argv
+
+
 def run_tree_cli(clip: Path, dirs: dict, name: str, extra: list, dev) -> dict:
     """The port's ``predict_trees`` CLI over the whole clip, bf16, four frames
     a group, folded unless ``extra`` asks for ``--int8``. ``seconds`` is the
     CLI's own: each group from the upload of its superblocks to its trees on
     the host."""
     out = WORK / "trees" / name
-    serving = [] if "--int8" in extra else ["--folded"]
-    argv = ["--yuv", str(clip), "--frames", *map(str, range(CLIP[0])),
-            "--output-dir", str(out), "--batch-size", str(BATCH),
-            "--stage1-threshold", str(THRESHOLD), *serving, "--bf16", "--no-ab-fgvc",
-            "--frames-per-batch", str(FRAMES_PER_BATCH), "--device", dev.type, *extra]
-    for size in LEVEL_SIZES:
-        argv += [f"--models-{size}", str(dirs[size])]
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):  # its stats are read from the file
-        predict_trees.main(argv)
+        predict_trees.main(tree_cli_argv(clip, dirs, name, extra, dev))
     wall = time.perf_counter() - t0
     stats = json.loads((out / "tree_stats.json").read_text())
     files = [np.load(out / f"trees_frame{i}.npz") for i in range(CLIP[0])]
@@ -2862,6 +2901,395 @@ def run_path_i(tree_dirs: dict, path_a_agreement: float, dev) -> dict:
     return launches
 
 
+# Path j: ROADMAP M11, the port on several processes. The card's machine has
+# one H100, and NCCL refuses two ranks on one device: j1 is a world of one
+# over NCCL, j2 and j3 are two ranks that share the card over gloo (compute
+# on the card, collectives through gloo's CUDA path)
+J_RANKS = 2
+J_TRAIN_STEPS = 20        # train_stage1's steps at batch TRAIN_BATCH, data 2
+J_TREE_CAPACITY = dict(zip(LEVEL_SIZES, LEVEL_CAPACITY))
+J_TIMEOUT = 600           # seconds for one spawn of the ranks
+J_STEP_DTYPES = (torch.float32, torch.float64)  # j3's single steps
+
+
+def spawn_ranks(world: int, backend: str, job: dict) -> list:
+    """Run :func:`path_j_rank` in ``world`` new processes that meet over a
+    ``FileStore`` in ``job["out"]``, wait for them and return each rank's
+    results. A rank that fails or is late fails the path, and every process
+    is stopped first."""
+    out = Path(job["out"])
+    if out.exists():
+        shutil.rmtree(out)
+    out.mkdir(parents=True)
+    ranks = torch.multiprocessing.start_processes(
+        path_j_rank, args=(world, backend, job), nprocs=world, join=False,
+        start_method="spawn")
+    deadline = time.monotonic() + J_TIMEOUT
+    try:
+        while not ranks.join(timeout=1):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"path j: the ranks did not end within {J_TIMEOUT} s")
+    finally:
+        for proc in ranks.processes:
+            if proc.is_alive():
+                proc.kill()
+    return [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def path_j_rank(rank: int, world: int, backend: str, job: dict) -> None:
+    """One rank of path j: join the world, then run each part of
+    ``job["parts"]`` (:data:`J_PARTS`) with the launch counts set to 0 just
+    before it and read just after, and save what the parts return."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    store = dist.FileStore(str(Path(job["out"]) / "store"), world)
+    dist.init_process_group(backend, store=store, rank=rank, world_size=world)
+    try:
+        _build.load_kernels()
+        dev = torch.device("cuda", 0)
+        results = {"backend": dist.get_backend(), "world": dist.get_world_size()}
+        for part in job["parts"]:
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            results[part] = J_PARTS[part](rank, job, dev)
+            torch.cuda.synchronize()
+            results[part]["seconds"] = time.perf_counter() - t0
+            results[part]["launches"] = dict(_build.launch_counts)
+        torch.save(results, Path(job["out"]) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def j1_serve(rank: int, job: dict, dev) -> dict:
+    """Path a's models through ``make_mesh(num_data=1)``, K2 (``g1``), bf16."""
+    mesh = make_mesh(num_data=1)
+    models = PipelineModels(*(load_model(path, cls) for path, cls in job["stages"]))
+    predict = make_v6_pipeline_folded(models, THRESHOLD, float_dtype=torch.bfloat16,
+                                      use_fused_front="g1", device=dev, mesh=mesh)
+    samples = Bundle.load(job["val"]).samples
+    run_pipeline_batched(predict, samples[:BATCH], BATCH, dev, mesh=mesh)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run_pipeline_batched(predict, samples, BATCH, dev, mesh=mesh)
+    return {"final": out["final"], "stage1_prob": out["stage1_prob"],
+            "mesh": str(mesh), "predict_seconds": time.perf_counter() - t0}
+
+
+def j2_serve(rank: int, job: dict, dev) -> dict:
+    """``run_pipeline_eval --folded --fused-front on|g1 --bf16`` over the
+    world (the CLI's default mesh); rank 0 reads the files the CLI wrote."""
+    runs = {}
+    for mode, args in job["serve"].items():
+        before = dict(_build.launch_counts)
+        if rank == 0:
+            runs[mode] = run_cli(job["dataset"], f"j2_{mode}", args, dev)
+        else:
+            quietly(run_pipeline_eval.main, cli_argv(job["dataset"], f"j2_{mode}", args, dev))
+            runs[mode] = {}
+        runs[mode]["launches"] = {k: v - before[k] for k, v in _build.launch_counts.items()
+                                  if v - before[k]}
+    return {"runs": runs}
+
+
+def j_level_predictors(dirs: dict, dev, mesh) -> dict:
+    """Path d's per-level models from their checkpoints, folded, K1 and K5."""
+    return {size: make_v6_pipeline_folded(
+        PipelineModels(*(load_model(Path(dirs[size]) / f"{STAGE_CKPT[name]}_best_variables.npz",
+                                    cls) for name, cls in STAGE_CLASSES.items())),
+        THRESHOLD, float_dtype=torch.bfloat16, use_fused_front=True, use_pallas_groups=True,
+        device=dev, mesh=mesh) for size in LEVEL_SIZES}
+
+
+def j2_trees(rank: int, job: dict, dev) -> dict:
+    """Path d's clip through ``predict_trees --level-capacity`` over the world,
+    then four frames through ``predict_partition_trees`` with K5 predictors
+    and the same capacities on the data-2 mesh."""
+    extra = ["--fused-front", "off", "--level-capacity", *map(str, LEVEL_CAPACITY)]
+    cli = {}
+    if rank == 0:
+        cli = run_tree_cli(job["clip"], job["tree_dirs"], "j2_gated", extra, dev)
+    else:
+        quietly(predict_trees.main, tree_cli_argv(job["clip"], job["tree_dirs"], "j2_gated",
+                                                  extra, dev))
+    mesh = make_mesh()
+    predictors = j_level_predictors(job["tree_dirs"], dev, mesh)
+    before = dict(_build.launch_counts)
+    library = predict_partition_trees(np.load(job["sbs"]), predictors, BATCH, mesh=mesh,
+                                      level_capacities=J_TREE_CAPACITY, device=dev)
+    return {"cli_trees": cli.get("trees"), "library": library,
+            "library_launches": {k: v - before[k] for k, v in _build.launch_counts.items()
+                                 if v - before[k]}}
+
+
+class InDtype(nn.Module):
+    """``model`` given its input in ``dtype``: a float64 step through the
+    trainer, which feeds float32 images."""
+
+    def __init__(self, model: nn.Module, dtype: torch.dtype):
+        super().__init__()
+        self.model, self.dtype = model, dtype
+
+    def forward(self, x, *args, **kwargs):
+        return self.model(x.to(self.dtype), *args, **kwargs)
+
+
+def j_step(state: dict, batch: dict, mesh, dev, dtype=torch.float32) -> dict:
+    """One stage-1 train step (AdamW; no augmentation and dropout off, as
+    path g's step parity) in ``dtype`` from ``state`` on ``batch`` (this
+    rank's rows of it under a data axis), under deterministic cuDNN: the
+    loss, the gradients the optimizer was given (whole layers) and the state
+    dict after the step, on the host."""
+    model = Stage1Model()
+    model.load_state_dict(state)
+    for mod in model.modules():
+        if isinstance(mod, nn.Dropout):
+            mod.p = 0.0
+    model.to(dev, dtype)
+    if mesh is not None:
+        place_params(model, mesh)
+    opt = as_optimizer(model, adamw(1e-3))
+    names = {id(p): n for n, p in model.named_parameters()}
+    layers = {id(m.weight): m for m in model.modules() if isinstance(m, ColumnParallel)}
+    grads, inner = {}, opt.step
+
+    def capturing():
+        for p in opt.params:
+            g = torch.zeros_like(p) if p.grad is None else p.grad
+            grads[names[id(p)]] = (layers[id(p)].full(g) if id(p) in layers
+                                   else g).detach().cpu().clone()
+        inner()
+
+    opt.step = capturing
+    cfg = StepConfig(loss_fn=lambda lo, ta: binary_focal_loss(lo, ta, 0.25, 2.5),
+                     label_key="stage1", binary=True, num_classes=2)
+    rows = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    if mesh is not None:
+        rows = shard_batch(rows, mesh)
+    net = model if dtype == torch.float32 else InDtype(model, dtype)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    with deterministic_cudnn():
+        out = make_train_step(net, opt, cfg, mesh)(TrainState(net, opt), rows, gen)
+    return {"loss": float(out["loss"]), "grads": grads,
+            "state": {k: v.cpu() for k, v in model.state_dict().items()}}
+
+
+def j_train(recipe, train: Bundle, val: Bundle, dev, mesh) -> dict:
+    """``train_stage`` (the library under ``train_stage1``) under
+    deterministic cuDNN: the final state on the host, the history, seconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with deterministic_cudnn():
+        result = train_stage(recipe, train, val, seed=SEED, device=dev, mesh=mesh,
+                             log=lambda message: None)
+    torch.cuda.synchronize()
+    return {"state": {k: v.cpu() for k, v in result.state.model.state_dict().items()},
+            "history": result.history, "train_seconds": result.history[-1]["train_seconds"],
+            "seconds": time.perf_counter() - t0}
+
+
+def j3_train(rank: int, job: dict, dev) -> dict:
+    """Twenty stage-1 steps at batch 256 on the data-2 mesh; one step on it
+    and one on the model-2 mesh."""
+    train, val = Bundle.load(job["train"]), Bundle.load(job["val_train"])
+    out = {"train": j_train(j_recipe(), train, val, dev, make_mesh())}
+    step = torch.load(job["step"], weights_only=False)
+    for name, mesh in (("data2_step", make_mesh()), ("model2_step", make_mesh(num_model=2))):
+        out[name] = {str(dt): j_step(step["state"], step["batch"], mesh, dev, dt)
+                     for dt in J_STEP_DTYPES}
+    return out
+
+
+J_PARTS = {"j1_serve": j1_serve, "j2_serve": j2_serve, "j2_trees": j2_trees,
+           "j3_train": j3_train}
+
+
+def j_recipe():
+    """train_stage1's recipe, one epoch of :data:`J_TRAIN_STEPS` steps."""
+    return replace(stage1_recipe(epochs=1, batch_size=TRAIN_BATCH,
+                                 steps_per_epoch=J_TRAIN_STEPS),
+                   input_shape=(HW, HW, 1))
+
+
+@contextlib.contextmanager
+def composed_epochs(ranks: int):
+    """One process trains on the global batches of a data-``ranks`` run: step
+    s is every rank's rows s*b..(s+1)*b of its contiguous shard of the epoch
+    order (the JAX package's multi-host composition)."""
+    base = trainer._epoch_indices
+
+    def composed(n, batch_size, epoch_seed, balance_labels, mesh=None):
+        indices, _ = base(n, batch_size, epoch_seed, balance_labels)
+        local = batch_size // ranks
+        shards = [host_shard(indices, r, ranks) for r in range(ranks)]
+        steps = len(shards[0]) // local
+        return np.concatenate([sh[s * local:(s + 1) * local]
+                               for s in range(steps) for sh in shards]), batch_size
+
+    with mock.patch.object(trainer, "_epoch_indices", composed):
+        yield
+
+
+def check_j_step(name: str, ranks: list, want: dict) -> dict:
+    """A step on the mesh against one process, as path g holds a step: both
+    ranks bitwise equal; the fp32 loss within ``STEP_LOSS_RTOL`` and the BN
+    statistics within ``STEP_STATS_TOL``; the gradients within
+    ``STEP_GRAD_TOL`` of each tensor's largest entry (floored at
+    ``STEP_SMALL_GRAD``) in float64, where no ReLU or max choice lies within
+    rounding (path g replays the fp32 choices in float64 for the same
+    reason: an fp32 choice within rounding flips between two reductions of
+    the same sum and moves one gradient entry by its own size; the fp32
+    gradients' distance is emitted beside)."""
+    result = {}
+    for dtype in J_STEP_DTYPES:
+        got, other, ref = (r[name][str(dtype)] for r in (*ranks, want))
+        key = str(dtype).replace("torch.", "")
+        result[f"{key}_ranks_bitwise_equal"] = got["loss"] == other["loss"] and all(
+            torch.equal(g, other["grads"][n]) for n, g in got["grads"].items())
+        result[f"{key}_loss_rel_err"] = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+        result[f"{key}_grad_err_of_largest"], result[f"{key}_worst_tensor"] = \
+            grad_err_of_largest(got["grads"], ref["grads"])
+        result[f"{key}_stats_err_of_largest"] = max(
+            (got["state"][k] - v).abs().max().item() / v.abs().max().item()
+            for k, v in ref["state"].items() if k.endswith(("running_mean", "running_var")))
+    emit("j_step", step=name, batch=TRAIN_BATCH, **result)
+    if (not all(result[f"{str(dt).replace('torch.', '')}_ranks_bitwise_equal"]
+                for dt in J_STEP_DTYPES)
+            or result["float32_loss_rel_err"] > STEP_LOSS_RTOL
+            or result["float32_stats_err_of_largest"] > STEP_STATS_TOL
+            or result["float64_grad_err_of_largest"] > STEP_GRAD_TOL):
+        raise AssertionError(f"path j: the {name} disagrees with one process: {result}")
+    return result
+
+
+def run_path_j(dataset: Path, ckpts: dict, cli_runs: list, tree_dirs: dict, clip: Path,
+               clip_sbs: np.ndarray, tree_models: dict, d_gated: dict, g_out: dict, dev,
+               smi: str) -> dict:
+    """Path j; returns the kernels' launches summed over the ranks of j1 and
+    j2 (their main paths)."""
+    t0 = time.perf_counter()
+    root = WORK / "path_j"
+    by_name = {run["name"]: run for run in cli_runs}
+    stages = [(ckpts[name], cls) for name, cls in (
+        ("stage1", Stage1Model), ("stage2", Stage2Model), ("rect", Stage3RectModel),
+        ("ab", Stage3ABModel))]
+    val = dataset / f"block_{HW}" / "val.npz"
+
+    # j1: a world of one over NCCL
+    (j1,) = spawn_ranks(1, "nccl", {"out": str(root / "j1"), "parts": ["j1_serve"],
+                                    "stages": stages, "val": str(val)})
+    g1 = by_name["g1"]
+    equal = bool(np.array_equal(j1["j1_serve"]["final"], g1["final"])
+                 and np.array_equal(j1["j1_serve"]["stage1_prob"], g1["stage1_prob"]))
+    emit("end_to_end", path="j1_nccl", run="g1", backend=j1["backend"], world=j1["world"],
+         mesh=j1["j1_serve"]["mesh"], launches=j1["j1_serve"]["launches"],
+         seconds=j1["j1_serve"]["seconds"],
+         ms_per_predict=1e3 * j1["j1_serve"]["predict_seconds"] / (N_VAL / BATCH),
+         single_process_ms_per_predict=1e3 * BATCH / g1["blocks_per_s"],
+         bitwise_equal_to_a_g1=equal)
+    if not equal or j1["backend"] != "nccl":
+        raise AssertionError("path j1: the NCCL world of one differs from path a's g1 run")
+
+    # j2 and j3: two ranks sharing the card over gloo
+    np.save(root / "sbs.npy", clip_sbs)
+    train = Bundle.load(g_out["dataset"] / f"block_{HW}" / "train.npz")
+    val_train = g_out["val"]
+    rows = J_TRAIN_STEPS * TRAIN_BATCH
+    train_j = train.take(np.arange(rows))
+    val_j = val_train.take(np.arange(min(len(val_train), 4 * TRAIN_BATCH)))
+    for name, bundle in (("train", train_j), ("val_train", val_j)):
+        bundle.save(root / f"{name}.npz")
+    gen = torch.Generator().manual_seed(SEED + 12)
+    calib = torch.randint(0, 1024, (512, HW, HW, 1), generator=gen).float() / 1023.0
+    step_state = seeded_model(Stage1Model, gen, calib).state_dict()
+    rng = np.random.default_rng(SEED + 12)
+    step_batch = {"samples": codes(rng, (TRAIN_BATCH, HW, HW, 1)),
+                  "stage1": rng.integers(0, 2, TRAIN_BATCH).astype(np.int32)}
+    torch.save({"state": step_state, "batch": step_batch}, root / "step.pt")
+    # a warm-up run first, as path a's: each rank's first CLI pays cuDNN's first calls
+    front = {mode: ["--folded", "--fused-front", mode.split("_")[0], *v6_checkpoints(ckpts)]
+             for mode in ("off_warmup", "on", "g1")}
+    ranks = spawn_ranks(J_RANKS, "gloo", {
+        "out": str(root / "j2"), "parts": ["j2_serve", "j2_trees", "j3_train"],
+        "dataset": dataset, "serve": front, "clip": clip, "tree_dirs": tree_dirs,
+        "sbs": str(root / "sbs.npy"), "train": str(root / "train.npz"),
+        "val_train": str(root / "val_train.npz"), "step": str(root / "step.pt")})
+    if {r["backend"] for r in ranks} != {"gloo"} or {r["world"] for r in ranks} != {J_RANKS}:
+        raise AssertionError("path j2: the ranks did not form a gloo world of two")
+
+    # j2: serving, labels bitwise equal to path a's single-process runs
+    for mode in ("on", "g1"):
+        got, want = ranks[0]["j2_serve"]["runs"][mode], by_name[mode]
+        equal = bool(np.array_equal(got["final"], want["final"]))
+        emit("end_to_end", path="j2_gloo", run=mode, ranks=J_RANKS,
+             launches=[r["j2_serve"]["runs"][mode]["launches"] for r in ranks],
+             blocks_per_s=got["blocks_per_s"],
+             ms_per_predict=1e3 * BATCH / got["blocks_per_s"],
+             single_process_ms_per_predict=1e3 * BATCH / want["blocks_per_s"],
+             final_bitwise_equal=equal,
+             stage1_prob_bitwise_equal=bool(np.array_equal(got["stage1_prob"],
+                                                           want["stage1_prob"])),
+             nvidia_smi=smi)
+        if not equal:
+            raise AssertionError(f"path j2: {mode}'s labels differ from path a's")
+        for r in ranks:
+            if r["j2_serve"]["runs"][mode]["launches"].get(FRONT_KERNELS[mode][0], 0) == 0:
+                raise AssertionError(f"path j2: a rank never launched {FRONT_KERNELS[mode]}")
+
+    # j2: trees, bitwise equal to path d's gated CLI run and to one process
+    single = predict_partition_trees(clip_sbs, {
+        size: make_v6_pipeline_folded(level_pipeline_models(tree_models, size), THRESHOLD,
+                                      float_dtype=torch.bfloat16, use_fused_front=True,
+                                      use_pallas_groups=True, device=dev)
+        for size in LEVEL_SIZES}, BATCH, level_capacities=J_TREE_CAPACITY, device=dev)
+    cli_equal = bool(np.array_equal(ranks[0]["j2_trees"]["cli_trees"], d_gated["trees"]))
+    lib_equal = all(np.array_equal(r["j2_trees"]["library"][k], v)
+                    for r in ranks for k, v in single.items())
+    emit("end_to_end", path="j2_trees", ranks=J_RANKS,
+         cli_trees_bitwise_equal_to_d_gated=cli_equal,
+         k5_trees_bitwise_equal_to_one_process=lib_equal,
+         overflow={k: int(v) for k, v in single.items() if k.startswith("overflow")},
+         launches=[r["j2_trees"]["launches"] for r in ranks],
+         seconds=[r["j2_trees"]["seconds"] for r in ranks])
+    if not (cli_equal and lib_equal):
+        raise AssertionError("path j2: the trees differ from one process's")
+    for r in ranks:
+        if r["j2_trees"]["library_launches"].get("fused_group12", 0) == 0:
+            raise AssertionError("path j2: a rank never launched fused_group12")
+
+    # j3: training on the card, data 2 and model 2
+    r0, r1 = (r["j3_train"]["train"] for r in ranks)
+    same = all(torch.equal(v, r1["state"][k]) for k, v in r0["state"].items())
+    with composed_epochs(J_RANKS):
+        want = j_train(j_recipe(), train_j, val_j, dev, None)
+    diffs = {k: (v.double() - want["state"][k].double()).abs().max().item()
+             / want["state"][k].double().abs().max().item()
+             for k, v in r0["state"].items() if v.is_floating_point()}
+    worst = max(diffs, key=diffs.get)
+    emit("j_train", steps=J_TRAIN_STEPS, batch=TRAIN_BATCH, ranks_bitwise_equal=same,
+         finite=all(torch.isfinite(v).all().item() for v in r0["state"].values()
+                    if v.is_floating_point()),
+         train_loss=r0["history"][0]["train_loss"],
+         single_process_train_loss=want["history"][0]["train_loss"],
+         val_loss=r0["history"][0]["val_loss"],
+         single_process_val_loss=want["history"][0]["val_loss"],
+         max_diff_of_largest=diffs[worst], worst_tensor=worst,
+         ms_per_step=[1e3 * r["j3_train"]["train"]["train_seconds"] / J_TRAIN_STEPS
+                      for r in ranks],
+         single_process_ms_per_step=1e3 * want["train_seconds"] / J_TRAIN_STEPS,
+         nvidia_smi=smi)
+    if not same:
+        raise AssertionError("path j3: the two ranks' states differ after 20 steps")
+    step = torch.load(root / "step.pt", weights_only=False)
+    one = {str(dt): j_step(step["state"], step["batch"], None, dev, dt) for dt in J_STEP_DTYPES}
+    for name in ("data2_step", "model2_step"):
+        check_j_step(name, [r["j3_train"] for r in ranks], {name: one})
+
+    emit("j_done", seconds=time.perf_counter() - t0)
+    runs = [j1["j1_serve"]] + [r[part] for r in ranks for part in ("j2_serve", "j2_trees")]
+    return {k: sum(run["launches"].get(k, 0) for run in runs) for k in _build.KERNELS}
+
+
 def device_time_by_kernel(fn: Callable, top: int = 8) -> list:
     """The ``top`` kernel names by device ms in one traced call of ``fn``:
     ``[name, calls, ms]``."""
@@ -3364,9 +3792,16 @@ def main() -> int:
                            for run in cli_runs if run["name"] in ("on", "g1"))
     i_launches = run_path_i(tree_dirs, path_a_agreement, dev)
 
+    # path j: the port on several processes (ROADMAP M11): a world of one over
+    # NCCL, then two ranks sharing the card over gloo that serve path a's
+    # blocks and path d's clip and train, each held to one process
+    j_launches = run_path_j(dataset, ckpts, cli_runs, tree_dirs, clip, clip_sbs,
+                            tree_models, by_name["gated"], g_out, dev, smi)
+
     launches = {k: cli_launches[k] + k5_launches[k] + api_launches[k] + tree_launches[k]
                 + serving_launches[k] + int8_launches[k] + f_launches[k] + pt_launches[k]
-                + g_launches[k] + h_launches[k] + i_launches[k] for k in _build.KERNELS}
+                + g_launches[k] + h_launches[k] + i_launches[k] + j_launches[k]
+                for k in _build.KERNELS}
     for name in KERNELS:
         if launches[name] == 0:
             raise AssertionError(f"{name} was never launched by a main path")

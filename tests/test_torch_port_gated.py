@@ -38,6 +38,7 @@ from tests.torch_port_fixtures import (
     jax_variables,
     seeded_torch_model,
     top2_margin,
+    world_of_one,
 )
 
 N, BATCH = 100, 64
@@ -210,10 +211,20 @@ def test_batched_pads_the_tail_for_gated_predictors_only():
 
 @pytest.mark.parametrize("build", [make_v6_pipeline_folded, make_v6_pipeline_gated],
                          ids=lambda f: f.__name__)
-def test_mesh_raises_and_names_m11(stages, build):
-    """F6: every pipeline constructor refuses a mesh and names the ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="ROADMAP M11"):
-        build(stages["port"], mesh=object(), device="cpu")
+def test_mesh_raises_and_names_m11(stages, build, tmp_path):
+    """F6 until ROADMAP M11: every pipeline constructor refused a mesh. With
+    M11 ported each takes one, as the JAX package's do: on a mesh of one
+    process the outputs, overflow included, equal those of no mesh (the
+    two-process runs are in ``test_torch_port_multiprocess.py``)."""
+    images = stages["images"]
+    want = run_pipeline_batched(build(stages["port"], device="cpu"), images, BATCH,
+                                device="cpu")
+    with world_of_one(tmp_path) as mesh:
+        got = run_pipeline_batched(build(stages["port"], mesh=mesh, device="cpu"), images,
+                                   BATCH, device="cpu", mesh=mesh)
+    assert set(got) == set(want)
+    for key, value in want.items():
+        np.testing.assert_array_equal(got[key], value, err_msg=key)
 
 
 @pytest.mark.parametrize("capacity", [0.0, -0.5, 1.5, math.inf])

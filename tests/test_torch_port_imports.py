@@ -71,7 +71,8 @@ def test_fresh_interpreter_imports_the_port_without_jax_or_av1tpu():
                    "train.losses", "train.schedules", "train.trainer", "train.checkpoint",
                    "train.stages", "cli.train_stage1", "cli.train_stage2", "data.noise",
                    "train.fgvc_step", "train.unified", "cli.prepare_stage3",
-                   "cli.train_stage3", "cli.train_stage2_flat", "cli.train_unified"):
+                   "cli.train_stage3", "cli.train_stage2_flat", "cli.train_unified",
+                   "parallel", "parallel.mesh"):
         assert f"av1tpu_torch.{module}" in report["imported"]
     assert report["bad"] == []
 

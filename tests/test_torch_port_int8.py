@@ -34,6 +34,7 @@ from av1tpu_torch.eval import (
     PipelineModels,
     make_unified_pipeline_folded,
     make_v6_pipeline_folded,
+    run_pipeline_batched,
     v6_route,
 )
 from av1tpu_torch.models import UNIFIED_LOGIT_SLICES
@@ -48,6 +49,7 @@ from tests.torch_port_fixtures import (
     jax_variables,
     superblocks_u16,
     top2_margin,
+    world_of_one,
 )
 
 CALIB, EVAL = 64, 192  # blocks of each size
@@ -519,14 +521,24 @@ def test_fused_front_attaches_at_8_and_16_px_only(ws, port_side):
     assert "plan__smm_w__layer4_1_conv2" in names and "scales__head_0__0" in names
 
 
-def test_refusals_name_their_reason(ws):
+def test_refusals_name_their_reason(ws, tmp_path):
+    """What the int8 builders refuse names its reason. A mesh (ROADMAP M11)
+    is no longer refused: on a mesh of one process both int8 pipelines give
+    the outputs of no mesh, as the JAX package's one-device mesh does."""
     model, calib = ws["models"][("stage", 16)], ws["calib"][16]
     pm = PipelineModels(*(ws["stages"][16][n] for n in ("stage1", "stage2", "rect", "ab")))
-    with pytest.raises(NotImplementedError, match="ROADMAP M11"):
-        pq.make_v6_pipeline_int8(pm, calib, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP M11"):
-        pq.make_unified_pipeline_int8(ws["models"][("unified", 16)], calib, mesh=object(),
-                                      device="cpu")
+    images = ws["eval"][16]
+    builders = {
+        "v6": lambda **kw: pq.make_v6_pipeline_int8(pm, calib, device="cpu", **kw),
+        "unified": lambda **kw: pq.make_unified_pipeline_int8(
+            ws["models"][("unified", 16)], calib, device="cpu", **kw),
+    }
+    for name, build in builders.items():
+        want = run_pipeline_batched(build(), images, 64, device="cpu")
+        with world_of_one(tmp_path / name) as mesh:
+            got = run_pipeline_batched(build(mesh=mesh), images, 64, device="cpu", mesh=mesh)
+        for key, value in want.items():
+            np.testing.assert_array_equal(got[key], value, err_msg=f"{name} {key}")
     with pytest.raises(ValueError, match="no group-1 hook"):
         pq.make_v6_pipeline_int8(pm, calib, use_fused_front="g1", device="cpu")
     x = torch.from_numpy(_x(calib))

@@ -29,6 +29,7 @@ from tests.torch_port_fixtures import (
     calibrated_variables,
     images_u16,
     top2_margin,
+    world_of_one,
 )
 
 N = 256
@@ -148,12 +149,24 @@ def test_batched_run_with_ragged_tail_equals_one_batch(setup):
 @pytest.mark.parametrize("option, item", [
     ({"stacked": True}, "Drop, don't port"),
     ({"stacked": True, "tta": True}, "Drop, don't port"),
-    ({"mesh": object()}, "M11"),
+    ({"mesh": "of one process"}, "M11"),
 ])
-def test_unported_pipeline_options_raise(setup, option, item):
+def test_unported_pipeline_options_raise(setup, option, item, tmp_path):
     """``tta``, ``tta_align_ab`` and ``ab_ensemble_vars`` are ported
     (``tests/test_torch_port_unified.py`` holds them against the JAX package);
-    stacked backbones and meshes still raise, naming their ROADMAP entry."""
+    stacked backbones still raise, naming their ROADMAP entry. A mesh
+    (ROADMAP M11) is ported: on a mesh of one process the plain pipeline
+    gives the outputs of no mesh, as the JAX package's one-device mesh does."""
+    if "mesh" in option:
+        images = setup[2]
+        want = run_pipeline_batched(make_v6_pipeline(setup[1], device="cpu"), images,
+                                    batch_size=100, device="cpu")
+        with world_of_one(tmp_path) as mesh:
+            got = run_pipeline_batched(make_v6_pipeline(setup[1], device="cpu", mesh=mesh),
+                                       images, batch_size=100, device="cpu", mesh=mesh)
+        for key, value in want.items():
+            np.testing.assert_array_equal(got[key], value, err_msg=key)
+        return
     with pytest.raises(NotImplementedError, match=item):
         make_v6_pipeline(setup[1], device="cpu", **option)
 

@@ -210,10 +210,14 @@ def test_resume_continues_the_epochs(runs, cli):
 
 
 @pytest.mark.parametrize("flags, message", [
-    (["--num-model-shards", "2"], "M11"),
+    (["--num-model-shards", "2"], "--num-model-shards 2 does not divide the world of 1"),
     (["--device", "cuda"], "no CUDA device"),
 ])
 def test_refusals(runs, flags, message, capsys):
+    """What the trainers refuse, and why. ``--num-model-shards`` > 1 trains
+    (ROADMAP M11, ``test_torch_port_multiprocess.py``); a model axis that the
+    world of processes does not divide is refused, as the JAX package's
+    ``make_mesh`` refuses it ("1 devices not divisible by model=2" there)."""
     if "cuda" in flags and torch.cuda.is_available():
         pytest.skip("this machine has a card")
     argv = [a for a in runs["data"] if a not in ("--device", "cpu")]

@@ -85,8 +85,8 @@ def runs(tmp_path_factory):
         out[name] = root / name
         if jax_cli is not None:
             out[f"jax_{name}"] = root / f"jax_{name}"
-            # on one device, as the port (no mesh before M11): the suite's
-            # eight virtual CPU devices would partition the compiled step
+            # on one device, as the port in a world of one process: the
+            # suite's eight virtual CPU devices would partition the compiled step
             with pytest.MonkeyPatch.context() as mp:
                 mp.setattr(jax_cli, "make_cli_mesh", lambda num_model_shards=1: None)
                 jax_cli.main([*argv, "--output-dir", str(out[f"jax_{name}"])])

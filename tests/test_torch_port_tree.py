@@ -48,6 +48,7 @@ from tests.torch_port_fixtures import (
     cascade_unified_models,
     jax_variables,
     superblocks_u16,
+    world_of_one,
 )
 
 CAPACITIES = {  # name -> level_capacities
@@ -274,15 +275,22 @@ def test_predict_frame_trees_grid_equals_jax():
     _assert_same_result(got, want)
 
 
-def test_cascade_argument_errors():
+def test_cascade_argument_errors(tmp_path):
+    """The cascade's refusals. A mesh (ROADMAP M11) is no longer one: on a
+    mesh of one process the trees equal those of no mesh, as the JAX
+    package's one-device mesh gives them."""
     sbs = superblocks_u16(15, 2)
     preds = {s: _port_stub for s in LEVEL_SIZES}
     with pytest.raises(ValueError, match="missing level predictors.*8"):
         predict_partition_trees(sbs, {s: _port_stub for s in (64, 32, 16)}, device="cpu")
     with pytest.raises(ValueError, match="capacities must be in"):
         predict_partition_trees(sbs, preds, level_capacities={16: 0.0}, device="cpu")
-    with pytest.raises(NotImplementedError, match="M11"):
-        predict_partition_trees(sbs, preds, mesh=object(), device="cpu")
+    caps = {32: 0.75, 16: 0.5, 8: 0.25}
+    want = predict_partition_trees(sbs, preds, level_capacities=caps, device="cpu")
+    with world_of_one(tmp_path) as mesh:
+        got = predict_partition_trees(sbs, preds, mesh=mesh, level_capacities=caps,
+                                      device="cpu")
+    _assert_same_result(got, want)
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
             predict_partition_trees(sbs, preds)  # the card is the default

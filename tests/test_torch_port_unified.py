@@ -27,6 +27,7 @@ from av1tpu_torch.eval import (
     make_unified_pipeline,
     make_unified_pipeline_folded,
     make_v6_pipeline,
+    run_pipeline_batched,
 )
 from av1tpu_torch.eval.hierarchy import tta_mean_logits
 from av1tpu_torch.train import augment as port_augment
@@ -41,6 +42,7 @@ from tests.torch_port_fixtures import (
     seeded_torch_model,
     superblocks_u16,
     top2_margin,
+    world_of_one,
 )
 
 TOL = 1e-4
@@ -254,12 +256,21 @@ def test_unified_folded_bf16_agrees_with_jax(unified, blocks, front):
     assert (got["final"] == want["final"]).mean() >= 0.97
 
 
-def test_unified_pipelines_reject_what_is_not_ported(unified):
+def test_unified_pipelines_reject_what_is_not_ported(unified, tmp_path):
+    """An unknown front is refused. A mesh (ROADMAP M11) is ported: on a
+    mesh of one process both unified pipelines give the outputs of no mesh,
+    as the JAX package's one-device mesh does."""
     with pytest.raises(ValueError, match="use_fused_front"):
         make_unified_pipeline_folded(unified[16], use_fused_front="g2", device="cpu")
-    for build in (make_unified_pipeline, make_unified_pipeline_folded):
-        with pytest.raises(NotImplementedError, match="M11"):
-            build(unified[16], mesh=object(), device="cpu")
+    images = blocks_of_every_size(superblocks_u16(431, 2))[16]
+    for i, build in enumerate((make_unified_pipeline, make_unified_pipeline_folded)):
+        want = run_pipeline_batched(build(unified[16], device="cpu"), images, 16,
+                                    device="cpu")
+        with world_of_one(tmp_path / str(i)) as mesh:
+            got = run_pipeline_batched(build(unified[16], mesh=mesh, device="cpu"), images,
+                                       16, device="cpu", mesh=mesh)
+        for key, value in want.items():
+            np.testing.assert_array_equal(got[key], value, err_msg=key)
 
 
 # ---------------------------------------------------------------------------

@@ -39,6 +39,7 @@ from tests.torch_port_fixtures import (
     jax_variables,
     seeded_torch_model,
     top2_margin,
+    world_of_one,
 )
 
 TOL = 1e-4
@@ -483,9 +484,19 @@ def test_batched_qps_follow_their_rows(v5_setup):
 
 
 @pytest.mark.parametrize("pipeline", ["v5", "flatten"])
-def test_mesh_raises_and_names_m11(v5_setup, flatten_setup, pipeline):
-    with pytest.raises(NotImplementedError, match="M11"):
-        if pipeline == "v5":
-            make_v5_pipeline(v5_setup[1], device="cpu", mesh=object())
-        else:
-            make_flatten_pipeline(*flatten_setup[:2], device="cpu", mesh=object())
+def test_mesh_raises_and_names_m11(v5_setup, flatten_setup, pipeline, tmp_path):
+    """Until ROADMAP M11 a mesh was refused. Ported, both pipelines take one,
+    as the JAX package's do: on a mesh of one process the outputs equal
+    those of no mesh (the v5 pipeline with its per-sample QPs)."""
+    if pipeline == "v5":
+        make, args = make_v5_pipeline, (v5_setup[1],)
+        images, qps = v5_setup[2], v5_setup[3].astype(np.float32) / 255.0
+    else:
+        make, args = make_flatten_pipeline, flatten_setup[:2]
+        images, qps = flatten_setup[2], None
+    want = run_pipeline_batched(make(*args, device="cpu"), images, 100, device="cpu", qps=qps)
+    with world_of_one(tmp_path) as mesh:
+        got = run_pipeline_batched(make(*args, device="cpu", mesh=mesh), images, 100,
+                                   device="cpu", qps=qps, mesh=mesh)
+    for key, value in want.items():
+        np.testing.assert_array_equal(got[key], value, err_msg=key)

@@ -8,12 +8,14 @@ tests need sixteen models (four stages at four block sizes): those are drawn
 and calibrated in torch (:func:`cascade_stage_models`, no jax compile) and
 carried to the JAX package through ``to_jax_variables``.
 """
+import contextlib
 from pathlib import Path
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from av1tpu import models as jm
 from av1tpu.codec.partitions import map_to_stage2_v6
@@ -246,3 +248,19 @@ def cli_argv(dataset, ckpts, out, fgvc: bool, extra) -> list:
         "--stage3-ab-checkpoint", str(ckpts["fgvc" if fgvc else "ab"]),
         "--ab-fgvc" if fgvc else "--no-ab-fgvc", *extra,
     ]
+
+
+@contextlib.contextmanager
+def world_of_one(tmp_path: Path):
+    """A gloo world of this one process (a ``FileStore`` in ``tmp_path``, so
+    no port is taken) and its ``(data 1, model 1)`` mesh; the group is
+    destroyed on exit, so that later tests in the worker see no world."""
+    from av1tpu_torch.parallel import make_mesh
+
+    Path(tmp_path).mkdir(parents=True, exist_ok=True)
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "world_of_one"), 1),
+                            rank=0, world_size=1)
+    try:
+        yield make_mesh(device_type="cpu")
+    finally:
+        dist.destroy_process_group()
