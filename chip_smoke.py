@@ -94,8 +94,8 @@ Run from the root of a checkout. Phases, one JSON line each:
           a's npz run's;
        g. training (``train_stage1`` / ``train_stage2``, which launch no port
           kernel: the JAX training path calls no Pallas kernel) on
-          ``reference_shaped_corpus(0, 16, scale=0.25)`` (90,541 train and
-          22,700 val blocks in the documented class mix) written with
+          ``reference_shaped_corpus(0, 16, scale=0.125)`` (45,271 train and
+          11,349 val blocks in the documented class mix) written with
           ``save_split``: ``train_stage1 --epochs 2 --batch-size 256`` in fp32
           (cuDNN's deterministic algorithms) and ``--bf16``, then
           ``train_stage2 --stage1-checkpoint ... --freeze-epochs 1 --epochs 2``
@@ -116,8 +116,8 @@ Run from the root of a checkout. Phases, one JSON line each:
           ms and idle share per step, resident and streaming epoch
           samples/s, and the seconds of a verified ``save_checkpoint``;
        h. the rest of training on path g's corpus, which launches no port
-          kernel either: ``prepare_stage3 --ensemble-members 2`` (RECT 17,844
-          train / 4,474 val blocks; AB 14,320 / 3,591, oversampled to 23,600),
+          kernel either: ``prepare_stage3 --ensemble-members 2`` (RECT 8,922
+          train / 2,237 val blocks; AB 7,160 / 1,795, oversampled to 11,800),
           then through the CLIs at batch 256: ``train_stage3 --head RECT
           --epochs 2`` from path g's stage-2 export (5 frozen epochs and 1
           unfrozen), the same with ``--noise-ratio 0.25``, ``--head AB --fgvc
@@ -176,6 +176,25 @@ Run from the root of a checkout. Phases, one JSON line each:
           data-2 and one model-2 step, each held to one process at path g's
           step tolerances; every rank's launch counts are summed into the
           ``kernels`` line;
+       k. the port's examples (``av1tpu_torch/examples``), each through its
+          ``main`` at the published widths with corpora and epochs cut:
+          k1 ``demo_e2e`` (its default three epochs: its own gate wants a
+          pipeline accuracy above 0.5); k2 ``tree_demo`` at every size on one
+          1280x768 val frame and 1,500 train superblocks, batch 64, two
+          epochs for stage 1, three for stage 2 (one frozen), one for stage
+          3, ``--calibrate --folded --fused-front g1`` (K2), then ``--resume
+          --fused-front on`` (K1), its trees held as path d's (a root on every
+          tree, mean nodes in (2, 60)) with their ``tree_accuracy`` and the
+          share of slots ``on`` and ``g1`` agree on, then ``tta_eval
+          --configs none tta_aligned`` over its directory; k3
+          ``int8_selfcalib_ab`` on k2's 16 px models, two frames,
+          ``--fused-front on`` (K1; the folded and int8 trees' agreement is
+          emitted, not held); k5 ``scale_demo``, ``scale_demo_extras`` and
+          ``scale_demo_v5`` at corpus scale 0.01, one epoch a stage; k4
+          ``unified_demo --ladder`` on k5's ladder with ``--fused-front g1``
+          (K2) and its folded throughput at batch 4096; k6
+          ``bench_ingest_to_trees --frames 8``. Each must write its results
+          file; its numbers are emitted;
      each run prints blocks/s (or frames/s and superblocks/s), its launches,
      and its agreement with its path's ``off`` run;
   6. predict: the CUDA-event time of one 4,096-block bf16 predict on a
@@ -289,6 +308,17 @@ from av1tpu_torch.eval import (  # noqa: E402
     v6_route,
 )
 from av1tpu_torch.eval.ensemble import _stacking_features, _stacking_objective  # noqa: E402
+from av1tpu_torch.examples import (  # noqa: E402
+    bench_ingest_to_trees,
+    demo_e2e,
+    int8_selfcalib_ab,
+    scale_demo,
+    scale_demo_extras,
+    scale_demo_v5,
+    tree_demo,
+    tta_eval,
+    unified_demo,
+)
 from av1tpu_torch.ingest import (  # noqa: E402
     Yuv420p10Geometry,
     etl,
@@ -394,7 +424,7 @@ GRAD_ATOL = {"x": 1e-4, "w": 5e-4, "b": 1e-4}
 # Published peaks of an H100 SXM (NVIDIA's data sheet, dense rates)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-FORBIDDEN_MODULES = ("jax", "flax", "optax", "av1tpu")  # the port imports none of them
+FORBIDDEN_MODULES = ("jax", "flax", "optax", "av1tpu", "bench")  # the port imports none
 # Path d: the tree cascade on a clip of eight 1080p frames, four frames a group
 CLIP = (8, 1080, 1920)
 FRAME_SBS = 17 * 30       # 64 px superblocks of one padded 1080p frame
@@ -1845,9 +1875,10 @@ def run_path_f(models: dict, ckpts: dict, dataset: Path, npz_on_run: dict, dev) 
 # Path g: training (train_stage1 / train_stage2 on the card)
 # ---------------------------------------------------------------------------
 
-# The reference-shaped synthetic corpus at a quarter of its documented size:
-# ~90.5k train and ~22.7k val 16 px blocks with the documented class mix
-TRAIN_SCALE = 0.25
+# The reference-shaped synthetic corpus at an eighth of its documented size
+# (a quarter until path k needed the time): 45,271 train and 11,349 val 16 px
+# blocks with the documented class mix
+TRAIN_SCALE = 0.125
 TRAIN_BATCH = 256
 STEP_BATCHES = (256, 4096)
 # One train step on the card against the same step on the CPU (TF32 off),
@@ -3290,6 +3321,157 @@ def run_path_j(dataset: Path, ckpts: dict, cli_runs: list, tree_dirs: dict, clip
     return {k: sum(run["launches"].get(k, 0) for run in runs) for k in _build.KERNELS}
 
 
+# ---------------------------------------------------------------------------
+# Path k: the port's examples (av1tpu_torch/examples), each through its main
+# ---------------------------------------------------------------------------
+
+# tree_demo's corpus: one 1280x768 val frame and a train corpus cut to an
+# eighth of the script's 12,000 superblocks; batch 64, so that the 64 px level
+# (one block a superblock) still takes ~20 steps an epoch. Stages 1 and 2 take
+# two and three epochs (one frozen): with one each the 64 px stage 2 split no
+# superblock and every tree was its root (on an H100); with these the trees
+# hold 4.03 nodes on average (PERF.md, PR 13).
+K_TREE = ["--train-superblocks", "1500", "--val-superblocks", "240", "--batch-size", "64",
+          "--stage1-epochs", "2", "--stage2-epochs", "3", "--freeze-epochs", "1",
+          "--stage3-epochs", "1", "--calibrate", "--folded"]
+K_SCALE = "0.01"   # the scale demos' corpus: 3,622 train / 908 val blocks
+K_INT8_FRAMES = 2
+K_BENCH_FRAMES = 8
+# k's runs in which the folded graph serves with a fused front
+K_EXPECT = {"k2_tree_g1": ["fused_front_g1"], "k2_tree_on": ["fused_front"],
+            "k3_int8": ["fused_front"], "k4_unified": ["fused_front_g1"]}
+
+
+def k_plan(root: Path, dev) -> list:
+    """``(name, (example module, argv, results file))`` in the order they run:
+    k5's ladder feeds k4, k2's 16 px models feed k3."""
+    cpu_or_card = ["--device", dev.type]
+    tree, scale = root / "tree_demo", root / "scale_demo"
+    return [
+        ("k1_demo_e2e", (demo_e2e, ["--out", str(root / "demo"), *cpu_or_card],
+                         root / "demo" / "demo_results.json")),
+        ("k2_tree_g1", (tree_demo, ["--out", str(tree), *K_TREE, "--fused-front", "g1",
+                                    *cpu_or_card], tree / "RESULTS.json")),
+        ("k2_tree_on", (tree_demo, ["--out", str(tree), *K_TREE, "--resume",
+                                    "--fused-front", "on", *cpu_or_card],
+                        tree / "RESULTS.json")),
+        ("k2_tta_eval", (tta_eval, ["--xl-dir", str(tree), "--configs", "none",
+                                    "tta_aligned", "--output", str(tree / "tta_eval.json"),
+                                    *cpu_or_card], tree / "tta_eval.json")),
+        ("k3_int8", (int8_selfcalib_ab, [
+            "--models", str(tree / "size_16" / "models"), "--out", str(root / "int8_ab"),
+            "--frames", str(K_INT8_FRAMES), "--fused-front", "on", *cpu_or_card],
+            root / "int8_ab" / "int8_selfcalib_ab.json")),
+        ("k5_scale_demo", (scale_demo, [
+            "--out", str(scale), "--scale", K_SCALE, "--stage1-epochs", "1",
+            "--stage2-epochs", "1", "--stage3-epochs", "1", "--flat-epochs", "1",
+            *cpu_or_card], scale / "RESULTS.json")),
+        ("k5_scale_demo_extras", (scale_demo_extras, [
+            "--demo", str(scale), "--scale", K_SCALE, "--ensemble-epochs", "1",
+            "--v5-epochs", "1", *cpu_or_card], scale / "EXTRAS.json")),
+        ("k5_scale_demo_v5", (scale_demo_v5, [
+            "--out", str(root / "scale_demo_v5"), "--scale", K_SCALE, "--stage1-epochs", "1",
+            "--stage2-epochs", "1", "--stage3-epochs", "1", *cpu_or_card],
+            root / "scale_demo_v5" / "RESULTS.json")),
+        ("k4_unified", (unified_demo, [
+            "--out", str(root / "unified_demo"), "--ladder", str(scale), "--epochs", "1",
+            "--throughput-batch", str(BATCH), "--fused-front", "g1", *cpu_or_card],
+            root / "unified_demo" / "RESULTS.json")),
+        ("k6_bench_ingest", (bench_ingest_to_trees, [
+            "--frames", str(K_BENCH_FRAMES), "--out", str(root / "bench"), *cpu_or_card],
+            root / "bench" / "report.json")),
+    ]
+
+
+def run_example(arg) -> dict:
+    """One example's ``main`` (its prints captured); its results file."""
+    module, argv, results = arg
+    t0 = time.perf_counter()
+    quietly(module.main, argv)
+    seconds = time.perf_counter() - t0
+    if not results.exists():
+        raise AssertionError(f"{module.__name__}: {results} was not written")
+    return {"seconds": seconds, "results": json.loads(results.read_text())}
+
+
+def k_numbers(name: str, results: dict) -> dict:
+    """What path k emits of an example's results file."""
+    if name == "k1_demo_e2e":
+        return {k: results[k] for k in ("stage1_val_f1", "stage2_val_f1",
+                                        "stage3_rect_val_f1", "stage3_ab_val_f1",
+                                        "pipeline_accuracy", "pipeline_macro_f1")}
+    if name.startswith("k2_tree"):
+        return {"tree_accuracy_variants": results["tree_accuracy_variants"],
+                "calibrated_thresholds": {s: r["calibrated_threshold"]
+                                          for s, r in results["sizes"].items()},
+                "walls": {s: {k: v for k, v in r.items() if k.endswith("_wall")}
+                          for s, r in results["sizes"].items()}}
+    if name == "k2_tta_eval":
+        return {c: {k: a[k] for k in ("node_accuracy", "exact_tree_match",
+                                      "predict_wall_seconds")}
+                for c, a in results["configs"].items()}
+    if name == "k3_int8":
+        return {"modes": results["modes"], "agreement": results["agreement"]}
+    if name == "k4_unified":
+        return {"throughput": results["throughput"],
+                "val": {f: {k: v for k, v in r.items() if k != "sweep"}
+                        for f, r in results["val"].items()}}
+    if name == "k6_bench_ingest":  # its "seconds" is the timed pass's
+        return {("timed_seconds" if k == "seconds" else k): v for k, v in results.items()}
+    return {"stages": results.get("stages", results)}
+
+
+def check_k_trees(tree: Path, runs: dict) -> None:
+    """k2's trees, as path d's are held (``report_tree_runs``): (n, 85) in
+    -1..7, a root on every tree, mean nodes between 2 and 60, the expected
+    kernels launched; the share of slots equal between ``on`` and ``g1`` and
+    each run's ``tree_accuracy`` emitted beside them."""
+    truth = np.load(tree / "val_trees_truth.npy")
+    trees = {front: np.load(tree / f"trees_ladder_{front}" / "trees_frame0.npz")["trees"]
+             for front in ("g1", "on")}
+    accuracy = runs["k2_tree_on"]["results"]["tree_accuracy_variants"]
+    for front, got in trees.items():
+        mean_nodes = float((got >= 0).sum(axis=1).mean())
+        acc = accuracy[f"ladder_{front}"]
+        emit("end_to_end", path="k_trees", run=f"ladder_{front}", superblocks=len(got),
+             mean_nodes_per_tree=mean_nodes, node_accuracy=acc["node_accuracy"],
+             exact_tree_match=acc["exact_tree_match"],
+             structure_accuracy=acc["structure_accuracy"],
+             predict_wall_seconds=acc["predict_wall_seconds"],
+             tree_slots_equal_on_vs_g1=float((trees["on"] == trees["g1"]).mean()),
+             launches=runs[f"k2_tree_{front}"]["launches"])
+        if got.shape != truth.shape or got.shape[1] != 85 or got.min() < -1 or got.max() > 7:
+            raise AssertionError(f"k2 {front}: bad trees {got.shape}")
+        if (got[:, 0] < 0).any() or not 2.0 < mean_nodes < 60.0:
+            raise AssertionError(f"k2 {front}: the trees do not vary (mean nodes {mean_nodes})")
+
+
+def run_path_k(dev) -> dict:
+    """Path k: the port's examples on the card, each through its ``main`` at
+    the published v6 widths with corpora and epochs cut (``K_*``): demo_e2e;
+    tree_demo at every size, calibrated, folded with ``g1`` and again
+    (``--resume``) with ``on``, then tta_eval over its directory; int8_selfcalib_ab
+    on tree_demo's 16 px models with ``on``; scale_demo, scale_demo_extras and
+    scale_demo_v5; unified_demo on scale_demo's ladder with ``g1``;
+    bench_ingest_to_trees. Each must write its results file; k2's trees are
+    held as path d's. Returns the path's launches."""
+    root = WORK / "examples"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    runs, launches = drive("k_examples", k_plan(root, dev), run_example)
+    by_name = {run["name"]: run for run in runs}
+    for run in runs:
+        emit("end_to_end", path="k_examples", run=run["name"], seconds=run["seconds"],
+             launches=run["launches"], **k_numbers(run["name"], run["results"]))
+        for kernel in K_EXPECT.get(run["name"], []):
+            if run["launches"].get(kernel, 0) == 0:
+                raise AssertionError(f"{run['name']}: {kernel} never launched")
+    check_k_trees(root / "tree_demo", by_name)  # demo_e2e holds its own accuracy gate
+    emit("k_done", seconds=time.perf_counter() - t0, nvidia_smi=nvidia_smi_line())
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def device_time_by_kernel(fn: Callable, top: int = 8) -> list:
     """The ``top`` kernel names by device ms in one traced call of ``fn``:
     ``[name, calls, ms]``."""
@@ -3798,10 +3980,13 @@ def main() -> int:
     j_launches = run_path_j(dataset, ckpts, cli_runs, tree_dirs, clip, clip_sbs,
                             tree_models, by_name["gated"], g_out, dev, smi)
 
+    # path k: the port's examples, each through its main (ROADMAP M12 rest)
+    k_launches = run_path_k(dev)
+
     launches = {k: cli_launches[k] + k5_launches[k] + api_launches[k] + tree_launches[k]
                 + serving_launches[k] + int8_launches[k] + f_launches[k] + pt_launches[k]
                 + g_launches[k] + h_launches[k] + i_launches[k] + j_launches[k]
-                for k in _build.KERNELS}
+                + k_launches[k] for k in _build.KERNELS}
     for name in KERNELS:
         if launches[name] == 0:
             raise AssertionError(f"{name} was never launched by a main path")

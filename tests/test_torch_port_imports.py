@@ -1,7 +1,7 @@
-"""The port stands alone: it imports nothing of jax, flax or the JAX package
-``av1tpu``, keeps its own copies of the codec tables and the dataset bundles
-(equal to the JAX package's, and readable by it), and runs on the card
-unless the caller asks for the CPU.
+"""The port stands alone: it imports nothing of jax, flax, the JAX package
+``av1tpu`` or its ``bench.py``, keeps its own copies of the codec tables and
+the dataset bundles (equal to the JAX package's, and readable by it), and
+runs on the card unless the caller asks for the CPU.
 """
 import inspect
 import json
@@ -37,6 +37,9 @@ from av1tpu_torch.eval import (
 from av1tpu_torch.quant import make_unified_pipeline_int8, make_v6_pipeline_int8
 
 ROOT = Path(__file__).resolve().parents[1]
+EXAMPLES = ("_common", "demo_e2e", "tree_demo", "tta_eval", "unified_demo",
+            "int8_selfcalib_ab", "scale_demo", "scale_demo_extras", "scale_demo_v5",
+            "bench_ingest_to_trees")
 
 PROBE = """
 import importlib, json, pkgutil, sys
@@ -47,18 +50,19 @@ names = ["av1tpu_torch"] + [m.name for m in pkgutil.walk_packages(
 for name in names + ["chip_smoke"]:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "av1tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "av1tpu", "bench"))
 print(json.dumps({{"imported": names + ["chip_smoke"], "bad": bad}}))
 """
 
 
 def test_fresh_interpreter_imports_the_port_without_jax_or_av1tpu():
-    """Every module under ``av1tpu_torch`` and ``chip_smoke`` (not run)."""
+    """Every module under ``av1tpu_torch`` (the examples too) and
+    ``chip_smoke`` (not run)."""
     out = subprocess.run([sys.executable, "-c", PROBE.format(root=str(ROOT))],
                          capture_output=True, text=True, cwd=ROOT, timeout=600)
     assert out.returncode == 0, out.stderr[-2000:]
     report = json.loads(out.stdout.strip().splitlines()[-1])
-    assert len(report["imported"]) >= 56
+    assert len(report["imported"]) >= 67
     for module in ("codec.tree", "ingest.yuv", "ingest.tiler", "train.augment",
                    "ingest.partition_dump", "ingest.xlsx", "ingest.etl", "ingest.native",
                    "data.synth_tree", "eval.plots", "utils.profiling", "cli.prepare_data",
@@ -72,7 +76,7 @@ def test_fresh_interpreter_imports_the_port_without_jax_or_av1tpu():
                    "train.stages", "cli.train_stage1", "cli.train_stage2", "data.noise",
                    "train.fgvc_step", "train.unified", "cli.prepare_stage3",
                    "cli.train_stage3", "cli.train_stage2_flat", "cli.train_unified",
-                   "parallel", "parallel.mesh"):
+                   "parallel", "parallel.mesh", *(f"examples.{name}" for name in EXAMPLES)):
         assert f"av1tpu_torch.{module}" in report["imported"]
     assert report["bad"] == []
 
@@ -119,14 +123,15 @@ def test_new_modules_import_nothing_of_jax_or_av1tpu():
     modules = ["ingest.partition_dump", "ingest.xlsx", "ingest.etl", "ingest.native",
                "data.synth_tree", "data.records", "eval.plots", "eval.html_report",
                "utils.profiling", "cli.prepare_data", "cli.prepare_dataset",
-               "cli.analysis_report", "cli.visualize_blocks"]
+               "cli.analysis_report", "cli.visualize_blocks",
+               *(f"examples.{name}" for name in EXAMPLES)]
     code = (f"import importlib, json, sys\nsys.path.insert(0, {str(ROOT)!r})\n"
             "bad = {}\n"
             f"for name in {modules!r}:\n"
             "    before = set(sys.modules)\n"
             "    importlib.import_module('av1tpu_torch.' + name)\n"
             "    bad[name] = sorted(m for m in set(sys.modules) - before if m.split('.')[0]\n"
-            "                       in ('jax', 'jaxlib', 'flax', 'optax', 'av1tpu'))\n"
+            "                       in ('jax', 'jaxlib', 'flax', 'optax', 'av1tpu', 'bench'))\n"
             "print(json.dumps(bad))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=ROOT, timeout=600)
@@ -135,7 +140,7 @@ def test_new_modules_import_nothing_of_jax_or_av1tpu():
 
 
 def test_no_source_line_imports_jax_or_av1tpu():
-    pattern = re.compile(r"^\s*(from|import)\s+(av1tpu\b|jax|flax|optax)")
+    pattern = re.compile(r"^\s*(from|import)\s+(av1tpu\b|jax|flax|optax|bench\b)")
     files = sorted((ROOT / "av1tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) >= 43
     hits = [f"{f.relative_to(ROOT)}:{i}" for f in files
@@ -296,6 +301,35 @@ def test_training_entry_points_default_to_the_card():
         bundle = _v6_bundle(41, n=16)
         with pytest.raises((RuntimeError, AssertionError)):
             train_stage(stage1_recipe(epochs=1, batch_size=8), bundle, bundle, log=print)
+
+
+@pytest.mark.parametrize("name", EXAMPLES[1:])
+def test_examples_default_to_the_card(name):
+    """Each example's ``--device`` is ``cuda`` unless the caller asks for
+    the CPU, and asking for the card without one is refused."""
+    import argparse
+    import importlib
+
+    import torch
+
+    module = importlib.import_module(f"av1tpu_torch.examples.{name}")
+    required = ["--models", "m"] if name == "int8_selfcalib_ab" else []
+    original = argparse.ArgumentParser.parse_args
+    seen = []
+
+    def parse(self, args=None, namespace=None):
+        seen.append(original(self, args, namespace))
+        raise SystemExit(0)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(argparse.ArgumentParser, "parse_args", parse)
+        with pytest.raises(SystemExit):
+            module.main(required)
+    assert seen[0].device == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit) as refused:
+            module.main(required)
+        assert refused.value.code == 2
 
 
 def test_asking_for_the_card_without_one_raises():
