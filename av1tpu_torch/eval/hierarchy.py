@@ -8,16 +8,29 @@ output of a sample never depends on the rest of its batch.
     final = where(s1 == 0, NONE, where(s2 == SPLIT, SPLIT,
             where(s2 == RECT, rect + 2, ab + 4)))
 
+``make_v6_pipeline(stacked=True)`` runs the four stage backbones as one
+``torch.func.vmap`` forward over their stacked weights (the convolutions
+become grouped ones) and each head on its stage's slice of the embeddings.
 ``make_v5_pipeline`` routes the v5 multi-head model's outputs to raw
 partition ids with the same masks; ``make_flatten_pipeline`` gates a 7-way
-classifier with stage 1 and maps its classes to raw ids. Both are plain
+classifier with stage 1 and maps its classes to raw ids. All are plain
 module forwards, as in the JAX package, which calls no Pallas kernel there.
+
+``run_pipeline_batched`` streams a dataset in batches. With ``prefetch``
+(default 2) a producer thread slices the host array (reading a memmap's
+pages), fills pinned buffers and issues each host-to-device copy on a side
+CUDA stream, ``prefetch`` batches ahead of the predictor, so that batch
+k + 1's staging and copy overlap batch k's compute.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
+import functools
+import queue
+import threading
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Mapping, Optional, Sequence
+from typing import Callable, Dict, Iterator, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -60,9 +73,12 @@ def v6_route(s1_pred, s2_pred, rect_pred, ab_pred):
 
 
 def assemble_v6_predict(f1, f2, f3r, f3a, stage1_threshold: float,
-                        norm_scale: float, float_dtype=None) -> Callable:
+                        norm_scale: float, float_dtype=None,
+                        features: Optional[Callable] = None) -> Callable:
     """The v6 predict body from four per-stage logit functions: uint16
-    NHWC images in, a dict of per-sample outputs out."""
+    NHWC images in, a dict of per-sample outputs out. ``features`` (the
+    stacked backbones) maps the normalized batch to the four stages' inputs,
+    ``(4, N, ...)``; without it every function reads the batch itself."""
 
     @torch.inference_mode()
     def predict(images: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -70,11 +86,12 @@ def assemble_v6_predict(f1, f2, f3r, f3a, stage1_threshold: float,
         x = images.to(torch.float32) / norm_scale
         if float_dtype is not None:
             x = x.to(float_dtype)
-        s1_prob = torch.sigmoid(f1(x).squeeze(-1).float())
+        inputs = (x,) * 4 if features is None else features(x)
+        s1_prob = torch.sigmoid(f1(inputs[0]).squeeze(-1).float())
         s1_pred = (s1_prob >= stage1_threshold).to(torch.int32)
-        s2_pred = torch.argmax(f2(x), dim=-1).to(torch.int32)
-        rect_pred = torch.argmax(f3r(x), dim=-1).to(torch.int32)
-        ab_pred = torch.argmax(f3a(x), dim=-1).to(torch.int32)
+        s2_pred = torch.argmax(f2(inputs[1]), dim=-1).to(torch.int32)
+        rect_pred = torch.argmax(f3r(inputs[2]), dim=-1).to(torch.int32)
+        ab_pred = torch.argmax(f3a(inputs[3]), dim=-1).to(torch.int32)
         return {
             "final": v6_route(s1_pred, s2_pred, rect_pred, ab_pred),
             "stage1_prob": s1_prob,
@@ -113,6 +130,50 @@ def tta_mean_logits(forward: Callable, x: torch.Tensor, align_ab: bool = False):
     return _mean_over_axis0(logits)
 
 
+def _stackable(backbones: Sequence[Optional[nn.Module]]) -> bool:
+    """All four backbones present, of one class, with the same parameter and
+    buffer names and shapes (the JAX package's ``_stackable`` over the
+    ``backbone`` subtrees)."""
+    if any(b is None for b in backbones):
+        return False
+
+    def layout(b):
+        return type(b), [(k, tuple(v.shape)) for k, v in b.state_dict().items()]
+
+    return all(layout(b) == layout(backbones[0]) for b in backbones[1:])
+
+
+class _VmapBatchNorm2d(nn.BatchNorm2d):
+    """Eval-mode BatchNorm through ``torch.native_batch_norm``, which vmap
+    batches on every device. ``F.batch_norm`` on the card first asks whether
+    cuDNN may take the input, a question about its memory layout that a
+    vmapped tensor cannot answer."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.native_batch_norm(x, self.weight, self.bias, self.running_mean,
+                                       self.running_var, False, 0.0, self.eps)[0]
+
+
+def _stacked_features(backbones: Sequence[nn.Module]) -> Callable:
+    """``x -> (4, N, 512)``: one ``torch.func.vmap`` forward of the four
+    backbones over their weights stacked on a leading axis (the convolutions
+    run as grouped ones), ``x`` shared."""
+    params, buffers = torch.func.stack_module_state(list(backbones))
+    params = {k: v.detach() for k, v in params.items()}
+    base = copy.deepcopy(backbones[0]).to("meta")
+    for module in list(base.modules()):
+        for name, child in module.named_children():
+            if isinstance(child, nn.BatchNorm2d):
+                setattr(module, name, _VmapBatchNorm2d(child.num_features, eps=child.eps,
+                                                       device="meta"))
+
+    def forward(p, b, x):
+        return torch.func.functional_call(base, (p, b), (x,))
+
+    batched = torch.func.vmap(forward, in_dims=(0, 0, None))
+    return lambda x: batched(params, buffers, x)
+
+
 def make_v6_pipeline(
     models: PipelineModels,
     stage1_threshold: float = 0.45,
@@ -138,14 +199,24 @@ def make_v6_pipeline(
     softmax) over checkpoint variable trees of ``models.stage3_ab``'s class,
     in the layout ``cli.common.load_model_variables`` returns. With
     ``mesh`` (``parallel.mesh``) the models stay replicated on this rank's
-    ``device``; ``run_pipeline_batched(mesh=...)`` gives each rank its rows."""
-    if stacked:
-        raise NotImplementedError(
-            "stacked backbones are not ported (ROADMAP Queue 1, 'Drop, don't port')"
-        )
+    ``device``; ``run_pipeline_batched(mesh=...)`` gives each rank its rows.
+
+    ``stacked`` runs the four backbones as one vmapped forward over their
+    stacked weights and each stage's head on its slice of the embeddings
+    (``from_features``): the same function, in other kernels. As in the JAX
+    package it applies only without ``tta`` and ensemble, and when the four
+    ``backbone`` submodules match in class, names and shapes; otherwise the
+    pipeline is the unstacked one."""
     s1, s2, s3r, s3a = (on_device(m, device, input_dtype) for m in (
         models.stage1, models.stage2, models.stage3_rect, models.stage3_ab
     ))
+    backbones = [getattr(m, "backbone", None) for m in (s1, s2, s3r, s3a)]
+    if stacked and not tta and not ab_ensemble_vars and _stackable(backbones):
+        return assemble_v6_predict(
+            lambda f: s1(f, from_features=True)[:, None],
+            *(functools.partial(m, from_features=True) for m in (s2, s3r, s3a)),
+            stage1_threshold, norm_scale, float_dtype=input_dtype,
+            features=_stacked_features(backbones))
 
     def stage_fn(model, align_ab=False):
         if not tta:
@@ -258,24 +329,117 @@ def make_flatten_pipeline(
 
 
 class _Staging:
-    """A ring of two pinned host buffers for non-blocking uploads: a buffer
-    is refilled only after the copy that last read it has finished."""
+    """A ring of ``count`` pinned host buffers for non-blocking uploads, each
+    copy issued on ``stream`` (the current stream when None): a buffer is
+    refilled only after the copy that last read it has finished."""
 
-    def __init__(self, shape, dtype):
-        self.bufs = [torch.empty(shape, dtype=dtype, pin_memory=True) for _ in range(2)]
-        self.done = [None, None]
+    def __init__(self, shape, dtype, count: int, stream=None):
+        self.bufs = [torch.empty(shape, dtype=dtype, pin_memory=True) for _ in range(count)]
+        self.views = [buf.numpy() for buf in self.bufs]
+        self.done = [None] * count
         self.turn = 0
+        self.stream = stream
 
-    def upload(self, chunk: np.ndarray, device) -> torch.Tensor:
-        i, self.turn = self.turn, 1 - self.turn
+    def upload(self, chunk: np.ndarray, qchunk, device) -> tuple:
+        """``chunk`` (host rows; a memmap's pages are read here) through the
+        next buffer to ``device``, and ``qchunk`` (or None) beside it:
+        ``(rows, qps, event)``, the event recorded after both copies on the
+        staging stream."""
+        i, self.turn = self.turn, (self.turn + 1) % len(self.bufs)
         if self.done[i] is not None:
             self.done[i].synchronize()
-        host = self.bufs[i][: len(chunk)]
-        host.copy_(torch.from_numpy(chunk))
-        out = host.to(device, non_blocking=True)
-        self.done[i] = torch.cuda.Event()
-        self.done[i].record()
-        return out
+        rows = len(chunk)
+        np.copyto(self.views[i][:rows], chunk)
+        with torch.cuda.stream(self.stream):
+            out = self.bufs[i][:rows].to(device, non_blocking=True)
+            if qchunk is not None:
+                qchunk = torch.as_tensor(qchunk).to(device)
+            self.done[i] = torch.cuda.Event()
+            self.done[i].record()
+        return out, qchunk, self.done[i]
+
+
+def _chunks(samples, qps, batch_size: int, device: torch.device,
+            prefetch: int) -> Iterator[tuple]:
+    """``(rows, qps rows or None, count of rows)`` of each batch of
+    ``samples``, on ``device``. A tensor is sliced on the caller's thread (one
+    on ``device`` never visits the host). Host numpy is staged on the caller's
+    thread with ``prefetch=0`` or a single batch; otherwise a producer thread
+    stages it ``prefetch`` batches ahead, through ``prefetch + 1`` pinned
+    buffers with each copy on a side stream that the caller's stream waits on
+    before it reads the rows. An exception in the producer is raised here;
+    closing the generator stops the producer."""
+    starts = range(0, int(samples.shape[0]), batch_size)
+
+    def qps_at(start):
+        return None if qps is None else qps[start:start + batch_size]
+
+    if not isinstance(samples, np.ndarray):
+        for start in starts:
+            chunk = samples[start:start + batch_size].to(device)
+            q = qps_at(start)
+            yield chunk, None if q is None else torch.as_tensor(q).to(device), len(chunk)
+        return
+    threaded = prefetch > 0 and len(starts) > 1
+    staging = None
+    if device.type == "cuda":
+        staging = _Staging((min(batch_size, len(samples)),) + samples.shape[1:],
+                           torch.from_numpy(np.empty(0, samples.dtype)).dtype,
+                           prefetch + 1 if threaded else 2,
+                           torch.cuda.Stream(device) if threaded else None)
+
+    def stage(start):
+        chunk = samples[start:start + batch_size]
+        if staging is not None:
+            return staging.upload(chunk, qps_at(start), device)
+        q = qps_at(start)
+        return (torch.from_numpy(np.array(chunk)),
+                None if q is None else torch.as_tensor(np.array(q)), None)
+
+    if not threaded:
+        for start in starts:
+            chunk, q, _ = stage(start)
+            yield chunk, q, len(chunk)
+        return
+
+    staged: queue.Queue = queue.Queue(maxsize=prefetch)
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        # a timed put, so that the producer ends once the caller has gone
+        while not stop.is_set():
+            try:
+                staged.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def produce():
+        try:
+            for start in starts:
+                if not put(stage(start)):
+                    return
+        except BaseException as exc:  # raised again in the caller
+            put(exc)
+
+    threading.Thread(target=produce, name="run_pipeline_batched-producer",
+                     daemon=True).start()
+    try:
+        for _ in starts:
+            item = staged.get()
+            if isinstance(item, BaseException):
+                raise item
+            chunk, q, copied = item
+            if copied is not None:
+                current = torch.cuda.current_stream(device)
+                current.wait_event(copied)
+                for t in (chunk, q):
+                    if t is not None:  # allocated on the side stream, read on this one
+                        t.record_stream(current)
+            yield chunk, q, len(chunk)
+    finally:
+        stop.set()
 
 
 def _pad_rows(chunk: torch.Tensor, rows: int) -> torch.Tensor:
@@ -290,6 +454,14 @@ def _pad_rows(chunk: torch.Tensor, rows: int) -> torch.Tensor:
     return padded.view(chunk.dtype)
 
 
+def _gathered(outputs: Dict[str, List[torch.Tensor]], n: int, as_numpy: bool):
+    gathered = {k: torch.cat([torch.atleast_1d(t) for t in v])[:n]
+                for k, v in outputs.items()}
+    if not as_numpy:
+        return gathered
+    return {k: v.cpu().numpy() for k, v in gathered.items()}
+
+
 def run_pipeline_batched(
     predict_fn: Callable,
     samples,
@@ -298,11 +470,23 @@ def run_pipeline_batched(
     as_numpy: bool = True,
     qps=None,
     mesh=None,
+    prefetch: int = 2,
 ) -> Dict[str, np.ndarray]:
     """Stream a dataset through ``predict_fn`` in batches of ``batch_size``
     on one device (the card unless the caller passes ``"cpu"``; ``"cuda"``
-    without a card raises). ``samples`` is host numpy or a tensor; a tensor
-    already on ``device`` is sliced there and never visits the host.
+    without a card raises). ``samples`` is host numpy (a ``np.memmap`` too)
+    or a tensor; a tensor already on ``device`` is sliced there and never
+    visits the host.
+
+    ``prefetch`` (host numpy only) stages the next ``prefetch`` batches on a
+    producer thread while the device computes: the thread slices the array
+    (reading a memmap's pages), fills pinned buffers and issues each
+    host-to-device copy on a side stream, which the compute stream waits on
+    by event; on the CPU it slices and copies alone. An exception in the
+    producer is raised here, and the producer stops when the caller does.
+    ``prefetch=0`` stages each batch on the caller's thread (its copy
+    non-blocking on the compute stream). Outputs are the same, bit for bit,
+    for every ``prefetch``.
 
     A per-sample predictor runs the last batch at its own size. A predictor
     that declares ``accepts_valid`` (the capacity-gated pipeline, whose K
@@ -332,67 +516,43 @@ def run_pipeline_batched(
     accepts_valid = getattr(predict_fn, "accepts_valid", False)
     if axis_size(mesh, DATA_AXIS) > 1:
         return _run_sharded(predict_fn, samples, batch_size, device, as_numpy, qps, mesh,
-                            accepts_valid)
-    staging = None
-    if isinstance(samples, np.ndarray) and device.type == "cuda":
-        staging = _Staging((min(batch_size, n),) + samples.shape[1:],
-                           torch.from_numpy(samples[:0]).dtype)
+                            accepts_valid, prefetch)
     outputs: Dict[str, List[torch.Tensor]] = {}
-    for start in range(0, n, batch_size):
-        chunk = samples[start:start + batch_size]
-        if staging is not None:
-            chunk = staging.upload(np.ascontiguousarray(chunk), device)
-        elif isinstance(chunk, np.ndarray):
-            chunk = torch.from_numpy(np.ascontiguousarray(chunk)).to(device)
-        else:
-            chunk = chunk.to(device)
-        if accepts_valid:
-            valid = int(chunk.shape[0])
-            result = predict_fn(_pad_rows(chunk, batch_size), valid)
-        elif qps is not None:
-            result = predict_fn(chunk, torch.as_tensor(qps[start:start + batch_size])
-                                .to(device))
-        else:
-            result = predict_fn(chunk)
-        for key, value in result.items():
-            outputs.setdefault(key, []).append(value)
-    gathered = {k: torch.cat([torch.atleast_1d(t) for t in v])[:n]
-                for k, v in outputs.items()}
-    if not as_numpy:
-        return gathered
-    return {k: v.cpu().numpy() for k, v in gathered.items()}
+    with contextlib.closing(_chunks(samples, qps, batch_size, device, prefetch)) as chunks:
+        for chunk, qchunk, valid in chunks:
+            if accepts_valid:
+                result = predict_fn(_pad_rows(chunk, batch_size), valid)
+            elif qchunk is not None:
+                result = predict_fn(chunk, qchunk)
+            else:
+                result = predict_fn(chunk)
+            for key, value in result.items():
+                outputs.setdefault(key, []).append(value)
+    return _gathered(outputs, n, as_numpy)
 
 
 def _run_sharded(predict_fn, samples, batch_size, device, as_numpy, qps, mesh,
-                 accepts_valid) -> Dict[str, np.ndarray]:
+                 accepts_valid, prefetch) -> Dict[str, np.ndarray]:
     """``run_pipeline_batched`` over the data axis of ``mesh``."""
     n = int(samples.shape[0])
     num_data = axis_size(mesh, DATA_AXIS)
     batch_size = -(-batch_size // num_data) * num_data
     group = axis_group(mesh, DATA_AXIS)
     outputs: Dict[str, List[torch.Tensor]] = {}
-    for start in range(0, n, batch_size):
-        chunk = samples[start:start + batch_size]
-        valid = int(chunk.shape[0])
-        if isinstance(chunk, np.ndarray):
-            chunk = torch.from_numpy(np.ascontiguousarray(chunk))
-        chunk = shard_batch(_pad_rows(chunk.to(device), batch_size), mesh)
-        if accepts_valid:
-            result = predict_fn(chunk, valid)
-        elif qps is not None:
-            q = torch.as_tensor(qps[start:start + batch_size]).to(device)
-            result = predict_fn(chunk, shard_batch(_pad_rows(q, batch_size), mesh))
-        else:
-            result = predict_fn(chunk)
-        for key, value in result.items():
-            if value.dim() > 0:
-                value = gather_group(value, group)
-            outputs.setdefault(key, []).append(value)
-    gathered = {k: torch.cat([torch.atleast_1d(t) for t in v])[:n]
-                for k, v in outputs.items()}
-    if not as_numpy:
-        return gathered
-    return {k: v.cpu().numpy() for k, v in gathered.items()}
+    with contextlib.closing(_chunks(samples, qps, batch_size, device, prefetch)) as chunks:
+        for chunk, qchunk, valid in chunks:
+            chunk = shard_batch(_pad_rows(chunk, batch_size), mesh)
+            if accepts_valid:
+                result = predict_fn(chunk, valid)
+            elif qchunk is not None:
+                result = predict_fn(chunk, shard_batch(_pad_rows(qchunk, batch_size), mesh))
+            else:
+                result = predict_fn(chunk)
+            for key, value in result.items():
+                if value.dim() > 0:
+                    value = gather_group(value, group)
+                outputs.setdefault(key, []).append(value)
+    return _gathered(outputs, n, as_numpy)
 
 
 __all__ = [

@@ -10,7 +10,8 @@ where the JAX graph rounds. Folding runs in fp32; the serving dtype is
 applied afterwards (``cast_tree``), as the JAX path casts folded fp32
 kernels per call.
 
-The int8 part is the JAX package's "hybrid" lowering:
+The int8 part is the JAX package's two lowerings, "hybrid" (the default)
+and "im2col":
 
 * **Layouts.** The int8 graph runs channels-last (NHWC) over a folded tree
   in the JAX package's layouts: conv ``kernel`` HWIO, dense ``kernel``
@@ -26,10 +27,14 @@ The int8 part is the JAX package's "hybrid" lowering:
   ``_int_dot`` pads with zero rows and zero columns and trims; nothing falls
   back to a float product. A 3x3 conv is im2col (``_patches3x3``, XLA
   "SAME" padding) then one product; at a 1x1 extent it is the center tap.
-* **Spatial matmul (SMM).** Blocks at extent <= 2, or <= 4 outside layer
-  group 1, run each conv as one dense ``(h*w*Ci, ho*wo*Co)`` product whose
-  zeros carry the padding (:func:`build_smm_matrix`, padding from
-  ``models.layers.same_padding``).
+* **Spatial matmul (SMM), hybrid only.** Blocks at extent <= 2, or <= 4
+  outside layer group 1, run each conv as one dense ``(h*w*Ci, ho*wo*Co)``
+  product whose zeros carry the padding (:func:`build_smm_matrix`, padding
+  from ``models.layers.same_padding``). The plan that says so bakes the
+  calibration extent into the model, which refuses any other.
+* **im2col** (``plan=None``) runs every 3x3 and 1x1 site as an int8 conv
+  (the center tap at a 1x1 extent): no SMM matrix and no extent baked in,
+  so one model serves any block size.
 * **Float islands** (stem, SE and spatial-attention gates, residual adds,
   dequantization) run in ``float_dtype``, rounding where the JAX graph
   rounds: activations quantize from fp32, products dequantize as
@@ -43,8 +48,6 @@ The int8 part is the JAX package's "hybrid" lowering:
 ``QuantStageModel`` and ``QuantUnifiedModel`` are ``nn.Module``s whose int8
 weights, scales, biases, folded weights and SMM matrices are buffers, so
 ``.to(device)`` moves the whole model (and rebuilds an attached K1 front).
-The legacy ``lowering="im2col"`` path is not ported (ROADMAP, "Drop, don't
-port").
 """
 from __future__ import annotations
 
@@ -506,7 +509,8 @@ def _plan_backbone(folded: Dict[str, Any], hw: int) -> Dict[str, Any]:
 
 def _check_plan_extent(plan: Optional[Dict], x) -> None:
     """A hybrid-lowered model bakes its calibration extent into its SMM
-    matrices and scales: refuse another extent up front."""
+    matrices and scales: refuse another extent up front (an im2col model,
+    ``plan=None``, takes any)."""
     hw = plan.get("hw") if plan is not None else None
     if hw is not None and (x.shape[1] != hw or x.shape[2] != hw):
         raise ValueError(
@@ -535,7 +539,7 @@ def _observer(observed, captured):
 def _backbone_apply_hybrid(
     folded: Dict[str, Any],
     x: torch.Tensor,
-    plan: Dict[str, Any],
+    plan: Optional[Dict[str, Any]],
     scales: Optional[Dict[str, Tuple]] = None,
     qw: Optional[Dict[str, Tuple]] = None,
     observed: Optional[Dict] = None,
@@ -544,8 +548,10 @@ def _backbone_apply_hybrid(
     captured: Optional[Dict] = None,
     front_fn: Optional[Callable] = None,
 ) -> torch.Tensor:
-    """The hybrid-lowered backbone forward, NHWC ``(B, H, W, 1)`` in,
-    ``(B, 512)`` out, over a folded tree in JAX layouts.
+    """The int8-lowered backbone forward, NHWC ``(B, H, W, 1)`` in,
+    ``(B, 512)`` out, over a folded tree in JAX layouts: each block as
+    ``plan`` says (hybrid), or every block as an int8 conv with
+    ``plan=None`` (im2col, the JAX package's ``_backbone_apply``).
 
     ``qw`` and ``scales`` given: the int8 graph (``qbias`` overrides the
     folded biases per weight key). Otherwise the float graph of the same
@@ -603,7 +609,8 @@ def _backbone_apply_hybrid(
         for bi in range(2):
             n = f"{gname}_{bi}"
             blk = folded[n]
-            p = plan["blocks"][n]
+            stride = 2 if (gi > 1 and bi == 0) else 1
+            p = {"form": "conv"} if plan is None else plan["blocks"][n]
             if p["form"] == "smm":
                 if not flat:
                     x = x.reshape(nb, -1)
@@ -615,13 +622,14 @@ def _backbone_apply_hybrid(
                 if flat:
                     x = x.reshape(nb, p["s"], p["s"], -1)
                     flat = False
-                y = torch.relu(conv3(f"{n}.in", f"{n}.conv1", x, blk["conv1"], p["stride"]))
+                y = torch.relu(conv3(f"{n}.in", f"{n}.conv1", x, blk["conv1"], stride))
                 y = conv3(f"{n}.mid", f"{n}.conv2", y, blk["conv2"], 1)
                 res = x if blk["downsample"] is None else conv1(
-                    f"{n}.in", f"{n}.ds", x, blk["downsample"], p["stride"])
+                    f"{n}.in", f"{n}.ds", x, blk["downsample"], stride)
             x = torch.relu(y + res)
-        ch = plan["blocks"][f"{gname}_1"]["ch"]
         se = folded[f"se{gi}"]
+        if flat:
+            ch = plan["blocks"][f"{gname}_1"]["ch"]
         g = x.reshape(nb, -1, ch).mean(dim=1) if flat else x.mean(dim=(1, 2))
         g = torch.relu(g @ se["d0"].to(g.dtype))
         g = _sigmoid(g @ se["d1"].to(g.dtype))
@@ -630,12 +638,12 @@ def _backbone_apply_hybrid(
         else:
             x = x * g[:, None, None, :]
 
-    so = plan["blocks"]["layer4_1"]["so"]
     if flat:
+        so = plan["blocks"]["layer4_1"]["so"]
         x = x.reshape(nb, so, so, -1)
     sa = folded["spatial_attn"].to(float_dtype)  # (7, 7, 2, 1)
     a = torch.cat([x.mean(dim=-1, keepdim=True), x.amax(dim=-1, keepdim=True)], dim=-1)
-    if so == 1:
+    if x.shape[1] == 1 and x.shape[2] == 1:
         attn = (a[:, 0, 0, :] @ sa[3, 3])[:, None, None, :]
     else:
         attn = _conv_nhwc(a, sa, 1)
@@ -714,16 +722,14 @@ class _QuantModel(nn.Module):
     s_x)``), ``qw`` (weight key -> ``(int8 (K, O), s_w (O,))``), ``qbias`` and
     ``plan`` are registered as buffers (``calib_amax`` stays host numpy, as
     the JAX package keeps it), so ``.to(device)`` moves them all; an attached
-    K1 front is rebuilt on the new device."""
+    K1 front is rebuilt on the new device. ``plan=None`` is the im2col
+    lowering."""
 
     _TREES = ("folded", "heads", "scales", "qw", "qbias", "plan")
 
     def __init__(self, folded, heads, scales, qw, float_dtype=torch.float32,
                  qbias=None, plan=None, calib_amax=None):
         super().__init__()
-        if plan is None:
-            raise NotImplementedError(
-                "the im2col lowering is not ported (ROADMAP, 'Drop, don't port')")
         self.float_dtype = float_dtype
         self.calib_amax = calib_amax
         self.front_fn = None
@@ -767,7 +773,8 @@ class _QuantModel(nn.Module):
 
 class QuantStageModel(_QuantModel):
     """A BN-folded, int8-quantized v6 stage model: ``forward(x) -> logits``
-    on normalized NHWC images, through the hybrid lowering of ``plan``.
+    on normalized NHWC images, through the hybrid lowering of ``plan`` (or
+    im2col without one).
     ``float_forward`` is the BN-folded fp32 reference (same weights, no
     int8)."""
 
@@ -823,15 +830,12 @@ def _as_heads(head) -> Dict[str, List[Dict]]:
 
 def calibrate(folded: Dict[str, Any], head, calib_x: torch.Tensor,
               capture: bool = False, plan: Optional[Dict] = None):
-    """One fp32 observe-mode forward of the hybrid graph over ``calib_x``
-    (normalized NHWC, on the folded tree's device), TF32 off: each int8
-    site's per-channel absmax as a float64 numpy vector, plus each site's
-    input tensor when ``capture`` (for bias correction). ``head`` is one
-    dense stack or a dict of named stacks; ``folded`` and the stacks are in
-    JAX layouts."""
-    if plan is None:
-        raise NotImplementedError(
-            "the im2col lowering is not ported (ROADMAP, 'Drop, don't port')")
+    """One fp32 observe-mode forward of the graph that ``plan`` lowers (im2col
+    without one) over ``calib_x`` (normalized NHWC, on the folded tree's
+    device), TF32 off: each int8 site's per-channel absmax as a float64 numpy
+    vector, plus each site's input tensor when ``capture`` (for bias
+    correction). ``head`` is one dense stack or a dict of named stacks;
+    ``folded`` and the stacks are in JAX layouts."""
     observed: Dict[str, torch.Tensor] = {}
     captured: Optional[Dict[str, torch.Tensor]] = {} if capture else None
     with exact_fp32(), torch.no_grad():
@@ -845,7 +849,7 @@ def calibrate(folded: Dict[str, Any], head, calib_x: torch.Tensor,
     return (amax, captured) if capture else amax
 
 
-def _site_consumers(folded: Dict[str, Any], head, plan: Dict[str, Any]):
+def _site_consumers(folded: Dict[str, Any], head, plan: Optional[Dict[str, Any]]):
     """Site -> the weights that read it, as ``(wkey, kernel, stride, bias)``.
     A block's input feeds conv1 and the downsample, which then share one
     equalization vector; an SMM block contributes its matrices (2-D) and
@@ -856,7 +860,7 @@ def _site_consumers(folded: Dict[str, Any], head, plan: Dict[str, Any]):
             n = f"{gname}_{bi}"
             blk = folded[n]
             stride = 2 if (gi > 1 and bi == 0) else 1
-            if plan["blocks"][n]["form"] == "smm":
+            if plan is not None and plan["blocks"][n]["form"] == "smm":
                 w, b = plan["smm_w"], plan["smm_b"]
                 cons = [(f"{n}.conv1", w[f"{n}.conv1"], 1, b[f"{n}.conv1"])]
                 if blk["downsample"] is not None:
@@ -878,7 +882,7 @@ def _site_consumers(folded: Dict[str, Any], head, plan: Dict[str, Any]):
 
 
 def _quantize_sites(folded, heads, calib_x, equalize: bool, bias_correct: bool,
-                    plan: Dict[str, Any]):
+                    plan: Optional[Dict[str, Any]]):
     """The fold-calibrate-quantize core: ``(scales, qw, qbias, amax)`` for a
     folded backbone and named dense stacks. Equalization folds
     ``e_c = sqrt(a_c / w_c)`` (activation over weight absmax, per input
@@ -934,12 +938,11 @@ def _quantize_sites(folded, heads, calib_x, equalize: bool, bias_correct: bool,
     return scales, qw, qbias, amax
 
 
-def _check_lowering(lowering: str) -> None:
-    if lowering == "im2col":
-        raise NotImplementedError(
-            "the im2col lowering is not ported (ROADMAP, 'Drop, don't port')")
-    if lowering != "hybrid":
+def _plan_for(lowering: str, folded: Dict[str, Any], hw: int) -> Optional[Dict[str, Any]]:
+    """The hybrid lowering's plan at ``hw`` px; None for im2col."""
+    if lowering not in ("hybrid", "im2col"):
         raise ValueError(f"unknown lowering {lowering!r}")
+    return _plan_backbone(folded, hw) if lowering == "hybrid" else None
 
 
 def quantize_stage(model: nn.Module, calib_x: torch.Tensor, float_dtype=torch.float32,
@@ -948,13 +951,14 @@ def quantize_stage(model: nn.Module, calib_x: torch.Tensor, float_dtype=torch.fl
     """Fold, calibrate and quantize one v6 stage model (an ``nn.Module`` with
     ``backbone`` and ``head``) on ``calib_x``, normalized NHWC images on the
     device the model is to live on. ``equalize`` and ``bias_correct`` as in
-    the JAX package; ``lowering`` is ``"hybrid"``."""
-    _check_lowering(lowering)
+    the JAX package. ``lowering``: ``"hybrid"`` (int8 convs in layer group 1,
+    SMM products after it; the model serves the calibration extent only) or
+    ``"im2col"`` (every site an int8 conv; any extent)."""
     device = calib_x.device
     folded = cast_tree(jax_layout_backbone(fold_backbone(model.backbone)), device,
                        torch.float32)
     head = cast_tree(jax_layout_head(fold_head(model.head)), device, torch.float32)
-    plan = _plan_backbone(folded, int(calib_x.shape[1]))
+    plan = _plan_for(lowering, folded, int(calib_x.shape[1]))
     scales, qw, qbias, amax = _quantize_sites(folded, {"head": head}, calib_x, equalize,
                                               bias_correct, plan)
     return QuantStageModel(folded, head, scales, qw, float_dtype=float_dtype, qbias=qbias,
@@ -965,15 +969,15 @@ def quantize_unified(model: nn.Module, calib_x: torch.Tensor, float_dtype=torch.
                      equalize: bool = True, bias_correct: bool = True,
                      lowering: str = "hybrid") -> QuantUnifiedModel:
     """Fold, calibrate and quantize a ``UnifiedV6Model``: its four heads share
-    one set of backbone scales and get their own dense-stack scales."""
-    _check_lowering(lowering)
+    one set of backbone scales and get their own dense-stack scales.
+    ``lowering`` as in :func:`quantize_stage`."""
     device = calib_x.device
     folded = cast_tree(jax_layout_backbone(fold_backbone(model.backbone)), device,
                        torch.float32)
     heads = {name: cast_tree(jax_layout_head(fold_head(getattr(model, name))), device,
                              torch.float32)
              for name in _UNIFIED_HEADS}
-    plan = _plan_backbone(folded, int(calib_x.shape[1]))
+    plan = _plan_for(lowering, folded, int(calib_x.shape[1]))
     scales, qw, qbias, amax = _quantize_sites(folded, heads, calib_x, equalize,
                                               bias_correct, plan)
     return QuantUnifiedModel(folded, heads, scales, qw, float_dtype=float_dtype,

@@ -195,6 +195,25 @@ Run from the root of a checkout. Phases, one JSON line each:
           (K2) and its folded throughput at batch 4096; k6
           ``bench_ingest_to_trees --frames 8``. Each must write its results
           file; its numbers are emitted;
+       l. the JAX package's last library options, on path a's blocks and
+          models at batch 4096: l1 ``make_v6_pipeline(stacked=True)`` (the
+          four backbones as one ``torch.func.vmap`` forward) against the
+          unstacked pipeline in fp32 (TF32 off) and bf16: labels equal
+          wherever every decision's margin exceeds 1e-3 (fp32) or 0.1
+          (bf16), stage-1 probabilities within 1e-5 (0.02), with each
+          pipeline's kernels, host launch calls, device busy ms, device ms
+          (CUDA graph) and predict ms; l2 ``quantize_stage(lowering=
+          "im2col")`` beside the hybrid default at 16 px (path a's stage 2)
+          and 8 px (path d's 8 px stage 2 on the top-left 8 x 8 of path a's
+          blocks), bf16, K1 attached: each within 0.08 of the float logits'
+          scale of the fp32 folded forward and of each other, on average,
+          the label agreement, K1's launches, the im2col model serving the
+          other block size with K1 rebuilt for it (the hybrid model must
+          refuse); l3 ``run_pipeline_batched`` with the folded ``g1`` predict
+          (K2) on a ``np.memmap`` of the 65,536 blocks, ``prefetch`` 0, 2
+          and 4 in turns: outputs bitwise equal, the wall ms of each, and
+          the producer's staging of one batch (host ms) beside its copy on
+          the side stream (H2D ms) and the predict's ms;
      each run prints blocks/s (or frames/s and superblocks/s), its launches,
      and its agreement with its path's ``off`` run;
   6. predict: the CUDA-event time of one 4,096-block bf16 predict on a
@@ -308,6 +327,7 @@ from av1tpu_torch.eval import (  # noqa: E402
     v6_route,
 )
 from av1tpu_torch.eval.ensemble import _stacking_features, _stacking_objective  # noqa: E402
+from av1tpu_torch.eval.hierarchy import on_device  # noqa: E402
 from av1tpu_torch.examples import (  # noqa: E402
     bench_ingest_to_trees,
     demo_e2e,
@@ -3472,6 +3492,205 @@ def run_path_k(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Path l: the last library options (stacked backbones, im2col int8, prefetch)
+# ---------------------------------------------------------------------------
+
+L_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+L_MARGIN = {"fp32": 1e-3, "bf16": 0.1}  # labels equal where every decision's margin exceeds it
+L_PROB_ATOL = {"fp32": 1e-5, "bf16": 0.02}  # stacked vs unstacked stage-1 probability
+L_INT8_SCALE = 0.08  # mean |logit error| over the float logits' scale (tests/test_quant.py)
+L_PREFETCH = (0, 2, 4)
+
+
+def plain_margins(models: PipelineModels, x: torch.Tensor, dtype) -> np.ndarray:
+    """Per-sample smallest margin of the four v6 decisions of the plain
+    stage modules in ``dtype`` on ``x`` (normalized NHWC on the card): the
+    gate's distance from ``THRESHOLD``, else the top-2 logit gap."""
+    margins = []
+    with torch.inference_mode():
+        for model in (models.stage1, models.stage2, models.stage3_rect, models.stage3_ab):
+            logits = on_device(model, x.device, dtype)(x.to(dtype)).float()
+            if logits.dim() == 1:
+                logits = logits[:, None]
+            margins.append(decision_margins(logits.cpu().numpy(), unified=False)[0])
+    return np.min(margins, axis=0)
+
+
+def l1_stacked(models: PipelineModels, samples: np.ndarray, dev, dtype_name: str) -> dict:
+    """l1: ``make_v6_pipeline(stacked=True)`` against the unstacked pipeline on
+    one 4,096-block batch: labels equal wherever every decision's margin
+    exceeds ``L_MARGIN``, stage-1 probabilities within ``L_PROB_ATOL``; the
+    kernels a predict launches and the device ms of each (CUDA graph)."""
+    dtype = L_DTYPES[dtype_name]
+    batch = torch.from_numpy(samples[:BATCH]).to(dev)
+    predicts = {name: make_v6_pipeline(models, THRESHOLD, input_dtype=dtype, device=dev,
+                                       stacked=stacked)
+                for name, stacked in (("unstacked", False), ("stacked", True))}
+    out = {name: {k: v.cpu().numpy() for k, v in p(batch).items()}
+           for name, p in predicts.items()}
+    margins = plain_margins(models, batch.float() / 1023.0, dtype)
+    sure = margins > L_MARGIN[dtype_name]
+    equal = out["stacked"]["final"] == out["unstacked"]["final"]
+    prob_err = float(np.abs(out["stacked"]["stage1_prob"]
+                            - out["unstacked"]["stage1_prob"]).max())
+    numbers = {"dtype": dtype_name, "final_share_equal": float(equal.mean()),
+               "guarded_share": float(sure.mean()),
+               "mismatches_above_margin": int((~equal & sure).sum()),
+               "stage1_prob_max_abs_diff": prob_err,
+               "distinct_labels": int(len(np.unique(out["unstacked"]["final"])))}
+    for name, predict in predicts.items():
+        fn = functools.partial(predict, batch)
+        trace = trace_calls(fn)
+        numbers[name] = {"kernels_per_predict": trace["kernels"],
+                         "device_busy_ms": trace["device_busy_ms"],
+                         "host_launch_calls_per_predict": trace["host_launch_calls"],
+                         "device_ms": device_ms(fn, iters=3, replays=2),
+                         "predict_ms": time_ms(fn, iters=5, warmup=1)}
+    if numbers["mismatches_above_margin"] or prob_err > L_PROB_ATOL[dtype_name]:
+        raise AssertionError(f"l1 {dtype_name}: stacked differs from unstacked: {numbers}")
+    if numbers["distinct_labels"] < 2 or not np.isfinite(out["stacked"]["stage1_prob"]).all():
+        raise AssertionError(f"l1 {dtype_name}: bad outputs {numbers}")
+    return numbers
+
+
+def l2_im2col(model: nn.Module, calib: np.ndarray, samples: np.ndarray, hw: int,
+              dev) -> dict:
+    """l2: ``quantize_stage`` with ``lowering="im2col"`` and the hybrid default,
+    bf16, K1 attached to both, on ``hw`` px blocks (the top-left ``hw`` x
+    ``hw`` of path a's blocks): each int8 model's mean logit error against the
+    BN-folded fp32 forward, and im2col's against hybrid's, under
+    ``L_INT8_SCALE`` of the float logits' scale; label agreement; K1's
+    launches in one im2col predict; the im2col model serving the other
+    extent (8 <-> 16 px) with K1 rebuilt for it, which the hybrid model
+    refuses."""
+    def blocks(u16):
+        return torch.from_numpy(np.ascontiguousarray(u16[:, :hw, :hw])).to(dev).float() / 1023.0
+
+    calib_x, x = blocks(calib), blocks(samples[:BATCH])
+    t0 = time.perf_counter()
+    q = {lowering: ptq.quantize_stage(model, calib_x, torch.bfloat16, lowering=lowering)
+         for lowering in ("hybrid", "im2col")}
+    seconds = time.perf_counter() - t0
+    for qm in q.values():
+        if not ptq.attach_fused_front(qm, hw):
+            raise AssertionError(f"l2: K1 did not attach at {hw} px")
+    with torch.inference_mode():
+        ref = q["hybrid"].float_forward(x).float()
+        got = {lowering: qm(x).float() for lowering, qm in q.items()}
+        k1 = launched_by(lambda: q["im2col"](x)).get("fused_front", 0)
+        other = 8 if hw == 16 else 16
+        x_other = torch.from_numpy(np.ascontiguousarray(
+            samples[:256, :other, :other])).to(dev).float() / 1023.0
+        ptq.attach_fused_front(q["im2col"], other)  # K1 is built per extent
+        served = q["im2col"](x_other).float()
+    scale = max(float(ref.abs().max()), 0.1)
+    err = {name: float((g - ref).abs().mean()) / scale for name, g in got.items()}
+    err["im2col_vs_hybrid"] = float((got["im2col"] - got["hybrid"]).abs().mean()) / scale
+    numbers = {"hw": hw, "quantize_seconds_both": seconds, "mean_err_over_scale": err,
+               "float_scale": scale, "k1_launches_per_im2col_predict": k1,
+               "labels_im2col_vs_hybrid": labels_agree(got["im2col"].cpu().numpy(),
+                                                        got["hybrid"].cpu().numpy(), False),
+               "labels_im2col_vs_float": labels_agree(got["im2col"].cpu().numpy(),
+                                                       ref.cpu().numpy(), False),
+               "other_extent": other, "other_extent_finite": bool(
+                   torch.isfinite(served).all() and served.shape == (256, ref.shape[1]))}
+    if max(err.values()) >= L_INT8_SCALE or not numbers["other_extent_finite"] or k1 == 0:
+        raise AssertionError(f"l2 {hw} px: {numbers}")
+    try:
+        q["hybrid"](x_other)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError(f"l2: the hybrid model served {other} px blocks")
+    return numbers
+
+
+def l3_prefetch(models: PipelineModels, samples: np.ndarray, dev) -> dict:
+    """l3: the folded ``g1`` predict (K2) through ``run_pipeline_batched`` on a
+    ``np.memmap`` of the blocks, ``prefetch`` 0, 2 and 4 in 0 2 4 4 2 0 turns
+    after a warm-up: outputs bitwise equal, wall ms of each; then the
+    producer's staging alone per batch (``eval.hierarchy._Staging``: the
+    slice of the memmap into a pinned buffer, host ms) beside its copy on a
+    side stream (H2D ms, CUDA events) and the predict's ms on a batch on the
+    card."""
+    from av1tpu_torch.eval.hierarchy import _Staging
+
+    path = WORK / "l_blocks.npy"
+    np.save(path, samples)
+    blocks = np.load(path, mmap_mode="r")
+    predict = make_v6_pipeline_folded(models, THRESHOLD, float_dtype=torch.bfloat16,
+                                      use_fused_front="g1", device=dev)
+    want = run_pipeline_batched(predict, blocks, BATCH, dev, prefetch=2)  # warm-up
+    wall = {k: [] for k in L_PREFETCH}
+    for k in L_PREFETCH + L_PREFETCH[::-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = run_pipeline_batched(predict, blocks, BATCH, dev, prefetch=k)
+        wall[k].append((time.perf_counter() - t0) * 1e3)
+        for key, value in want.items():
+            if not np.array_equal(got[key], value):
+                raise AssertionError(f"l3: prefetch={k} changed {key}")
+    side = torch.cuda.Stream(dev)
+    staging = _Staging((BATCH,) + blocks.shape[1:], torch.uint16, 3, side)
+    host_ms, h2d_ms = [], []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for first in range(0, len(blocks), BATCH):
+        t0 = time.perf_counter()
+        _, _, copied = staging.upload(blocks[first:first + BATCH], None, dev)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        copied.synchronize()
+        with torch.cuda.stream(side):
+            start.record()
+            staging.bufs[0].to(dev, non_blocking=True)
+            end.record()
+        end.synchronize()
+        h2d_ms.append(start.elapsed_time(end))
+    batch = torch.from_numpy(samples[:BATCH]).to(dev)
+    return {"blocks": len(blocks), "batches": -(-len(blocks) // BATCH),
+            "final_bitwise_equal": True, "distinct_labels": int(len(np.unique(want["final"]))),
+            "wall_ms": {str(k): v for k, v in wall.items()},
+            "wall_ms_median": {str(k): float(np.median(v)) for k, v in wall.items()},
+            "staging_host_ms_per_batch": float(np.median(host_ms)),
+            "h2d_ms_per_batch": float(np.median(h2d_ms)),
+            "h2d_bytes_per_batch": BATCH * int(np.prod(blocks.shape[1:])) * 2,
+            "predict_ms_per_batch": time_ms(functools.partial(predict, batch), iters=10)}
+
+
+def run_path_l(models: PipelineModels, model8: nn.Module, calib: np.ndarray,
+               samples: np.ndarray, dev) -> dict:
+    """Path l: the JAX package's last library options on the port, on path
+    a's blocks and models (path d's 8 px stage 2 at 8 px): l1 stacked
+    backbones, fp32 (TF32 off) and bf16; l2 the int8 im2col lowering at 16
+    and 8 px with K1; l3 ``run_pipeline_batched``'s producer (K2). Returns
+    the path's launches."""
+    plan = [("l1_stacked_fp32", ("l1", "fp32")), ("l1_stacked_bf16", ("l1", "bf16")),
+            ("l2_im2col_16", ("l2", 16)), ("l2_im2col_8", ("l2", 8)),
+            ("l3_prefetch", ("l3", None))]
+
+    def run_one(arg):
+        part, option = arg
+        if part == "l1":
+            return l1_stacked(models, samples, dev, option)
+        if part == "l2":
+            return l2_im2col(models.stage2 if option == HW else model8, calib, samples,
+                             option, dev)
+        return l3_prefetch(models, samples, dev)
+
+    t0 = time.perf_counter()
+    runs, launches = drive("l_options", plan, run_one)
+    by_name = {run["name"]: run for run in runs}
+    for name, run in by_name.items():
+        emit("end_to_end", path="l_options", run=name,
+             **{k: v for k, v in run.items() if k != "name"})
+    for name, kernel in (("l2_im2col_16", "fused_front"), ("l2_im2col_8", "fused_front"),
+                         ("l3_prefetch", "fused_front_g1")):
+        if by_name[name]["launches"].get(kernel, 0) == 0:
+            raise AssertionError(f"{name}: {kernel} never launched")
+    emit("l_done", seconds=time.perf_counter() - t0, nvidia_smi=nvidia_smi_line())
+    return launches
+
+
 def device_time_by_kernel(fn: Callable, top: int = 8) -> list:
     """The ``top`` kernel names by device ms in one traced call of ``fn``:
     ``[name, calls, ms]``."""
@@ -3983,10 +4202,14 @@ def main() -> int:
     # path k: the port's examples, each through its main (ROADMAP M12 rest)
     k_launches = run_path_k(dev)
 
+    # path l: stacked backbones, the int8 im2col lowering with K1 and the
+    # batching producer with K2, on path a's blocks and models
+    l_launches = run_path_l(plain, tree_models[8]["stage2"], calib, val.samples, dev)
+
     launches = {k: cli_launches[k] + k5_launches[k] + api_launches[k] + tree_launches[k]
                 + serving_launches[k] + int8_launches[k] + f_launches[k] + pt_launches[k]
                 + g_launches[k] + h_launches[k] + i_launches[k] + j_launches[k]
-                + k_launches[k] for k in _build.KERNELS}
+                + k_launches[k] + l_launches[k] for k in _build.KERNELS}
     for name in KERNELS:
         if launches[name] == 0:
             raise AssertionError(f"{name} was never launched by a main path")

@@ -354,6 +354,56 @@ def test_cascade_on_the_card_matches_the_cpu(card, front, groups):
     assert launched["fused_group12"] == (16 if groups else 0)
 
 
+@pytest.mark.cuda
+def test_prefetch_on_the_card_equals_the_serial_loop(card, tmp_path):
+    """``run_pipeline_batched``'s producer (pinned ring, copies on a side
+    stream) gives the serial loop's outputs bit for bit, on an array and on
+    a memmap, with a ragged tail and with a capacity-gated predictor (whose
+    tail is padded on the card); K2 launches once a stage a batch."""
+    from av1tpu_torch.eval import make_v6_pipeline_gated, run_pipeline_batched
+
+    models = PipelineModels(*(_calibrated(cls, seed) for seed, cls in enumerate(
+        (Stage1Model, Stage2Model, Stage3RectModel, Stage3ABModel))))
+    samples = _codes(4, (1000, 16, 16, 1))
+    np.save(tmp_path / "blocks.npy", samples)
+    memmap = np.load(tmp_path / "blocks.npy", mmap_mode="r")
+    predicts = {
+        "g1": make_v6_pipeline_folded(models, float_dtype=torch.bfloat16,
+                                      use_fused_front="g1", device=card),
+        "gated": make_v6_pipeline_gated(models, 0.5, input_dtype=torch.bfloat16,
+                                        folded=True, device=card),
+    }
+    for name, predict in predicts.items():
+        want = run_pipeline_batched(predict, samples, 128, card, prefetch=0)
+        for blocks in (samples, memmap):
+            for prefetch in (1, 2, 4):
+                before = _build.launch_counts["fused_front_g1"]
+                got = run_pipeline_batched(predict, blocks, 128, card, prefetch=prefetch)
+                for key, value in want.items():
+                    np.testing.assert_array_equal(got[key], value, err_msg=(name, key))
+                if name == "g1":
+                    assert _build.launch_counts["fused_front_g1"] - before == 4 * 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_stacked_backbones_on_the_card(card, dtype):
+    """``make_v6_pipeline(stacked=True)`` (one vmapped forward of the four
+    backbones, grouped convolutions) against the unstacked pipeline on 512
+    blocks: stage-1 probabilities within 1e-5 in fp32 (0.02 in bf16) and the
+    labels equal on 99% of the blocks."""
+    from av1tpu_torch.eval import make_v6_pipeline
+
+    models = PipelineModels(*(_calibrated(cls, seed) for seed, cls in enumerate(
+        (Stage1Model, Stage2Model, Stage3RectModel, Stage3ABModel))))
+    images = torch.from_numpy(_codes(5, (512, 16, 16, 1))).to(card)
+    got, want = (make_v6_pipeline(models, input_dtype=dtype, device=card,
+                                  stacked=stacked)(images) for stacked in (True, False))
+    atol = 1e-5 if dtype == torch.float32 else 0.02
+    assert (got["stage1_prob"] - want["stage1_prob"]).abs().max().item() <= atol
+    assert (got["final"] == want["final"]).float().mean().item() >= 0.99
+
+
 # ---------------------------------------------------------------------------
 # Training on the card
 # ---------------------------------------------------------------------------

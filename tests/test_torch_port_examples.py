@@ -263,11 +263,12 @@ def normalized(calls: list, root: Path, renames=()) -> list:
 
 
 def scrubbed(tree, root: Path):
-    """Results JSON without wall clocks and with ``root`` replaced."""
+    """Results JSON without wall clocks (``*seconds*``, ``*_wall`` and
+    int8_selfcalib_ab's ``wall_s``) and with ``root`` replaced."""
     if isinstance(tree, dict):
         return {k: scrubbed(v, root) for k, v in tree.items()
                 if "seconds" not in k and not k.endswith("_wall")
-                and k not in ("device", "fused_front")}
+                and k not in ("wall_s", "device", "fused_front")}
     if isinstance(tree, list):
         return [scrubbed(v, root) for v in tree]
     if isinstance(tree, str):

@@ -62,7 +62,7 @@ def test_fresh_interpreter_imports_the_port_without_jax_or_av1tpu():
                          capture_output=True, text=True, cwd=ROOT, timeout=600)
     assert out.returncode == 0, out.stderr[-2000:]
     report = json.loads(out.stdout.strip().splitlines()[-1])
-    assert len(report["imported"]) >= 67
+    assert len(report["imported"]) >= 68
     for module in ("codec.tree", "ingest.yuv", "ingest.tiler", "train.augment",
                    "ingest.partition_dump", "ingest.xlsx", "ingest.etl", "ingest.native",
                    "data.synth_tree", "eval.plots", "utils.profiling", "cli.prepare_data",
@@ -76,7 +76,8 @@ def test_fresh_interpreter_imports_the_port_without_jax_or_av1tpu():
                    "train.stages", "cli.train_stage1", "cli.train_stage2", "data.noise",
                    "train.fgvc_step", "train.unified", "cli.prepare_stage3",
                    "cli.train_stage3", "cli.train_stage2_flat", "cli.train_unified",
-                   "parallel", "parallel.mesh", *(f"examples.{name}" for name in EXAMPLES)):
+                   "parallel", "parallel.mesh", "utils.initialization",
+                   *(f"examples.{name}" for name in EXAMPLES)):
         assert f"av1tpu_torch.{module}" in report["imported"]
     assert report["bad"] == []
 
@@ -118,12 +119,13 @@ def test_the_clis_import_without_matplotlib(without_matplotlib, module):
 
 
 def test_new_modules_import_nothing_of_jax_or_av1tpu():
-    """The modules of the data layer, the ETL, the plots, the reports and the
-    profiling, each alone in a fresh interpreter."""
+    """The modules of the data layer, the ETL, the plots, the reports, the
+    profiling and the seeded initialization, each alone in a fresh
+    interpreter."""
     modules = ["ingest.partition_dump", "ingest.xlsx", "ingest.etl", "ingest.native",
                "data.synth_tree", "data.records", "eval.plots", "eval.html_report",
-               "utils.profiling", "cli.prepare_data", "cli.prepare_dataset",
-               "cli.analysis_report", "cli.visualize_blocks",
+               "utils.profiling", "utils.initialization", "cli.prepare_data",
+               "cli.prepare_dataset", "cli.analysis_report", "cli.visualize_blocks",
                *(f"examples.{name}" for name in EXAMPLES)]
     code = (f"import importlib, json, sys\nsys.path.insert(0, {str(ROOT)!r})\n"
             "bad = {}\n"

@@ -76,6 +76,15 @@ LABEL_MARGIN = {"fp32": 0.25, "bf16": 0.03}
 # never where every decision's margin exceeds PIPELINE_MARGIN.
 PIPELINE_MARGIN = 0.25
 PIPELINE_PROB_ATOL = 0.2
+# The im2col lowering, each package quantizing on its own: the mean logit
+# difference within IM2COL_LOGIT of the float logits' scale (measured
+# 0.002-0.007), labels equal at least as often as the port's int8 labels equal
+# its fp32 folded forward's (measured 88-98% against 67-94%) and wherever every
+# decision's margin exceeds PIPELINE_MARGIN. Each lowering keeps within
+# INT8_SCALE of the float forward and of the other, on average (the JAX
+# package's own bound, tests/test_quant.py).
+IM2COL_LOGIT = 0.02
+INT8_SCALE = 0.08
 
 
 def _u16(blocks):
@@ -485,6 +494,57 @@ def test_drift_checker_matches_jax(ws, jax_side, port_side):
     assert ratios[0] < 1.5 < ratios[1]
 
 
+@pytest.mark.parametrize("kind, hw", KINDS)
+def test_im2col_lowering_matches_jax(ws, port_side, kind, hw):
+    """``lowering="im2col"`` (every 3x3 and 1x1 site an int8 conv, no plan),
+    quantized by each package on the same weights and blocks (bounds above):
+    the same sites, absmax within 2e-5 of each site's largest, logits and
+    labels; within INT8_SCALE of the fp32 folded forward and of the hybrid
+    lowering. It serves the other block size (8 <-> 16 px) as the JAX
+    package's im2col model does, where the hybrid model refuses, and K1
+    attaches to it."""
+    model, calib = ws["models"][(kind, hw)], _x(ws["calib"][hw])
+    quantize = {"stage": (jq.quantize_stage, pq.quantize_stage),
+                "unified": (jq.quantize_unified, pq.quantize_unified)}[kind]
+    want_q = quantize[0](ws["vars"][(kind, hw)], jnp.asarray(calib), lowering="im2col")
+    got_q = quantize[1](model, torch.from_numpy(calib), lowering="im2col")
+    assert got_q.plan is None and want_q.plan is None
+    assert sorted(got_q.qw) == sorted(want_q.qw) == sorted(got_q.qbias)
+    assert sorted(got_q.calib_amax) == sorted(want_q.calib_amax) == sorted(got_q.scales)
+    for site, a in want_q.calib_amax.items():
+        np.testing.assert_allclose(got_q.calib_amax[site], a, rtol=0,
+                                   atol=2e-5 * np.abs(a).max(), err_msg=site)
+    forward = jax.jit(lambda t: want_q(t))
+    x, other = _x(ws["eval"][hw]), _x(ws["eval"][8 if hw == 16 else 16])
+    want = np.asarray(forward(jnp.asarray(x)), np.float32)
+    assert_input_sensitive(want, LOGIT_ATOL["bf16"] / 10)
+    with torch.no_grad():
+        got = got_q(torch.from_numpy(x)).float().numpy()
+        ref = got_q.float_forward(torch.from_numpy(x)).float().numpy()
+        hybrid = port_side["q"][(kind, hw)](torch.from_numpy(x)).float().numpy()
+    scale = max(np.abs(ref).max(), 0.1)
+    assert np.abs(got - want).mean() <= IM2COL_LOGIT * scale
+    margins, want_dec = _decisions(want, kind)
+    got_dec, ref_dec = _decisions(got, kind)[1], _decisions(ref, kind)[1]
+    equal = (got_dec == want_dec).all(-1)
+    assert equal.mean() >= (got_dec == ref_dec).all(-1).mean()
+    assert equal[margins > PIPELINE_MARGIN].all()
+    assert np.abs(got - ref).mean() < INT8_SCALE * scale
+    assert np.abs(got - hybrid).mean() < INT8_SCALE * scale
+
+    with pytest.raises(ValueError, match=f"quantized for {hw}x{hw}"):
+        port_side["q"][(kind, hw)](torch.from_numpy(other))
+    want_other = np.asarray(forward(jnp.asarray(other)), np.float32)
+    with torch.no_grad():
+        got_other = got_q(torch.from_numpy(other)).float().numpy()
+    assert np.abs(got_other - want_other).mean() <= INT8_SCALE * scale
+
+    assert pq.attach_fused_front(got_q, hw)
+    with torch.no_grad():
+        fused = got_q(torch.from_numpy(x)).float().numpy()
+    _labels_agree(fused, got, kind, LABEL_MARGIN["fp32"], LABEL_SHARE["fp32"])
+
+
 # ---------------------------------------------------------------------------
 # The port's own: K1 on the int8 path, buffers, refusals
 # ---------------------------------------------------------------------------
@@ -542,10 +602,17 @@ def test_refusals_name_their_reason(ws, tmp_path):
     with pytest.raises(ValueError, match="no group-1 hook"):
         pq.make_v6_pipeline_int8(pm, calib, use_fused_front="g1", device="cpu")
     x = torch.from_numpy(_x(calib))
-    with pytest.raises(NotImplementedError, match="Drop, don't port"):
-        pq.quantize_stage(model, x, lowering="im2col")
     with pytest.raises(ValueError, match="unknown lowering"):
         pq.quantize_unified(ws["models"][("unified", 16)], x, lowering="spatial")
     q = pq.quantize_stage(model, x)
     with pytest.raises(ValueError, match="quantized for 16x16"):
         q(torch.from_numpy(_x(ws["eval"][8])))
+    # the im2col lowering is ported: no plan, no refusal, and the same logits
+    # as the hybrid lowering within the JAX package's bound between the two
+    im2col = pq.quantize_stage(model, x, lowering="im2col")
+    assert im2col.plan is None
+    images16 = torch.from_numpy(_x(ws["eval"][16]))
+    with torch.no_grad():
+        ref = q.float_forward(images16).numpy()
+        diff = np.abs(im2col(images16).numpy() - q(images16).numpy()).mean()
+    assert diff < INT8_SCALE * max(np.abs(ref).max(), 0.1)

@@ -146,29 +146,91 @@ def test_batched_run_with_ragged_tail_equals_one_batch(setup):
         np.testing.assert_allclose(parts[key], whole[key], atol=1e-6, rtol=0)
 
 
+@pytest.fixture(scope="module")
+def jax_outputs(setup):
+    """The JAX package's plain pipeline on the 256 blocks, unstacked and
+    stacked, as numpy."""
+    jax_models, _, images, _ = setup
+    return {stacked: {k: np.asarray(v) for k, v in jax_plain(
+        jax_models, stage1_threshold=STAGE1_THRESHOLD, input_dtype=jnp.float32,
+        stacked=stacked)(jnp.asarray(images)).items()} for stacked in (False, True)}
+
+
 @pytest.mark.parametrize("option, item", [
-    ({"stacked": True}, "Drop, don't port"),
-    ({"stacked": True, "tta": True}, "Drop, don't port"),
-    ({"mesh": "of one process"}, "M11"),
+    ({"stacked": True}, "the JAX package's stacked pipeline"),
+    ({"stacked": True, "tta": True}, "the unstacked TTA pipeline"),
+    ({"mesh": "of one process"}, "no mesh"),
 ])
-def test_unported_pipeline_options_raise(setup, option, item, tmp_path):
-    """``tta``, ``tta_align_ab`` and ``ab_ensemble_vars`` are ported
-    (``tests/test_torch_port_unified.py`` holds them against the JAX package);
-    stacked backbones still raise, naming their ROADMAP entry. A mesh
-    (ROADMAP M11) is ported: on a mesh of one process the plain pipeline
-    gives the outputs of no mesh, as the JAX package's one-device mesh does."""
+def test_unported_pipeline_options_raise(setup, jax_outputs, option, item, tmp_path):
+    """None of these options raises any more; each case holds the pipeline it
+    builds against ``item``. ``stacked`` runs the four backbones as one
+    vmapped forward: the same function as the unstacked graph (``final``
+    equal, ``stage1_prob`` within rtol 1e-5, atol 1e-6, the JAX package's own
+    bound) and the JAX package's ``stacked=True`` pipeline (the margin guard).
+    With ``tta`` the option is ignored, as in the JAX package: the outputs are
+    the unstacked TTA pipeline's bit for bit (on 64 blocks). On a mesh of one process the
+    plain pipeline gives the outputs of no mesh, as the JAX package's
+    one-device mesh does."""
+    _, port_models, images, margins = setup
     if "mesh" in option:
-        images = setup[2]
-        want = run_pipeline_batched(make_v6_pipeline(setup[1], device="cpu"), images,
+        want = run_pipeline_batched(make_v6_pipeline(port_models, device="cpu"), images,
                                     batch_size=100, device="cpu")
         with world_of_one(tmp_path) as mesh:
-            got = run_pipeline_batched(make_v6_pipeline(setup[1], device="cpu", mesh=mesh),
+            got = run_pipeline_batched(make_v6_pipeline(port_models, device="cpu", mesh=mesh),
                                        images, batch_size=100, device="cpu", mesh=mesh)
         for key, value in want.items():
             np.testing.assert_array_equal(got[key], value, err_msg=key)
         return
-    with pytest.raises(NotImplementedError, match=item):
-        make_v6_pipeline(setup[1], device="cpu", **option)
+    unstacked_option = {**option, "stacked": False}
+    x = torch.from_numpy(images[:64] if "tta" in option else images)
+    got = {k: v.numpy() for k, v in make_v6_pipeline(
+        port_models, stage1_threshold=STAGE1_THRESHOLD, device="cpu", **option)(x).items()}
+    want = {k: v.numpy() for k, v in make_v6_pipeline(
+        port_models, stage1_threshold=STAGE1_THRESHOLD, device="cpu",
+        **unstacked_option)(x).items()}
+    if "tta" in option:
+        for key, value in want.items():
+            np.testing.assert_array_equal(got[key], value, err_msg=key)
+        return
+    np.testing.assert_array_equal(got["final"], want["final"])
+    np.testing.assert_allclose(got["stage1_prob"], want["stage1_prob"], rtol=1e-5, atol=1e-6)
+    assert len(np.unique(got["final"])) >= 2
+    _assert_same(got, jax_outputs[True], margins)
+
+
+@pytest.mark.parametrize("case", ["ensemble", "mismatched_backbones"])
+def test_stacked_falls_back_to_unstacked(setup, case):
+    """As in the JAX package, ``stacked`` is ignored with an AB ensemble and
+    when a stage model has no ``backbone`` of the others' layout (here the
+    adapter stage 2): the outputs are the unstacked pipeline's bit for bit."""
+    jax_models, port_models, images, _ = setup
+    kwargs = {"stage1_threshold": STAGE1_THRESHOLD, "device": "cpu"}
+    if case == "ensemble":
+        kwargs["ab_ensemble_vars"] = [jax_models.stage3_ab_vars] * 2
+    else:
+        torch.manual_seed(3)
+        port_models = PipelineModels(port_models.stage1, tm.Stage2ModelWithAdapters().eval(),
+                                     port_models.stage3_rect, port_models.stage3_ab)
+    x = torch.from_numpy(images)
+    got, want = (make_v6_pipeline(port_models, stacked=stacked, **kwargs)(x)
+                 for stacked in (True, False))
+    for key, value in want.items():
+        np.testing.assert_array_equal(got[key].numpy(), value.numpy(), err_msg=key)
+
+
+@pytest.mark.parametrize("prefetch", [0, 2, 4])
+def test_prefetch_matches_jax(setup, jax_outputs, prefetch):
+    """``run_pipeline_batched`` in batches of 100 (a tail of 56) with the
+    producer ``prefetch`` batches ahead: outputs bitwise the serial loop's
+    and, within the margin guard, the JAX package's pipeline."""
+    _, port_models, images, margins = setup
+    predict = make_v6_pipeline(port_models, stage1_threshold=STAGE1_THRESHOLD, device="cpu")
+    got = run_pipeline_batched(predict, images, batch_size=100, device="cpu",
+                               prefetch=prefetch)
+    serial = run_pipeline_batched(predict, images, batch_size=100, device="cpu", prefetch=0)
+    for key, value in serial.items():
+        np.testing.assert_array_equal(got[key], value, err_msg=key)
+    _assert_same(got, jax_outputs[False], margins)
 
 
 def test_unported_folded_options_raise(setup):
