@@ -214,6 +214,27 @@ Run from the root of a checkout. Phases, one JSON line each:
           and 4 in turns: outputs bitwise equal, the wall ms of each, and
           the producer's staging of one batch (host ms) beside its copy on
           the side stream (H2D ms) and the predict's ms;
+       m. the two sweep examples on the port's bench helpers
+          (``av1tpu_torch/examples/_bench.py``), bf16, folded, four seeded
+          stage models at the published widths: m1 ``per_size_batch_sweep``
+          at its default grid (16 cells: 8 px at 8,192-65,536 blocks down to
+          64 px at 256-2,048) and m2 ``cascade_batch_sweep`` at n = 512, 1,024
+          and 2,048 superblocks, one predict a level, each through its
+          ``main`` at its default ``--iters 20``: every row present, none
+          FAILED, blocks/s or trees/s above 0 and MFU in (0, 1], no port
+          kernel launched; m3 the kernels through the helpers' own
+          parameters: ``_time_predict`` with ``use_fused_front="g1"`` (K2) at
+          8 and 16 px and ``use_pallas_groups=True`` (K5) at 32 and 64 px,
+          each at m1's best batch, ``bench_tree_cascade`` with K5 at 64 and
+          32 px and K2 at 16 and 8 px at n = 512, and that cascade's modes at
+          every level beside the ``off`` cascade's (the shares of equal modes
+          are emitted, not held: the weights are uncalibrated draws); K2 and
+          K5 launch exactly as many times as ``m_predicted_launches`` says;
+          then, outside the counted run, K2 and K5 against their plain
+          versions at every row count m3 gave them, on m3's own inputs and
+          each stage's weights (bf16, ``BF16_REL_TOL``), and each kernel
+          predict's stage-1 probabilities beside ``off``'s on its cell's
+          blocks (emitted);
      each run prints blocks/s (or frames/s and superblocks/s), its launches,
      and its agreement with its path's ``off`` run;
   6. predict: the CUDA-event time of one 4,096-block bf16 predict on a
@@ -238,13 +259,16 @@ Run from the root of a checkout. Phases, one JSON line each:
      the card could take: the larger of the bytes (each input read once,
      each output written once) over 3.35 TB/s and the operations over the
      peak for the input type (989 TFLOP/s bf16 on the tensor cores,
-     67 TFLOP/s fp32).
+     67 TFLOP/s fp32); a convolution's operations count the taps that fall
+     inside its input only, as the sweeps' MFU does
+     (``examples/_bench.backbone_flops``).
 Then the card's ``nvidia-smi`` line, a ``{"kernels": [...]}`` line, and as the
 last line ``{"ok": true, "device": {...}}``. Any failed phase raises and the
 script exits non-zero; without a CUDA device it fails before printing.
 """
 from __future__ import annotations
 
+import ast
 import contextlib
 import copy
 import functools
@@ -328,10 +352,13 @@ from av1tpu_torch.eval import (  # noqa: E402
 )
 from av1tpu_torch.eval.ensemble import _stacking_features, _stacking_objective  # noqa: E402
 from av1tpu_torch.eval.hierarchy import on_device  # noqa: E402
+from av1tpu_torch.examples import _bench as bench_helpers  # noqa: E402
 from av1tpu_torch.examples import (  # noqa: E402
     bench_ingest_to_trees,
+    cascade_batch_sweep,
     demo_e2e,
     int8_selfcalib_ab,
+    per_size_batch_sweep,
     scale_demo,
     scale_demo_extras,
     scale_demo_v5,
@@ -650,17 +677,18 @@ def bound(n_bytes: int, flops: float, dtype) -> tuple:
 
 
 def front_flops(hw: int, with_g1: bool) -> float:
-    """Per sample: the 7x7/2 stem conv, and layer group 1 at extent hw/4."""
-    stem = 2.0 * (hw // 2) ** 2 * 49 * 64
-    return stem + (group12_flops(hw // 4, groups=(1,)) if with_g1 else 0.0)
+    """Per sample: K1's 7x7/2 stem conv on ``hw`` px, and with K2 layer group 1
+    and SE1 at extent hw/4; valid taps only (``_bench.backbone_flops``, the
+    sweeps' count; biases, pooling and gates are not counted)."""
+    parts = bench_helpers.backbone_flops(hw)
+    return float(parts["stem"] + (parts["layer1"] + parts["se1"] if with_g1 else 0))
 
 
-def group12_flops(e: int, groups=(1, 2)) -> float:
-    """Per sample: the convs of layer groups 1 and 2 at input extent ``e``
-    (each product once; SE, biases and pooling are not counted)."""
-    g1 = 2.0 * 4 * e * e * 576 * 64
-    g2 = 2.0 * (e // 2) ** 2 * (576 * 128 + 3 * 1152 * 128 + 64 * 128)
-    return (g1 if 1 in groups else 0.0) + (g2 if 2 in groups else 0.0)
+def group12_flops(e: int) -> float:
+    """Per sample: K5's layer groups 1 and 2 and their SE products at input
+    extent ``e`` (the blocks of 4e px), valid taps only, as ``front_flops``."""
+    parts = bench_helpers.backbone_flops(4 * e)
+    return float(sum(parts[k] for k in ("layer1", "se1", "layer2", "se2")))
 
 
 # ---------------------------------------------------------------------------
@@ -696,13 +724,17 @@ def front_args(name, folded, dtype, dev):
     return ff.fused_front_g1, ff.fused_front_g1_reference, args
 
 
-def stem_output(folded, gen, n, hw, dev) -> torch.Tensor:
-    """K5's input: the fp32 stem + pool of ``n`` random ``hw`` px blocks."""
-    img = (torch.randint(0, 1024, (n, hw, hw, 1), generator=gen).float()
-           / 1023.0).to(dev)
+def stem_pool(folded, img: torch.Tensor, dev) -> torch.Tensor:
+    """K5's input: the fp32 stem + pool of the normalized blocks ``img``."""
     stem = ff.stem_weights(folded["stem"]["weight"], folded["stem"]["bias"],
                            torch.float32)
-    return ff.fused_front_reference(img, *(t.to(dev) for t in stem))
+    return ff.fused_front_reference(img.to(dev), *(t.to(dev) for t in stem))
+
+
+def stem_output(folded, gen, n, hw, dev) -> torch.Tensor:
+    """K5's input for ``n`` random ``hw`` px blocks."""
+    img = torch.randint(0, 1024, (n, hw, hw, 1), generator=gen).float() / 1023.0
+    return stem_pool(folded, img, dev)
 
 
 def check_kernels(folded, gen, dev) -> dict:
@@ -3691,6 +3723,186 @@ def run_path_l(models: PipelineModels, model8: nn.Module, calib: np.ndarray,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Path m: the two sweep examples, then the kernels through the bench helpers
+# ---------------------------------------------------------------------------
+
+M_ITERS = 20            # timed calls of each sweep cell (after WARMUP_ITERS): the default
+M_CASCADE_N = 512       # superblocks of m3's kernel cascade and of its tree comparison
+M_FRONTS = {8: {"use_fused_front": "g1"}, 16: {"use_fused_front": "g1"},
+            32: {"use_pallas_groups": True}, 64: {"use_pallas_groups": True}}
+
+
+def m_predicted_launches() -> dict:
+    """m3's launches: each kernel cell calls its predict WARMUP_ITERS +
+    M_ITERS times, four stages each (K2 at 8 and 16 px, K5 at 32 and 64 px);
+    the cascade as often, two levels a kernel, and once more for its trees."""
+    calls = bench_helpers.WARMUP_ITERS + M_ITERS
+    per_kernel = 2 * calls * 4 + calls * 2 * 4 + 2 * 4
+    return {"fused_front_g1": per_kernel, "fused_group12": per_kernel}
+
+
+def sweep_rows(printed: str, columns: int) -> tuple:
+    """A sweep's table rows (cells stripped) and its ``best:`` value."""
+    rows = [[c.strip() for c in line.strip().strip("|").split("|")]
+            for line in printed.splitlines() if re.match(r"\|\s*\d", line)]
+    best = printed[printed.rindex("best:") + 5:].strip()
+    if any(len(r) != columns for r in rows):
+        raise AssertionError(f"malformed sweep table:\n{printed}")
+    return rows, best
+
+
+def m_rows(name: str, rows: list, want: int, smi: str) -> list:
+    """Hold a sweep's rows (``want`` of them, none FAILED, rate > 0, MFU in
+    (0, 1]) and emit each; returns ``(key, rate, mfu)`` per row."""
+    out = []
+    for row in rows:
+        *key, rate, mfu = row
+        if "FAILED" in rate:
+            raise AssertionError(f"{name}: {row} failed")
+        rate = float(rate.replace(",", ""))
+        mfu = float(mfu.rstrip("%")) / 100.0 if mfu.endswith("%") else float("nan")
+        emit("end_to_end", path="m_sweeps", run=name, key=[int(k) for k in key],
+             per_s=rate, mfu=mfu, nvidia_smi=smi)
+        if not rate > 0 or not 0 < mfu <= 1:
+            raise AssertionError(f"{name}: {row}: rate or MFU out of range")
+        out.append(([int(k) for k in key], rate, mfu))
+    if len(out) != want:
+        raise AssertionError(f"{name}: {len(out)} rows, want {want}")
+    return out
+
+
+def m3_kernels(best: dict, dev, keep: dict) -> dict:
+    """m3: the bench helpers with the kernels: ``_time_predict`` with K2
+    (``g1``) at 8 and 16 px and K5 at 32 and 64 px at m1's best batches,
+    ``bench_tree_cascade`` with K5 at 64 and 32 px and K2 at 16 and 8 px,
+    and the modes of that cascade and of the ``off`` cascade at every level
+    for ``M_CASCADE_N`` superblocks. Leaves the models and predictors in
+    ``keep`` for :func:`check_m3_kernels`."""
+    dtype = torch.bfloat16
+    models = bench_helpers._build_models(dev)
+    predicts = {px: make_v6_pipeline_folded(models, THRESHOLD, float_dtype=dtype, device=dev,
+                                            **M_FRONTS[px]) for px in M_FRONTS}
+    cells = {}
+    for px, predict in predicts.items():
+        rate, flops, mfu = bench_helpers._time_predict(predict, best[px]["batch"], px,
+                                                      iters=M_ITERS, device=dev)
+        cells[px] = {"batch": best[px]["batch"], "blocks_per_s": rate, "mfu": mfu,
+                     "flops_per_block": flops, "off_blocks_per_s": best[px]["sb_per_s"]}
+    cascade = bench_helpers.bench_tree_cascade(models, dtype, M_CASCADE_N, iters=M_ITERS,
+                                               predict_by_size=predicts, device=dev)
+    sbs = torch.from_numpy(bench_helpers.seeded_superblocks(M_CASCADE_N)).to(dev)
+    off = make_v6_pipeline_folded(models, THRESHOLD, float_dtype=dtype, device=dev)
+    got, want = (predict_partition_trees(sbs, level_predictors, 64 * M_CASCADE_N, device=dev)
+                 for level_predictors in (predicts, dict.fromkeys(LEVEL_SIZES, off)))
+    trees, trees_off = got["trees"], want["trees"]
+    if trees.shape != (M_CASCADE_N, 85) or trees.min() < -1 or trees.max() > 7 \
+            or (trees[:, 0] < 0).any():
+        raise AssertionError(f"m3: bad trees {trees.shape}")
+    keep.update(models=models, predicts=predicts, off=off)
+    return {"cells": cells, "cascade": cascade,
+            "tree_slots_equal_to_off": float((trees == trees_off).mean()),
+            "modes_equal_to_off": {size: float((got[f"modes_{size}"]
+                                                == want[f"modes_{size}"]).mean())
+                                   for size in LEVEL_SIZES},
+            "mean_nodes_per_tree": float((trees >= 0).sum(axis=1).mean()),
+            "mean_nodes_per_tree_off": float((trees_off >= 0).sum(axis=1).mean())}
+
+
+def check_m3_kernels(kept: dict, best: dict, dev) -> None:
+    """K2 and K5 against their plain versions at every row count m3 gave
+    them (m1's best batch of each size, and the n = ``M_CASCADE_N``
+    cascade's n to 64n rows), on m3's own blocks (``bench.py``'s seeded
+    draws, the tiles of its seeded superblocks) with each stage's folded
+    weights, in bf16; then each kernel predict's stage-1 probabilities and
+    labels beside ``off``'s on its cell's blocks (emitted, not held)."""
+    bf16 = torch.bfloat16
+    models = kept["models"]
+    folded = [fold_backbone(m.backbone) for m in
+              (models.stage1, models.stage2, models.stage3_rect, models.stage3_ab)]
+    sbs = torch.from_numpy(bench_helpers.seeded_superblocks(M_CASCADE_N)).to(dev)
+    for px, rows, where in ((px, rows, where) for px in M_FRONTS for rows, where in (
+            (best[px]["batch"], "cell"), (M_CASCADE_N * (64 // px) ** 2, "cascade"))):
+        u16 = (torch.from_numpy(bench_helpers.seeded_blocks(rows, px)).to(dev)
+               if where == "cell" else quad_tile_on_device(sbs.view(torch.int16), px))
+        x = u16.view(torch.uint16).float() / 1023.0
+        for stage, f in enumerate(folded, 1):
+            if M_FRONTS[px].get("use_fused_front") == "g1":
+                name = "fused_front_g1"
+                kern, plain, args = front_args(name, f, bf16, dev)
+                xin = x.to(bf16)
+                got = kern(xin, *args)
+                torch.cuda.synchronize()
+                want = plain(xin, *args)
+            else:
+                name = "fused_group12"
+                wg = tuple(t.to(dev) for t in rg.pack_group12_weights(f, bf16))
+                xin = stem_pool(f, x, dev).to(bf16)
+                got = rg.fused_group12(xin, wg, rg.group12_conv_stream(wg))
+                torch.cuda.synchronize()
+                want = rg.fused_group12_reference(xin, wg)
+            compare(name, got, want, rel_tol(name, bf16, want), block_px=px, batch=rows,
+                    shape=f"m3_{where}", stage=stage, dtype="bfloat16")
+    for px, predict in kept["predicts"].items():
+        images = torch.from_numpy(bench_helpers.seeded_blocks(best[px]["batch"], px)).to(dev)
+        got, want = predict(images), kept["off"](images)
+        emit("m3_vs_off", block_px=px, batch=best[px]["batch"], kernel_options=M_FRONTS[px],
+             stage1_prob_max_abs_diff=(got["stage1_prob"] - want["stage1_prob"]).abs()
+             .max().item(), final_agrees=(got["final"] == want["final"]).float().mean().item(),
+             finite=bool(torch.isfinite(got["stage1_prob"]).all()))
+        if not torch.isfinite(got["stage1_prob"]).all():
+            raise AssertionError(f"m3 {px} px: non-finite stage-1 probabilities")
+
+
+def run_path_m(dev, smi: str) -> dict:
+    """Path m: m1 ``per_size_batch_sweep`` and m2 ``cascade_batch_sweep``
+    through their ``main``s at their default grids and ``--iters`` (no port
+    kernel: the folded graph with fronts off); m3 the kernels through the
+    bench helpers' own parameters (:func:`m3_kernels`), whose K2 and K5
+    launches must be exactly :func:`m_predicted_launches`; then, after the
+    counts are read, :func:`check_m3_kernels`. Returns the path's
+    launches."""
+    found, kept = {}, {}
+
+    def run_one(part):
+        if part == "m3":
+            return m3_kernels(found["m1"], dev, kept)
+        module = per_size_batch_sweep if part == "m1" else cascade_batch_sweep
+        t0 = time.perf_counter()
+        printed = quietly(module.main, ["--iters", str(M_ITERS), "--device", dev.type])
+        rows, best = sweep_rows(printed, 4 if part == "m1" else 3)
+        found[part] = ast.literal_eval(best) if part == "m1" else json.loads(best)
+        return {"seconds": time.perf_counter() - t0, "rows": rows, "best": found[part],
+                "device_line": printed.splitlines()[0]}
+
+    t0 = time.perf_counter()
+    runs, launches = drive("m_sweeps", [("m1_per_size", "m1"), ("m2_cascade", "m2"),
+                                        ("m3_kernels", "m3")], run_one)
+    m1, m2, m3 = runs
+    m_rows("m1_per_size", m1["rows"], sum(len(b) for b in per_size_batch_sweep.SWEEP.values()),
+           smi)
+    m_rows("m2_cascade", m2["rows"], 3, smi)
+    for name, run in (("m1_per_size", m1), ("m2_cascade", m2)):
+        emit("end_to_end", path="m_sweeps", run=name, seconds=run["seconds"],
+             best=run["best"], device_line=run["device_line"], launches=run["launches"])
+        if run["launches"]:
+            raise AssertionError(f"{name}: the fronts-off sweep launched {run['launches']}")
+    want = m_predicted_launches()
+    emit("end_to_end", path="m_sweeps", run="m3_kernels", launches=m3["launches"],
+         predicted_launches=want, nvidia_smi=smi,
+         **{k: v for k, v in m3.items() if k not in ("name", "launches")})
+    if m3["launches"] != want:
+        raise AssertionError(f"m3: launches {m3['launches']}, predicted {want}")
+    for px, cell in m3["cells"].items():
+        if not cell["blocks_per_s"] > 0 or not 0 < cell["mfu"] <= 1:
+            raise AssertionError(f"m3 {px} px: {cell}")
+    if not 0 < m3["cascade"]["mfu"] <= 1:
+        raise AssertionError(f"m3 cascade: {m3['cascade']}")
+    check_m3_kernels(kept, found["m1"], dev)
+    emit("m_done", seconds=time.perf_counter() - t0, nvidia_smi=nvidia_smi_line())
+    return launches
+
+
 def device_time_by_kernel(fn: Callable, top: int = 8) -> list:
     """The ``top`` kernel names by device ms in one traced call of ``fn``:
     ``[name, calls, ms]``."""
@@ -4206,10 +4418,14 @@ def main() -> int:
     # batching producer with K2, on path a's blocks and models
     l_launches = run_path_l(plain, tree_models[8]["stage2"], calib, val.samples, dev)
 
+    # path m: the two sweep examples through their mains, then K2 and K5
+    # through the bench helpers' parameters
+    m_launches = run_path_m(dev, smi)
+
     launches = {k: cli_launches[k] + k5_launches[k] + api_launches[k] + tree_launches[k]
                 + serving_launches[k] + int8_launches[k] + f_launches[k] + pt_launches[k]
                 + g_launches[k] + h_launches[k] + i_launches[k] + j_launches[k]
-                + k_launches[k] + l_launches[k] for k in _build.KERNELS}
+                + k_launches[k] + l_launches[k] + m_launches[k] for k in _build.KERNELS}
     for name in KERNELS:
         if launches[name] == 0:
             raise AssertionError(f"{name} was never launched by a main path")

@@ -37,9 +37,9 @@ from av1tpu_torch.eval import (
 from av1tpu_torch.quant import make_unified_pipeline_int8, make_v6_pipeline_int8
 
 ROOT = Path(__file__).resolve().parents[1]
-EXAMPLES = ("_common", "demo_e2e", "tree_demo", "tta_eval", "unified_demo",
+EXAMPLES = ("_common", "_bench", "demo_e2e", "tree_demo", "tta_eval", "unified_demo",
             "int8_selfcalib_ab", "scale_demo", "scale_demo_extras", "scale_demo_v5",
-            "bench_ingest_to_trees")
+            "bench_ingest_to_trees", "per_size_batch_sweep", "cascade_batch_sweep")
 
 PROBE = """
 import importlib, json, pkgutil, sys
@@ -305,7 +305,7 @@ def test_training_entry_points_default_to_the_card():
             train_stage(stage1_recipe(epochs=1, batch_size=8), bundle, bundle, log=print)
 
 
-@pytest.mark.parametrize("name", EXAMPLES[1:])
+@pytest.mark.parametrize("name", [n for n in EXAMPLES if not n.startswith("_")])
 def test_examples_default_to_the_card(name):
     """Each example's ``--device`` is ``cuda`` unless the caller asks for
     the CPU, and asking for the card without one is refused."""
