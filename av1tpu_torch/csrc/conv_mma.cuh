@@ -1,10 +1,10 @@
-// The implicit-GEMM convolution shared by K2 (fused_front.cu) and K5
-// (resnet_group.cu), on mma.sync.m16n8k16 (mma.cuh).
+// The implicit-GEMM convolution of K2 (fused_front.cu), on mma.sync.m16n8k16
+// (mma.cuh). (K5's bf16 kernel, resnet_group.cu, reads the same conv stream
+// layout through TMA and wgmma instead.)
 //
 // A block of 256 threads computes a conv for a set of output rows (sample,
 // output position) whose input rows lie in shared memory, channel fastest, as
-// NP bf16 planes: one plane where the conv input is a bf16 value (K2), two
-// (hi, lo) where it is an fp32 value carried to 16 bits (K5). K is tap x ci and
+// one bf16 plane (K2's conv inputs are bf16 values). K is tap x ci and
 // N is 64 columns a warp. No border is stored: the lane that owns row r of an
 // ldmatrix tile computes the address of its input row for each tap, and a tap
 // outside the image points at one shared row of zeros.
@@ -49,29 +49,27 @@ __device__ __forceinline__ void fetch_chunk(const bf16* __restrict__ stream, bf1
   cp_async_commit();
 }
 
-// The shared-memory address, in each plane, of the input row that tap
-// (dy, dx) of output row r reads: input extent IE at pitch IP, output extent
+// The shared-memory address of the input row that tap (dy, dx) of output row
+// r reads from the plane at `in`: input extent IE at pitch IP, output extent
 // OE, stride S. A tap outside the image reads the zero row.
-template <int IE, int OE, int S, int IP, int NP>
-__device__ __forceinline__ void tap_row(int r, int dy, int dx, const uint32_t (&in)[NP],
-                                        uint32_t zero, uint32_t (&a)[NP]) {
+template <int IE, int OE, int S, int IP>
+__device__ __forceinline__ uint32_t tap_row(int r, int dy, int dx, uint32_t in, uint32_t zero) {
   constexpr int OP = OE * OE;
   const int s = r / OP, p = r % OP;
   const int iy = (p / OE) * S + dy, ix = (p % OE) * S + dx;
   const bool inside = unsigned(iy) < unsigned(IE) && unsigned(ix) < unsigned(IE);
   const uint32_t off = uint32_t((s * IE * IE + iy * IE + ix) * IP) * sizeof(bf16);
-#pragma unroll
-  for (int pl = 0; pl < NP; ++pl) a[pl] = inside ? in[pl] + off : zero;
+  return inside ? in + off : zero;
 }
 
 // acc += a conv with TAPS taps of CI input channels, for this warp's MT
-// m-tiles from output row `row0` and its 64 columns from `n0`; `in` holds the
-// shared-memory addresses of the input planes (the most significant first),
-// and the weights are chunks c0 .. c0 + TAPS * CI / 64 - 1 of the stream.
+// m-tiles from output row `row0` and its 64 columns from `n0`; `in` is the
+// shared-memory address of the input plane, and the weights are chunks
+// c0 .. c0 + TAPS * CI / 64 - 1 of the stream.
 // Every thread of the block calls this with the same c0: the chunk loop holds
 // the barriers.
-template <class SCH, int IE, int OE, int S, int CI, int IP, int TAPS, int MT, int NP>
-__device__ __forceinline__ void conv_mma(float (&acc)[MT][8][4], const uint32_t (&in)[NP],
+template <class SCH, int IE, int OE, int S, int CI, int IP, int TAPS, int MT>
+__device__ __forceinline__ void conv_mma(float (&acc)[MT][8][4], uint32_t in,
                                          uint32_t zero, int row0, int n0,
                                          const bf16* __restrict__ stream, bf16* ring, int c0,
                                          int lane) {
@@ -87,35 +85,26 @@ __device__ __forceinline__ void conv_mma(float (&acc)[MT][8][4], const uint32_t 
     const int tap = j / PER_TAP;
     const int dy = TAPS == 1 ? 0 : tap / 3 - (S == 1 ? 1 : 0);
     const int dx = TAPS == 1 ? 0 : tap % 3 - (S == 1 ? 1 : 0);
-    uint32_t a[MT][NP];
+    const uint32_t k_off = uint32_t((j % PER_TAP) * KC) * sizeof(bf16) + kb;
+    uint32_t a[MT];
 #pragma unroll
-    for (int mi = 0; mi < MT; ++mi) {
-      tap_row<IE, OE, S, IP, NP>(row0 + mi * 16 + r16, dy, dx, in, zero, a[mi]);
-      const uint32_t k_off = uint32_t((j % PER_TAP) * KC) * sizeof(bf16) + kb;
-#pragma unroll
-      for (int pl = 0; pl < NP; ++pl) a[mi][pl] += k_off;
-    }
+    for (int mi = 0; mi < MT; ++mi)
+      a[mi] = tap_row<IE, OE, S, IP>(row0 + mi * 16 + r16, dy, dx, in, zero) + k_off;
     const uint32_t w = smem_addr(ring + (c % SCH::STAGES) * SCH::SLOT) +
                        uint32_t(r16 * SCH::WPITCH + n0) * sizeof(bf16) + kb;
 #pragma unroll
     for (int kk = 0; kk < KC / 16; ++kk) {
-      uint32_t f[MT][NP][4];
+      uint32_t f[MT][4];
 #pragma unroll
-      for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-        for (int pl = 0; pl < NP; ++pl) ldmatrix_x4(f[mi][pl], a[mi][pl] + kk * 32);
+      for (int mi = 0; mi < MT; ++mi) ldmatrix_x4(f[mi], a[mi] + kk * 32);
 #pragma unroll
       for (int nj = 0; nj < 4; ++nj) {
         uint32_t b[4];
         ldmatrix_x4_trans(b, w + uint32_t(kk * 16 * SCH::WPITCH + nj * 16) * sizeof(bf16));
 #pragma unroll
         for (int mi = 0; mi < MT; ++mi) {
-          // planes from the least significant up
-#pragma unroll
-          for (int pl = NP - 1; pl >= 0; --pl) mma_bf16(acc[mi][2 * nj], f[mi][pl], b[0], b[1]);
-#pragma unroll
-          for (int pl = NP - 1; pl >= 0; --pl)
-            mma_bf16(acc[mi][2 * nj + 1], f[mi][pl], b[2], b[3]);
+          mma_bf16(acc[mi][2 * nj], f[mi], b[0], b[1]);
+          mma_bf16(acc[mi][2 * nj + 1], f[mi], b[2], b[3]);
         }
       }
     }

@@ -8,41 +8,51 @@
 //     JAX package computes it outside Pallas.
 //
 // What bounds it: at a v6 head's first layer (M = 4096, K = 512, N = 256) a
-// call is 1.07 GFLOP over 6.8 MB in bf16 (13.1 MB in fp32). In bf16 the
-// tensor cores (989 TFLOP/s) would need 0.001 ms and the bytes 0.002 ms, so
-// it is bound by bytes; in fp32, held to fp32 accuracy, the yardstick is
-// the CUDA cores' 67 TFLOP/s (0.016 ms), so it is bound by operations.
-//
+// call is 1.07 GFLOP over 6.6 MB in bf16 (13.1 MB in fp32). The tensor cores
+// (989 TFLOP/s) would need 0.0011 ms and the bytes 0.0020 ms (fp32: 0.0039
+// ms) at 3.35 TB/s, so it is bound by bytes in both dtypes. (fp32 held to
+// fp32 accuracy runs six bf16 products, which caps it at 0.0065 ms of tensor
+// time, 60% of the bytes bound; the CUDA cores' 67 TFLOP/s would need 0.016.)
+
 // Two kernels:
-//   * fused_dense_mma_kernel, the fast path, for rows that are 16-byte
-//     aligned (K and N multiples of 8 in bf16, of 4 in fp32). A block of 256
-//     threads owns a 128 x 64 output tile (4096 x 256 gives 128 blocks for
-//     132 SMs); x and w panels of 64 k (bf16) or 32 k (fp32) go to padded
-//     shared memory through a cp.async ring of 4 (bf16) or 5 (fp32) slots,
-//     zero-filled past M, K and N; each warp owns 32 x 32 outputs as 2 x 4 mma.sync.m16n8k16 tiles.
-//       bf16: ldmatrix (x) and ldmatrix.trans (w, stored k x n) feed one bf16
-//         MMA per tile; x and w are exact bf16, so only the order of the
-//         fp32 sum differs from the plain version.
-//       fp32: a split-precision product on the same bf16 MMA (bf16 triples;
-//         picked over 3xTF32, whose two 11-bit pieces leave 2^-22 per
-//         product, and over a larger CUDA-core tile, which can at best match
-//         the library). Each fp32 value is cut in registers into three bf16
-//         pieces h + m + l that hold its 24 bits exactly; the six products
-//         down to 2^-14 (hh, hm, mh, mm, hl, lh) each become an MMA. The tensor
-//         core truncates when it adds to its accumulator, so the large term
-//         hh is multiplied with a zero accumulator and added outside with
-//         rounded fp32 adds, in windows of 8 ring steps so that no chain of
-//         adds grows with K, and only the five small terms (2^-7 of the
-//         result and below) chain inside the tensor core. The error against
-//         a float64 product is printed beside the library's by chip_smoke.py.
+//   * fused_dense_wgmma_kernel, the fast path, for rows that are 16-byte
+//     aligned (K and N multiples of 8 in bf16, of 4 in fp32). A block owns a
+//     128 x 64 output tile (4096 x 256 gives 128 blocks for 132 SMs): one
+//     producer warp keeps a ring of 4 stages full by TMA (x as 128 rows of
+//     128 bytes of k in the 128-byte swizzle, w as 128-byte rows of n; each
+//     stage with a full and an empty mbarrier), and two consumer warpgroups
+//     each multiply 64 rows by the 64 columns with wgmma.m64n64k16
+//     (hopper.cuh). Out-of-range rows, k and columns arrive as zeros.
+//       bf16: both operands from shared memory, one product per k16 step;
+//         x and w are exact bf16, so only the order of the fp32 sum differs
+//         from the plain version.
+//       fp32: a split-precision product on the bf16 tensor cores (bf16
+//         triples; picked over 3xTF32, whose two 11-bit pieces leave 2^-22
+//         per product, and over a CUDA-core tile, which can at best match the
+//         library). Each fp32 value is cut into three bf16 pieces h + m + l
+//         that hold its 24 bits exactly; the six products down to 2^-14
+//         (hh, hm, mh, mm, hl, lh) are each a wgmma. x's pieces are cut in
+//         registers and fed as A (register operand); the consumers write w's
+//         three pieces from the fp32 stage into shared memory in the wgmma
+//         layout (double-buffered), and the fp32 stage goes back to the
+//         producer at once. The tensor core truncates when it adds to its
+//         accumulator, so the large term hh is multiplied with a zeroed
+//         accumulator (scale-d = 0) and added outside with rounded fp32 adds,
+//         in windows of 8 ring steps so that no chain of adds grows with K;
+//         only the five small terms (2^-7 of the result and below) chain
+//         inside the tensor core. The error against a float64 product is
+//         printed beside the library's by chip_smoke.py.
 //     Bias and activation run on the fp32 accumulators; the tile goes through
-//     shared memory so that every store is 16 bytes.
+//     shared memory so that every store is 16 bytes. The tensor maps of x
+//     and w are encoded on the host at each call (x and w move between
+//     calls; the encoding is a few hundred nanoseconds of host time).
 //   * fused_dense_simt_kernel, the general path, for every other shape: a
 //     shared-memory tiled SIMT GEMM. A block of 256 threads owns a 64 x 64
 //     tile and walks K in steps of 16, zero-filled past the edges; each
 //     thread keeps a 4 x 4 tile of fp32 sums.
 
 #include "common.cuh"
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -110,215 +120,251 @@ fused_dense_simt_kernel(const T* __restrict__ x, const T* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// The fast path: tensor cores
+// The fast path: wgmma on a TMA-fed ring
 // ---------------------------------------------------------------------------
 
-constexpr int MBM = 128, MBN = 64;  // block tile
-constexpr int WARPS_M = 4;          // 4 x 2 warps of 32 x 32 outputs
-constexpr int FOLD = 8;             // fp32: ring steps between folds of the large term
+namespace sm90 = av1::sm90;
+
+constexpr int MBM = 128, MBN = 64;          // block tile: two warpgroups of 64 x 64
+constexpr int CONSUMERS = 256;              // the two warpgroups
+constexpr int WG_THREADS = CONSUMERS + 32;  // and one producer warp
+constexpr int STAGES = 4;                   // ring depth
+constexpr int FOLD = 8;                     // fp32: ring steps between folds of the large term
+constexpr int CONSUMER_BARRIER = 1;         // named barrier of the two warpgroups
 
 template <typename T>
-struct Fast {
-  static constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte chunk
-  // k per ring step and ring depth: at K = 512 three quarters (bf16) or half
-  // (fp32) of a block's operands are in flight before the first MMA, which
-  // is what hides the latency of device memory with one block on an SM.
-  static constexpr int BK = sizeof(T) == 2 ? 64 : 32;
-  static constexpr int STAGES = sizeof(T) == 2 ? 4 : 5;
-  // Row pitches in elements. bf16: 144 bytes, an odd multiple of 16, so the
-  // eight rows of an ldmatrix tile fall in eight different bank groups.
-  // fp32: 40 words (= 8 mod 32) makes the 8-byte reads of x conflict-free,
-  // 68 words (2 * 68 = 8 mod 32) the 4-byte reads of w.
-  static constexpr int XP = BK + 8;
-  static constexpr int WP = sizeof(T) == 2 ? MBN + 8 : MBN + 4;
-  static constexpr int OP = WP;  // output tile staged for 16-byte stores
-  static constexpr int X_ELEMS = MBM * XP, W_ELEMS = BK * WP;
-  static constexpr int STAGE_ELEMS = X_ELEMS + W_ELEMS;
-  static constexpr size_t SMEM = sizeof(T) * size_t(STAGES) * STAGE_ELEMS;
-  static_assert(sizeof(T) * MBM * OP <= SMEM, "the output tile reuses the ring");
+struct Ring {
+  static constexpr int EPC = 16 / sizeof(T);             // elements per 16-byte chunk
+  static constexpr int BK = 128 / sizeof(T);             // k per step: one 128-byte row
+  static constexpr int X_BYTES = MBM * BK * sizeof(T);   // 16 KB
+  static constexpr int W_BYTES = BK * MBN * sizeof(T);   // 8 KB
+  static constexpr int STAGE_BYTES = X_BYTES + W_BYTES;
+  // fp32: one bf16 piece of a w step (BK x 64, 128-byte rows), three pieces a
+  // step, two steps' worth
+  static constexpr int PIECE_BYTES = sizeof(T) == 4 ? BK * MBN * 2 : 0;
+  static constexpr int PIECES_BYTES = 2 * 3 * PIECE_BYTES;
+  // the output tile staged for 16-byte stores, its rows padded off one bank
+  static constexpr int OP = MBN + (sizeof(T) == 2 ? 8 : 4);
+  static constexpr size_t SMEM = 1024 + STAGES * STAGE_BYTES + PIECES_BYTES + 2 * STAGES * 8;
+  static_assert(MBM * OP * sizeof(T) <= STAGES * STAGE_BYTES, "the output tile reuses the ring");
 };
 
-// One BK-wide panel of x (128 rows) and w (64 columns) into a ring slot.
-template <typename T>
-__device__ __forceinline__ void load_stage(T* slot, const T* __restrict__ x,
-                                           const T* __restrict__ w, int64_t m0, int n0, int k0,
-                                           int M, int K, int N) {
-  using F = Fast<T>;
-  constexpr int XC = F::BK / F::EPC, WC = MBN / F::EPC;  // chunks per row
-  for (int c = threadIdx.x; c < MBM * XC; c += THREADS) {
-    const int row = c / XC, kc = (c % XC) * F::EPC;
-    const bool ok = m0 + row < M && k0 + kc < K;
-    av1::cp_async16(av1::smem_addr(slot + row * F::XP + kc),
-                    ok ? x + (m0 + row) * K + k0 + kc : x, ok ? 16 : 0);
-  }
-  T* ws = slot + F::X_ELEMS;
-  for (int c = threadIdx.x; c < F::BK * WC; c += THREADS) {
-    const int row = c / WC, nc = (c % WC) * F::EPC;
-    const bool ok = k0 + row < K && n0 + nc < N;
-    av1::cp_async16(av1::smem_addr(ws + row * F::WP + nc),
-                    ok ? w + int64_t(k0 + row) * N + n0 + nc : w, ok ? 16 : 0);
-  }
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return p + ((1024 - (sm90::smem_u32(p) & 1023)) & 1023);
 }
 
-// The accumulators of a warp's 32 x 32 outputs. bf16 needs `sum` alone. fp32
-// keeps the large term hh in `window` (rounded fp32 adds), folded into `sum`
-// every FOLD ring steps so that no chain of adds grows long, and the five
-// small terms in `small` (chained inside the tensor core).
-struct Acc {
-  float sum[2][4][4], window[2][4][4], small[2][4][4];
-};
-
-// acc += the slot's 128 x BK by BK x 64 product, this warp's 32 x 32 part.
-__device__ __forceinline__ void mma_stage(const __nv_bfloat16* slot, int wm, int wn, int lane,
-                                          Acc& acc) {
-  using F = Fast<__nv_bfloat16>;
-  const __nv_bfloat16* ws = slot + F::X_ELEMS;
-  const int r16 = lane % 16, c8 = 8 * (lane / 16);
+// bf16: acc += the stage's 64 rows of this warpgroup x the stage's w, both
+// from shared memory, four k16 steps.
+__device__ __forceinline__ void consume_stage(const uint8_t* stage, int wg, float (&acc)[32]) {
+  using R = Ring<__nv_bfloat16>;
+  const uint32_t xs = sm90::smem_u32(stage) + wg * 64 * 128;
+  const uint32_t ws = sm90::smem_u32(stage + R::X_BYTES);
 #pragma unroll
-  for (int kk = 0; kk < F::BK; kk += 16) {
-    uint32_t a[2][4], b[2][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-      av1::ldmatrix_x4(a[mi], av1::smem_addr(slot + (wm * 32 + mi * 16 + r16) * F::XP + kk + c8));
-#pragma unroll
-    for (int nj = 0; nj < 2; ++nj)
-      av1::ldmatrix_x4_trans(
-          b[nj], av1::smem_addr(ws + (kk + r16) * F::WP + wn * 32 + nj * 16 + c8));
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-        av1::mma_bf16(acc.sum[mi][ni], a[mi], b[ni / 2][2 * (ni % 2)],
-                      b[ni / 2][2 * (ni % 2) + 1]);
-  }
+  for (int kk = 0; kk < R::BK / 16; ++kk)
+    sm90::wgmma_m64n64k16_ss(acc, sm90::desc_sw128(xs + kk * 32, 16, 1024),
+                             sm90::desc_sw128(ws + kk * 2048, 8192, 1024), 1);
 }
 
-// The fp32 flavour: bf16 triples, split in registers.
-__device__ __forceinline__ void mma_stage(const float* slot, int wm, int wn, int lane,
-                                          Acc& acc) {
-  using F = Fast<float>;
-  const float* ws = slot + F::X_ELEMS;
-  const int g = lane / 4, t = lane % 4;
+// fp32: this warp's A fragments of a step (rows `row`, row + 8; two k16
+// steps), cut into three bf16 pieces. The x stage is 128 rows of 32 fp32
+// in the 128-byte swizzle.
+__device__ __forceinline__ void load_x_pieces(const uint8_t* xs, int row, int t,
+                                              uint32_t (&ah)[2][4], uint32_t (&am)[2][4],
+                                              uint32_t (&al)[2][4]) {
 #pragma unroll
-  for (int kk = 0; kk < F::BK; kk += 16) {
-    uint32_t ah[2][4], am[2][4], al[2][4];
+  for (int kk = 0; kk < 2; ++kk)
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {  // a0..a3: rows g, g+8; columns 2t, 2t+8
-        const float2 v = *reinterpret_cast<const float2*>(
-            slot + (wm * 32 + mi * 16 + g + 8 * (q % 2)) * F::XP + kk + 2 * t + 8 * (q / 2));
-        av1::split3_pack(v.x, v.y, ah[mi][q], am[mi][q], al[mi][q]);
-      }
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      uint32_t bh[2], bm[2], bl[2];
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {  // b0, b1: k 2t, 2t+8; column g
-        const float* p = ws + (kk + 2 * t + 8 * q) * F::WP + wn * 32 + ni * 8 + g;
-        av1::split3_pack(p[0], p[F::WP], bh[q], bm[q], bl[q]);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        float (&s)[4] = acc.small[mi][ni];
-        av1::mma_bf16(s, al[mi], bh[0], bh[1]);
-        av1::mma_bf16(s, ah[mi], bl[0], bl[1]);
-        av1::mma_bf16(s, am[mi], bm[0], bm[1]);
-        av1::mma_bf16(s, am[mi], bh[0], bh[1]);
-        av1::mma_bf16(s, ah[mi], bm[0], bm[1]);
-        float big[4] = {0.f, 0.f, 0.f, 0.f};
-        av1::mma_bf16(big, ah[mi], bh[0], bh[1]);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc.window[mi][ni][q] += big[q];
-      }
+    for (int q = 0; q < 4; ++q) {  // a0..a3: rows g, g+8; columns 2t, 2t+8
+      const int r = row + 8 * (q % 2), k = 16 * kk + 2 * t + 8 * (q / 2);
+      const float2 v = *reinterpret_cast<const float2*>(
+          xs + r * 128 + (((k / 4) ^ (r % 8)) * 16) + (k % 4) * 4);
+      av1::split3_pack(v.x, v.y, ah[kk][q], am[kk][q], al[kk][q]);
     }
-  }
+}
+
+// fp32: the w stage (32 k-rows of 64 fp32) as three bf16 pieces in the
+// MN-major 128-byte swizzle, 8 values a consumer thread.
+__device__ __forceinline__ void write_w_pieces(const uint8_t* ws, uint8_t* pieces) {
+  using R = Ring<float>;
+  const int k = threadIdx.x / 8, c = threadIdx.x % 8;
+  const float4 v0 = *reinterpret_cast<const float4*>(ws + k * 256 + c * 32);
+  const float4 v1 = *reinterpret_cast<const float4*>(ws + k * 256 + c * 32 + 16);
+  uint32_t h[4], m[4], l[4];
+  av1::split3_pack(v0.x, v0.y, h[0], m[0], l[0]);
+  av1::split3_pack(v0.z, v0.w, h[1], m[1], l[1]);
+  av1::split3_pack(v1.x, v1.y, h[2], m[2], l[2]);
+  av1::split3_pack(v1.z, v1.w, h[3], m[3], l[3]);
+  const int dst = k * 128 + ((c ^ (k % 8)) * 16);
+  *reinterpret_cast<uint4*>(pieces + dst) = make_uint4(h[0], h[1], h[2], h[3]);
+  *reinterpret_cast<uint4*>(pieces + R::PIECE_BYTES + dst) = make_uint4(m[0], m[1], m[2], m[3]);
+  *reinterpret_cast<uint4*>(pieces + 2 * R::PIECE_BYTES + dst) =
+      make_uint4(l[0], l[1], l[2], l[3]);
 }
 
 template <typename T, int ACT>
-__global__ void __launch_bounds__(THREADS)
-fused_dense_mma_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                       const float* __restrict__ b, T* __restrict__ out, int M, int K, int N) {
-  using F = Fast<T>;
-  extern __shared__ uint4 dense_smem[];
-  T* ring = reinterpret_cast<T*>(dense_smem);
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int wm = warp % WARPS_M, wn = warp / WARPS_M;
-  const int64_t m0 = int64_t(blockIdx.x) * MBM;
-  const int n0 = blockIdx.y * MBN;
-  const int steps = (K + F::BK - 1) / F::BK;
-  Acc acc = {};
+__global__ void __launch_bounds__(WG_THREADS, 1)
+fused_dense_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
+                         const __grid_constant__ CUtensorMap w_map,
+                         const float* __restrict__ b, T* __restrict__ out, int M, int K, int N) {
+  using R = Ring<T>;
+  extern __shared__ uint8_t dense_smem_raw[];
+  uint8_t* ring = align_1024(dense_smem_raw);
+  uint8_t* pieces = ring + STAGES * R::STAGE_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(pieces + R::PIECES_BYTES);
+  uint64_t* empty = full + STAGES;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int m0 = blockIdx.x * MBM, n0 = blockIdx.y * MBN;
+  const int steps = (K + R::BK - 1) / R::BK;
 
-  for (int s = 0; s < F::STAGES - 1; ++s) {
-    if (s < steps) load_stage(ring + s * F::STAGE_ELEMS, x, w, m0, n0, s * F::BK, M, K, N);
-    av1::cp_async_commit();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], CONSUMERS / 32);
+    }
+    sm90::fence_barrier_init();
   }
-#pragma unroll 1
-  for (int kt = 0; kt < steps; ++kt) {
-    av1::cp_async_wait<F::STAGES - 2>();  // panel kt has landed
-    __syncthreads();                      // ... for every thread; panel kt-1 is consumed
-    const int next = kt + F::STAGES - 1;
-    if (next < steps)
-      load_stage(ring + (next % F::STAGES) * F::STAGE_ELEMS, x, w, m0, n0, next * F::BK, M, K,
-                 N);
-    av1::cp_async_commit();
-    mma_stage(ring + (kt % F::STAGES) * F::STAGE_ELEMS, wm, wn, lane, acc);
-    if (sizeof(T) == 4 && kt % FOLD == FOLD - 1) {
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        (&acc.sum[0][0][0])[i] += (&acc.window[0][0][0])[i];
-        (&acc.window[0][0][0])[i] = 0.f;
+  __syncthreads();
+
+  if (warp == CONSUMERS / 32) {  // the producer: one lane keeps the ring full
+    if (lane == 0) {
+      sm90::tma_prefetch_map(&x_map);
+      sm90::tma_prefetch_map(&w_map);
+      for (int kt = 0; kt < steps; ++kt) {
+        const int s = kt % STAGES;
+        if (kt >= STAGES) sm90::mbar_wait(&empty[s], (kt / STAGES - 1) & 1);
+        uint8_t* stage = ring + s * R::STAGE_BYTES;
+        sm90::mbar_expect_tx(&full[s], R::STAGE_BYTES);
+        sm90::tma_load_2d(stage, &x_map, &full[s], kt * R::BK, m0);
+        sm90::tma_load_2d(stage + R::X_BYTES, &w_map, &full[s], n0, kt * R::BK);
       }
     }
+    return;
   }
-  av1::cp_async_wait<0>();
-  __syncthreads();  // the ring is free: it becomes the output tile
 
-  const int g = lane / 4, t = lane % 4;
+  // the consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of the tile
+  const int wg = warp / 4, g = lane / 4, t = lane % 4;
+  const int row = wg * 64 + (warp % 4) * 16 + g;  // this thread's rows: row, row + 8
+  float acc[32], window[32], small[32];
 #pragma unroll
-  for (int ni = 0; ni < 4; ++ni) {
-    const int col = wn * 32 + ni * 8 + 2 * t;
+  for (int i = 0; i < 32; ++i) acc[i] = window[i] = small[i] = 0.f;
+  if constexpr (sizeof(T) == 2) {
+#pragma unroll 1
+    for (int kt = 0; kt < steps; ++kt) {
+      const int s = kt % STAGES;
+      sm90::mbar_wait(&full[s], (kt / STAGES) & 1);
+      sm90::wgmma_fence();
+      consume_stage(ring + s * R::STAGE_BYTES, wg, acc);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();  // step kt - 1 is done with its stage
+      if (kt > 0 && lane == 0) sm90::mbar_arrive(&empty[(kt - 1) % STAGES]);
+    }
+    sm90::wgmma_wait<0>();
+    sm90::reg_fence(acc);
+  } else {
+    // fp32: `acc` sums the large term hh, `window` takes it step by step
+    // with rounded fp32 adds and is folded into `acc` every FOLD steps;
+    // the five small terms chain inside the tensor core in `small`.
+    float big[2][32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) big[0][i] = big[1][i] = 0.f;
+#pragma unroll 1
+    for (int kt = 0; kt < steps; ++kt) {
+      const int s = kt % STAGES;
+      const uint8_t* stage = ring + s * R::STAGE_BYTES;
+      uint8_t* piece = pieces + (kt % 2) * 3 * R::PIECE_BYTES;
+      sm90::mbar_wait(&full[s], (kt / STAGES) & 1);
+      uint32_t ah[2][4], am[2][4], al[2][4];
+      load_x_pieces(stage, row, t, ah, am, al);
+      write_w_pieces(stage + R::X_BYTES, piece);
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(&empty[s]);  // the fp32 stage is read
+      sm90::fence_proxy_async();
+      sm90::named_barrier(CONSUMER_BARRIER, CONSUMERS);  // every piece is written
+      const uint32_t pb = sm90::smem_u32(piece);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const uint64_t bh = sm90::desc_sw128(pb + kk * 2048, 8192, 1024);
+        const uint64_t bm = sm90::desc_sw128(pb + R::PIECE_BYTES + kk * 2048, 8192, 1024);
+        const uint64_t bl = sm90::desc_sw128(pb + 2 * R::PIECE_BYTES + kk * 2048, 8192, 1024);
+        sm90::wgmma_m64n64k16_rs(small, al[kk], bh, 1);
+        sm90::wgmma_m64n64k16_rs(small, ah[kk], bl, 1);
+        sm90::wgmma_m64n64k16_rs(small, am[kk], bm, 1);
+        sm90::wgmma_m64n64k16_rs(small, am[kk], bh, 1);
+        sm90::wgmma_m64n64k16_rs(small, ah[kk], bm, 1);
+        sm90::wgmma_m64n64k16_rs(big[kk], ah[kk], bh, 0);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::reg_fence(big[0]);
+      sm90::reg_fence(big[1]);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) window[i] = (window[i] + big[0][i]) + big[1][i];
+      if (kt % FOLD == FOLD - 1) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          acc[i] += window[i];
+          window[i] = 0.f;
+        }
+      }
+    }
+    sm90::reg_fence(small);
+  }
+
+  // epilogue: bias and activation in fp32, the tile through shared memory
+  sm90::named_barrier(CONSUMER_BARRIER, CONSUMERS);  // no warpgroup reads the ring now
+  T* tile = reinterpret_cast<T*>(ring);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = 8 * j + 2 * t;
     const float b0 = n0 + col < N ? b[n0 + col] : 0.f;
     const float b1 = n0 + col + 1 < N ? b[n0 + col + 1] : 0.f;
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = wm * 32 + mi * 16 + g + 8 * h, q = 2 * h;
-        const float z0 = acc.sum[mi][ni][q] + acc.window[mi][ni][q] + acc.small[mi][ni][q];
-        const float z1 =
-            acc.sum[mi][ni][q + 1] + acc.window[mi][ni][q + 1] + acc.small[mi][ni][q + 1];
-        T* o = ring + row * F::OP + col;
-        o[0] = from_f<T>(activate<ACT>(z0 + b0));
-        o[1] = from_f<T>(activate<ACT>(z1 + b1));
-      }
+    for (int h = 0; h < 2; ++h) {
+      const int q = 4 * j + 2 * h;
+      T* o = tile + (row + 8 * h) * R::OP + col;
+      o[0] = from_f<T>(activate<ACT>(acc[q] + window[q] + small[q] + b0));
+      o[1] = from_f<T>(activate<ACT>(acc[q + 1] + window[q + 1] + small[q + 1] + b1));
+    }
   }
-  __syncthreads();
-  constexpr int OC = MBN / F::EPC;
-  for (int c = threadIdx.x; c < MBM * OC; c += THREADS) {
-    const int row = c / OC, nc = (c % OC) * F::EPC;
-    if (m0 + row < M && n0 + nc < N)
-      *reinterpret_cast<uint4*>(out + (m0 + row) * N + n0 + nc) =
-          *reinterpret_cast<const uint4*>(ring + row * F::OP + nc);
+  sm90::named_barrier(CONSUMER_BARRIER, CONSUMERS);
+  constexpr int OC = MBN / R::EPC;
+  for (int c = threadIdx.x; c < MBM * OC; c += CONSUMERS) {
+    const int r = c / OC, nc = (c % OC) * R::EPC;
+    if (m0 + r < M && n0 + nc < N)
+      *reinterpret_cast<uint4*>(out + int64_t(m0 + r) * N + n0 + nc) =
+          *reinterpret_cast<const uint4*>(tile + r * R::OP + nc);
   }
 }
 
 template <typename T, int ACT>
-int launch_mma(const T* x, const T* w, const float* b, T* out, int m, int k, int n,
-               cudaStream_t st) {
+int launch_wgmma(const T* x, const T* w, const float* b, T* out, int m, int k, int n,
+                 cudaStream_t st) {
+  using R = Ring<T>;
   static const cudaError_t attr =  // once per kernel, not per launch
-      cudaFuncSetAttribute(fused_dense_mma_kernel<T, ACT>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, int(Fast<T>::SMEM));
+      cudaFuncSetAttribute(fused_dense_wgmma_kernel<T, ACT>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, int(R::SMEM));
   if (attr != cudaSuccess) return int(attr);
+  constexpr CUtensorMapDataType dtype =
+      sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  CUtensorMap x_map, w_map;  // encoded on the host per call: x and w move between calls
+  int err = sm90::encode_map_2d(&x_map, dtype, x, m, k, uint64_t(k) * sizeof(T), MBM, R::BK,
+                                CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == 0)
+    err = sm90::encode_map_2d(
+        &w_map, dtype, w, k, n, uint64_t(n) * sizeof(T), R::BK, MBN,
+        sizeof(T) == 2 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != 0) return err;
   const dim3 grid((m + MBM - 1) / MBM, (n + MBN - 1) / MBN);
-  fused_dense_mma_kernel<T, ACT><<<grid, THREADS, Fast<T>::SMEM, st>>>(x, w, b, out, m, k, n);
+  fused_dense_wgmma_kernel<T, ACT><<<grid, WG_THREADS, R::SMEM, st>>>(x_map, w_map, b, out, m,
+                                                                      k, n);
   return int(cudaGetLastError());
 }
 
 template <typename T, int ACT>
 int launch_act(bool fast, const T* x, const T* w, const float* b, T* out, int m, int k, int n,
                cudaStream_t st) {
-  if (fast) return launch_mma<T, ACT>(x, w, b, out, m, k, n, st);
+  if (fast) return launch_wgmma<T, ACT>(x, w, b, out, m, k, n, st);
   const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN);
   fused_dense_simt_kernel<T, ACT><<<grid, THREADS, 0, st>>>(x, w, b, out, m, k, n);
   return int(cudaGetLastError());

@@ -53,9 +53,9 @@
 //     the rows of K5's layer 1. The pooled fp32 value is the first residual,
 //     in a 256 x 64 fp32 plane; its bf16 rounding is the first conv input, in a
 //     bf16 plane at a pitch of 72 beside a second plane for the mid activation.
-//     The four convs run through the routine K5 uses (conv_mma.cuh) with one
-//     plane: K2's conv inputs are bf16 values, so one MMA pass is exact where
-//     K5 needs two. conv_w (4, 9, 64, 64) is k-major as it stands, 36 chunks of
+//     The four convs run through conv_mma.cuh's routine with one plane: K2's
+//     conv inputs are bf16 values, so one MMA pass is exact where K5 (hi/lo
+//     planes) needs two. conv_w (4, 9, 64, 64) is k-major as it stands, 36 chunks of
 //     64 k-rows through a four-slot cp.async ring; a block reads the 288 KB
 //     once for its 256 rows. The stem's conv scratch aliases the mid plane and
 //     the ring, which are free until the first conv. SE1 runs from shared
@@ -583,7 +583,7 @@ fused_front_g1_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ s
   // the ring. No cp.async group is pending here, in any thread.
   for (int c = 0; c < G1Stream::STAGES - 1; ++c) fetch_chunk<G1Stream>(conv_w, ring, c);
   const uint32_t zero = av1::smem_addr(zero_row);
-  const uint32_t in_z[1] = {av1::smem_addr(zin)}, in_h[1] = {av1::smem_addr(h)};
+  const uint32_t in_z = av1::smem_addr(zin), in_h = av1::smem_addr(h);
   const int row0 = warp * 32;
   float acc[2][8][4];
 #pragma unroll 1
@@ -591,15 +591,15 @@ fused_front_g1_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ s
     const float* b1 = conv_b + 2 * blk * C;
     const float* b2 = b1 + C;
     zero_acc(acc);
-    conv_mma<G1Stream, E, E, 1, C, PITCH, 9, 2, 1>(acc, in_z, zero, row0, 0, conv_w, ring,
-                                                   18 * blk, lane);
+    conv_mma<G1Stream, E, E, 1, C, PITCH, 9, 2>(acc, in_z, zero, row0, 0, conv_w, ring,
+                                                18 * blk, lane);
     for_each_pair(acc, row0, 0, lane, [&](int row, int col, float v0, float v1) {
       *reinterpret_cast<uint32_t*>(h + row * PITCH + col) = av1::pack_bf16(
           fmaxf(v0 + __ldg(b1 + col), 0.f), fmaxf(v1 + __ldg(b1 + col + 1), 0.f));
     });
     zero_acc(acc);
-    conv_mma<G1Stream, E, E, 1, C, PITCH, 9, 2, 1>(acc, in_h, zero, row0, 0, conv_w, ring,
-                                                   18 * blk + 9, lane);
+    conv_mma<G1Stream, E, E, 1, C, PITCH, 9, 2>(acc, in_h, zero, row0, 0, conv_w, ring,
+                                                18 * blk + 9, lane);
     for_each_pair(acc, row0, 0, lane, [&](int row, int col, float v0, float v1) {
       float2* r = reinterpret_cast<float2*>(res + row * FPITCH + col);
       const float2 z = *r;

@@ -1,7 +1,8 @@
-// Tensor-core building blocks shared by K1 and K2 (fused_front.cu), K4
-// (fused_dense.cu) and K5 (resnet_group.cu): cp.async 16-byte copies with commit/wait groups,
-// ldmatrix fragment loads, the bf16 mma.sync.m16n8k16 with fp32 accumulators,
-// and the split of an fp32 value into bf16 pieces.
+// Tensor-core building blocks of K1 and K2 (fused_front.cu, on mma.sync), and
+// the parts K4 (fused_dense.cu) and K5 (resnet_group.cu) take beside
+// hopper.cuh's wgmma: cp.async 16-byte copies with commit/wait groups,
+// ldmatrix fragment loads (K5's A operand), the bf16 mma.sync.m16n8k16 with
+// fp32 accumulators, and the splits of an fp32 value into bf16 pieces.
 //
 // Fragment layout of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major)  a0: (g, 2t..2t+1)   a1: (g+8, 2t..2t+1)

@@ -13,49 +13,73 @@
 // weight dtype; K5 does not.)
 //
 // What bounds it on an H100. The eight 3x3 convs and the downsample are
-// ~278 k x E^2 MACs per sample: 4.45 M at E = 4 (16 px blocks) for 2 KB of
-// input and 1 KB of output in bf16, ~3000 FLOP per byte of device memory. So
-// it is bound by operations: 36.5 GFLOP at batch 4096, 0.037 ms of bf16
-// tensor-core time, 0.074 ms with the two passes described below. The
-// traffic that matters is the weights: 0.675 M values (1.35 MB in bf16) do
-// not fit in shared memory and every block streams them from L2.
+// ~278 k x E^2 MACs per sample with every tap counted, fewer with the taps
+// that fall outside the image left out (the bound counts valid taps only,
+// examples/_bench.py backbone_flops: 21.8 GFLOP at 4096 x extent 4, 0.022 ms
+// of bf16 tensor-core time). For 2 KB of input and 1 KB of output a sample it
+// is bound by operations. The two passes below (hi and lo) cap the kernel at
+// half that bound. The traffic that matters is the weights: 0.675 M values
+// (1.35 MB in bf16) do not fit in shared memory and every block streams them
+// from L2.
 //
-// bf16 (the serving dtype): fused_group12_mma_kernel, tensor cores.
-//   * Every conv is an implicit GEMM on mma.sync.m16n8k16 (conv_mma.cuh, the
-//     routine K2 shares, over mma.cuh; picked
-//     over wgmma because its A operand comes from ldmatrix with one address
-//     per row, which is what the shifted windows need, and because layer 2
-//     has only 64 rows a block, one wgmma tile). Rows are (sample, output
-//     position), K is tap x ci, N is 64 or 128. A block of 256 threads holds
-//     256 / E^2 samples (64, 16, 4, 1), so layer 1 is always 256 rows (each
-//     warp 2 m-tiles x 64 columns) and layer 2 always 64 rows (each warp one
-//     m-tile x 64 of the 128 columns), whatever the extent.
+// bf16 (the serving dtype): fused_group12_wgmma_kernel, tensor cores.
+//   * Every conv is an implicit GEMM on wgmma.m64n64k16 (hopper.cuh). Rows
+//     are (sample, output position), K is tap x ci, N is 64 or 128. A block
+//     holds SPB = ROWS1 / E^2 samples: ROWS1 = 256 rows in layer 1 (128 at
+//     E = 2, so that 4,096 samples make 128 blocks), a quarter of that in
+//     layer 2 (one 64-row tile, half of it padding at E = 2). Two consumer
+//     warpgroups: in layer 1 each owns ROWS1 / 2 rows (tiles of 64) x 64
+//     columns, in layer 2 the one tile x 64 of the 128 columns.
+//   * A from registers, B from shared memory. Each lane computes the address
+//     of its row's input row for each tap (the window shift, the stride-2
+//     start 2*o, the sample), ldmatrix builds the A fragments (the register
+//     layout of wgmma's A is mma.sync's, a warp 16 rows), and a tap outside
+//     the image (SAME's border, XLA's pad (0, 1)) points at one shared row of
+//     zeros. No border is stored; a row is 64 (128) channels at a pitch of
+//     144 (272) bytes, odd multiples of 16, so ldmatrix is conflict-free.
+//   * Rows are position-major inside the block (row p * SPB + s), so a tile
+//     holds whole positions and the taps outside the image are the same for
+//     all its rows: the host's table (kernels/resnet_group.py
+//     group12_tile_taps) gives each tile the taps it computes, and a tap no
+//     tile of the block computes is not fetched. At E = 2 that skips 5 of
+//     layer2_0.conv1's 9 chunks and 16 of 18 of each 128-wide stride-1 conv;
+//     in layer 1 a tile of the image's top or bottom row skips 3 of 9 taps.
+//     The output is written back in sample order.
 //   * fp32 inside, to 16 bits. An activation v lives in shared memory as two
-//     bf16 planes, hi = bf16(v) and lo = bf16(v - hi), so ldmatrix reads the
-//     MMA's A fragments directly and each weight fragment feeds two MMAs
-//     (hi and lo). Products carry 16 bits of the activation (2^-17 relative),
-//     sums are fp32, and the residual and the SE mean read hi + lo.
-//   * No border is stored. A row is 64 (128) channels at a pitch of 144 (272)
-//     bytes, odd multiples of 16, so the eight rows of an ldmatrix tile hit
-//     eight bank groups. The lane that owns tile row r computes the address
-//     of its input row for each tap: the window shift, the row wrap, the
-//     stride-2 start 2*o and the sample boundary are address arithmetic, and
-//     a tap outside the image (SAME's border, XLA's pad (0, 1)) points at one
-//     shared row of zeros.
+//     bf16 planes, hi = bf16(v) and lo = bf16(v - hi); each B chunk feeds two
+//     wgmmas (lo, then hi) into fp32 accumulators. Products carry 16 bits of
+//     the activation (2^-17 relative); the residual and the SE mean read hi +
+//     lo.
+//   * A chunk's wgmmas alternate between two accumulators (a warpgroup's two
+//     tiles, or a lone tile's two planes), so that none waits on the sum of
+//     the one before. Which of its tiles compute a chunk is one of three
+//     patterns, each compiled on its own: ptxas serialises wgmmas that sit
+//     behind a condition it cannot see through. One producer warp runs the
+//     ring; 288 threads leave ptxas 168 registers a thread (three warps share
+//     a sub-partition), enough for two tiles' accumulators and A fragments.
 //   * Weights: the nine conv kernels are concatenated once, when the pipeline
-//     is built, into one stream in the order of use ([tap][ci][co] is already
-//     k-major, so the stream is 100 chunks of 64 k-rows x 64 or 128 columns).
-//     A three-slot cp.async ring runs two chunks ahead of the math, straight
-//     through the boundaries between convs, with one __syncthreads per chunk.
-//     A block reads the 1.35 MB once for its 256 rows (16 samples at E = 4,
-//     where the first version read them once for 4).
+//     is built, into one stream in the order of use ([tap][ci][co] is
+//     k-major, so the stream is 36 chunks of 64 k-rows x 64 columns, then 64
+//     of 64 x 128). Two TMA maps, encoded once per stream by the host, view
+//     it as a 2,304 x 64 and a 4,096 x 128 array in 64-column boxes (the
+//     128-byte swizzle, which wgmma reads as an MN-major B). Blocks run in
+//     clusters of two: each block's producer warp fetches half of every
+//     chunk's rows and multicasts it to both, so one L2 read serves two
+//     blocks. A ring of 4 slots with full and empty mbarriers (the empty one
+//     counts both blocks' consumer warpgroups, one arrival each once its
+//     wgmmas are done) runs ahead of the math straight through the
+//     boundaries between convs; block-wide barriers (of the consumers) remain
+//     only where a conv's output must be complete before the next conv reads
+//     shifted rows.
 //   * layer2_0: the 1x1/2 downsample is one more chunk summed into the second
 //     conv's accumulators; the sum replaces group 1's output only after a
 //     barrier, when no warp reads that output any more.
 //   * SE1 and SE2 run from shared memory; their scratch lies in the mid
-//     buffer, which is free then. SE2's scale is applied as the output is
-//     written, 16 bytes a store. A short last block computes on zero samples
-//     and stores only those inside the batch.
+//     planes, which are free then; the mean sums positions in a fixed order
+//     (no atomics). SE2's scale is applied as the output is written, 16
+//     bytes a store. A short last block, and a block that only pads the grid
+//     to whole clusters, computes on zero samples and stores only those
+//     inside the batch.
 //
 // fp32 (the parity mode): fused_group12_kernel, the first version, on CUDA
 // cores, unchanged:
@@ -74,21 +98,21 @@
 //     downsample is the 1x1 tap at the window's start, summed into the same
 //     registers as layer2_0's second conv.
 
+#include <string.h>
+
 #include "common.cuh"
-#include "conv_mma.cuh"
+#include "hopper.cuh"
+#include "mma.cuh"
 
 namespace {
 
 using av1::from_f;
 using av1::ldg_f;
 using av1::to_f;
-using av1::conv::bf16;
-using av1::conv::conv_mma;
-using av1::conv::fetch_chunk;
-using av1::conv::for_each_pair;
-using av1::conv::KC;
-using av1::conv::THREADS;
-using av1::conv::zero_acc;
+using bf16 = __nv_bfloat16;
+
+constexpr int THREADS = 256;  // the fp32 kernel's block
+constexpr int KC = 64;        // k-rows of a weight chunk (bf16 kernel)
 
 constexpr int C1 = 64, C2 = 128;  // layer-1 and layer-2 widths
 constexpr int SE1_H = C1 / 16, SE2_H = C2 / 16;
@@ -382,38 +406,263 @@ int launch_group12(const void* x, const Weights& w, void* out, int batch,
 // bf16: the tensor-core kernel
 // ---------------------------------------------------------------------------
 
-constexpr int ROWS1 = 256, ROWS2 = 64;  // output rows of a block in layers 1 and 2
-constexpr int PITCH1 = C1 + 8;          // plane row pitch in layer 1 (elements)
-constexpr int PITCH2 = C2 + 8;          // ... in layer 2
-constexpr int PLANE = ROWS1 * PITCH1;   // elements of one plane
-constexpr int CHUNKS1 = 4 * 9;          // layer 1: four 576 x 64 convs
+namespace sm90 = av1::sm90;
 
-// The conv stream (kernels/resnet_group.py group12_conv_stream) as the conv
-// routine's schedule: 36 chunks of 64 columns, then layer 2's 64 of 128.
-struct Stream12 {
-  static constexpr int STAGES = 3;
-  static constexpr int CHUNKS = CHUNKS1 + 9 + 19 + 36;  // 100 in all
-  static constexpr int WPITCH = C2 + 8;                 // ring row pitch
-  static constexpr int SLOT = KC * WPITCH;              // elements of a ring slot
-  __device__ static constexpr int cols(int c) { return c < CHUNKS1 ? C1 : C2; }
-  __device__ static constexpr int offset(int c) {
-    return c < CHUNKS1 ? c * KC * C1 : CHUNKS1 * KC * C1 + (c - CHUNKS1) * KC * C2;
-  }
+constexpr int CONSUMERS = 256;              // two warpgroups
+constexpr int G_THREADS = CONSUMERS + 32;   // and one producer warp
+constexpr int CONSUMER_BARRIER = 1;         // named barrier of the two warpgroups
+constexpr int WARPGROUP_BARRIER = 2;        // ... and 3: each warpgroup's own
+constexpr int CLUSTER = 2;                  // blocks that share each weight chunk
+constexpr int STAGES = 4;                   // weight ring depth
+constexpr int SLOT_BYTES = KC * C2 * 2;     // a chunk of 64 k-rows x 128 columns
+constexpr int BOX_ROWS = KC / CLUSTER;      // k-rows of a chunk that each block fetches
+constexpr int BOX_BYTES = BOX_ROWS * 128;   // ... of one 64-column box
+constexpr int PITCH1 = C1 + 8;              // plane row pitch in layer 1 (elements)
+constexpr int PITCH2 = C2 + 8;              // ... in layer 2
+constexpr int ZERO_ROW = PITCH2;            // elements of the shared zero row
+constexpr int N_CONVS = 9, MAX_TILES = 4;
+
+// The convs in the order of the stream: the first chunk of each, and which
+// taps each 64-row tile computes (bit tap; built by the host,
+// kernels/resnet_group.py group12_tile_taps). Layer 1 has ROWS1 / 64 tiles,
+// layer 2 one; a tap no tile of the block computes is not fetched either.
+struct TileTaps {
+  uint16_t taps[N_CONVS][MAX_TILES];
 };
-constexpr int ZERO_ROW = PITCH2;  // elements of the shared zero row
-constexpr size_t MMA_SMEM =
-    sizeof(bf16) * (4 * PLANE + Stream12::STAGES * Stream12::SLOT + ZERO_ROW);
-static_assert(ROWS2 * PITCH2 <= PLANE, "layer 2 reuses layer 1's planes");
+enum { L10_C1, L10_C2, L11_C1, L11_C2, L20_C1, L20_C2, L20_DS, L21_C1, L21_C2 };
+// the first chunk of conv j in the stream; its taps and chunks a tap
+__device__ __forceinline__ int first_chunk(int j) {
+  return j < L20_C1 ? 9 * j : j == L20_C1 ? 36 : j == L20_C2 ? 45 : j == L20_DS ? 63
+         : j == L21_C1 ? 64 : 82;
+}
+__device__ __forceinline__ int conv_taps(int j) { return j == L20_DS ? 1 : 9; }
+__device__ __forceinline__ int chunks_a_tap(int j) {
+  return j == L20_C2 || j == L21_C1 || j == L21_C2 ? 2 : 1;
+}
+constexpr int CHUNKS1 = 36;  // layer 1's chunks: 64 columns; the rest 128
 
-// A conv on the two planes (hi, lo) of an activation, weights from Stream12.
-template <int IE, int OE, int S, int CI, int IP, int TAPS, int MT>
-__device__ __forceinline__ void conv12(float (&acc)[MT][8][4], const bf16* in_hi,
-                                       const bf16* in_lo, uint32_t zero, int row0, int n0,
-                                       const bf16* __restrict__ stream, bf16* ring, int c0,
-                                       int lane) {
-  const uint32_t in[2] = {av1::smem_addr(in_hi), av1::smem_addr(in_lo)};
-  conv_mma<Stream12, IE, OE, S, CI, IP, TAPS, MT, 2>(acc, in, zero, row0, n0, stream, ring, c0,
-                                                     lane);
+// Rows of a block: ROWS1 in layer 1 (256, or 128 at extent 2 so that 4,096
+// samples fill 128 blocks), ROWS1 / 4 in layer 2, position-major: row
+// p * SPB + s is sample s at position p, so a 64-row tile holds whole
+// positions and the taps outside the image are the same for all its rows.
+template <int E>
+struct Geo {
+  static constexpr int E2 = E / 2, PS1 = E * E, PS2 = E2 * E2;
+  static constexpr int ROWS1 = E == 2 ? 128 : 256;
+  static constexpr int SPB = ROWS1 / PS1;
+  static constexpr int ROWS2 = SPB * PS2;    // 64, or 32 at extent 2 (a half tile)
+  static constexpr int MT1 = ROWS1 / 128;    // layer-1 tiles of a warpgroup
+  static constexpr int PLANE = ROWS1 * PITCH1;
+  static constexpr size_t SMEM = 1024 + STAGES * SLOT_BYTES + sizeof(bf16) * (4 * PLANE + ZERO_ROW)
+                                 + 2 * STAGES * sizeof(uint64_t);
+  static_assert(64 * PITCH2 <= PLANE, "layer 2 reuses layer 1's planes");
+};
+
+// The weight ring: STAGES slots of one chunk, a full and an empty barrier
+// each. Every thread of a role counts the chunks it has passed in `q`.
+struct Ring {
+  uint8_t* slots;
+  uint64_t* full;
+  uint64_t* empty;
+  int q;
+  __device__ uint8_t* slot() const { return slots + (q % STAGES) * SLOT_BYTES; }
+  __device__ uint32_t parity() const { return (q / STAGES) & 1; }
+};
+
+__device__ __forceinline__ int chunk_cols(int c) { return c < CHUNKS1 ? C1 : C2; }
+
+// The producer (one lane): every chunk the block's convs fetch, in order; this
+// block's BOX_ROWS-row half of each 64-column box, multicast to the cluster.
+__device__ void produce(const CUtensorMap* map1, const CUtensorMap* map2, const TileTaps& tt,
+                        Ring ring) {
+  const uint32_t rank = sm90::cluster_rank();
+#pragma unroll 1
+  for (int j = 0; j < N_CONVS; ++j) {
+    const uint32_t fetch = tt.taps[j][0] | tt.taps[j][1] | tt.taps[j][2] | tt.taps[j][3];
+    const int first = first_chunk(j), per_tap = chunks_a_tap(j);
+#pragma unroll 1
+    for (int tap = 0; tap < conv_taps(j); ++tap) {
+      if (!(fetch >> tap & 1)) continue;
+#pragma unroll 1
+      for (int u = 0; u < per_tap; ++u, ++ring.q) {
+        const int c = first + tap * per_tap + u;
+        const int boxes = chunk_cols(c) / 64;
+        const int s = ring.q % STAGES;
+        if (ring.q >= STAGES) sm90::mbar_wait(&ring.empty[s], (ring.q / STAGES - 1) & 1);
+        sm90::mbar_expect_tx(&ring.full[s], boxes * KC * 128);
+        const CUtensorMap* map = c < CHUNKS1 ? map1 : map2;
+        const int row = (c < CHUNKS1 ? c : c - CHUNKS1) * KC + int(rank) * BOX_ROWS;
+        for (int bx = 0; bx < boxes; ++bx)
+          sm90::tma_load_2d_multicast(ring.slot() + bx * KC * 128 + rank * BOX_BYTES, map,
+                                      &ring.full[s], bx * 64, row, (1 << CLUSTER) - 1);
+      }
+    }
+  }
+}
+
+// The shared-memory address, in each plane, of the input row that tap
+// (dy, dx) of output row r reads: input extent IE at pitch IP, output extent
+// OE, stride S, SPB samples, rows position-major ("pm", where K2's tap_row in
+// conv_mma.cuh takes them sample-major). A tap outside the image, and a row
+// past the block's NROWS, reads the zero row.
+template <int IE, int OE, int S, int IP, int SPB, int NROWS>
+__device__ __forceinline__ void pm_tap_row(int r, int dy, int dx, const uint32_t (&in)[2],
+                                           uint32_t zero, uint32_t (&a)[2]) {
+  const int s = r % SPB, p = r / SPB;
+  const int iy = (p / OE) * S + dy, ix = (p % OE) * S + dx;
+  const bool inside =
+      r < NROWS && unsigned(iy) < unsigned(IE) && unsigned(ix) < unsigned(IE);
+  const uint32_t off = uint32_t(((iy * IE + ix) * SPB + s) * IP) * sizeof(bf16);
+  a[0] = inside ? in[0] + off : zero;
+  a[1] = inside ? in[1] + off : zero;
+}
+
+// The wgmmas of one chunk for the tiles in ACTIVE (bit i: tile i), their
+// A fragments f[tile][plane][k16 step] in registers, B at shared address b.
+// Two tiles keep one accumulator each and the instructions alternate between
+// the tiles; a tile alone keeps one a plane and they alternate between the
+// planes: consecutive wgmmas never wait on each other's sums.
+template <int MT, int ACTIVE>
+__device__ __forceinline__ void chunk_mma(float (&acc)[MT][3 - MT][32], uint32_t (&f)[MT][2][4][4],
+                                          uint32_t b) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)  // no register of the wgmmas moves past the fence
+#pragma unroll
+    for (int pl = 0; pl < 2; ++pl) {
+      if (pl < 3 - MT) sm90::reg_fence(acc[i][pl]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sm90::reg_fence(f[i][pl][kk][e]);
+    }
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t desc = sm90::desc_sw128(b + kk * 2048, 8192, 1024);
+#pragma unroll
+    for (int pl = 1; pl >= 0; --pl)  // lo, then hi
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+        if ((ACTIVE >> i & 1) != 0)  // constant once unrolled
+          sm90::wgmma_m64n64k16_rs(acc[i][MT == 1 ? pl : 0], f[i][pl][kk], desc, 1);
+  }
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int c = 0; c < 3 - MT; ++c) sm90::reg_fence(acc[i][c]);
+}
+
+// acc[i] += conv J on the two planes (hi, lo) `in` for tile i of this
+// warpgroup (rows row0 + 64 i ..), output columns n0 .. n0 + 63, MT tiles:
+// each chunk's A fragments by ldmatrix (a lane its row's address), then the
+// chunk's wgmmas (register A, B from the ring) for the tiles that compute
+// its tap: a tile none of whose rows reads inside the image at a tap skips
+// it. Every consumer thread walks every chunk the block fetches.
+template <int J, int IE, int OE, int S, int CI, int IP, int SPB, int NROWS, int MT>
+__device__ __forceinline__ void conv_wg(float (&acc)[MT][3 - MT][32], const bf16* in_hi,
+                                        const bf16* in_lo, uint32_t zero, int row0, int n0,
+                                        const TileTaps& tt, int tile0, Ring& ring, int lane) {
+  constexpr int TAPS = (J == L20_DS) ? 1 : 9, PER_TAP = CI / KC;
+  const uint32_t in[2] = {sm90::smem_u32(in_hi), sm90::smem_u32(in_lo)};
+  const int warp_row = (threadIdx.x / 32 % 4) * 16 + lane % 16;
+  const uint32_t kb = 16 * (lane / 16);  // bytes: 8 elements along k
+  const uint32_t fetch = tt.taps[J][0] | tt.taps[J][1] | tt.taps[J][2] | tt.taps[J][3];
+  uint32_t mine[MT];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) mine[i] = tt.taps[J][tile0 + i];
+#pragma unroll 1
+  for (int tap = 0; tap < TAPS; ++tap) {
+    if (!(fetch >> tap & 1)) continue;
+    const int dy = TAPS == 1 ? 0 : tap / 3 - (S == 1 ? 1 : 0);
+    const int dx = TAPS == 1 ? 0 : tap % 3 - (S == 1 ? 1 : 0);
+    uint32_t rows[MT][2];
+    int active = 0;
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      pm_tap_row<IE, OE, S, IP, SPB, NROWS>(row0 + i * 64 + warp_row, dy, dx, in, zero, rows[i]);
+      active |= int(mine[i] >> tap & 1) << i;
+    }
+#pragma unroll 1
+    for (int u = 0; u < PER_TAP; ++u, ++ring.q) {
+      uint32_t f[MT][2][4][4];  // tile, plane, k16 step
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int pl = 0; pl < 2; ++pl)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            av1::ldmatrix_x4(f[i][pl][kk], rows[i][pl] + u * KC * 2 + kb + kk * 32);
+      sm90::mbar_wait(&ring.full[ring.q % STAGES], ring.parity());
+      const uint32_t b = sm90::smem_u32(ring.slot()) + (n0 / 64) * KC * 128;
+      if (active == (1 << MT) - 1) {
+        chunk_mma<MT, (1 << MT) - 1>(acc, f, b);
+      } else if (MT == 2 && active == 1) {
+        chunk_mma<MT, 1>(acc, f, b);
+      } else if (MT == 2 && active == 2) {
+        chunk_mma<MT, 2>(acc, f, b);
+      }
+      // the warpgroup is done with the slot
+      sm90::named_barrier(WARPGROUP_BARRIER + threadIdx.x / 128, 128);
+      if (threadIdx.x % 128 == 0)
+        for (int r = 0; r < CLUSTER; ++r)
+          sm90::mbar_arrive_cluster(&ring.empty[ring.q % STAGES], r);
+    }
+  }
+}
+
+// This thread's bias pairs (columns n0 + 8j + 2t, + 1) of `b`, plus those of
+// `more` where given, loaded together before an epilogue.
+__device__ __forceinline__ void load_bias(float (&bias)[8][2], const bf16* b, int n0, int lane,
+                                          const bf16* more = nullptr) {
+  const int t = lane % 4;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int col = n0 + 8 * j + 2 * t + q;
+      bias[j][q] = more == nullptr ? ldg_f(b + col) : ldg_f(b + col) + ldg_f(more + col);
+    }
+}
+
+// f(row, col, v0, v1) for every pair of neighbouring columns this thread
+// holds of its warpgroup's MT tiles (rows row0 + 64 i ..., columns n0 ..),
+// each value the sum of its accumulators plus its bias.
+template <int MT, class F>
+__device__ __forceinline__ void for_each_pair(const float (&acc)[MT][3 - MT][32],
+                                              const float (&bias)[8][2], int row0, int n0,
+                                              int lane, F f) {
+  const int g = lane / 4, t = lane % 4, w = threadIdx.x / 32 % 4;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = 4 * j + 2 * h;
+        float v0 = acc[i][0][q], v1 = acc[i][0][q + 1];
+        if (MT == 1) {  // a tile alone sums its planes in two accumulators
+          v0 += acc[i][MT == 1 ? 1 : 0][q];
+          v1 += acc[i][MT == 1 ? 1 : 0][q + 1];
+        }
+        f(row0 + i * 64 + w * 16 + g + 8 * h, n0 + 8 * j + 2 * t, v0 + bias[j][0],
+          v1 + bias[j][1]);
+      }
+}
+
+template <int MT>
+__device__ __forceinline__ void zero_acc(float (&acc)[MT][3 - MT][32]) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int c = 0; c < 3 - MT; ++c)
+#pragma unroll
+      for (int q = 0; q < 32; ++q) acc[i][c][q] = 0.f;
+}
+
+__device__ __forceinline__ void consumer_sync() {
+  sm90::named_barrier(CONSUMER_BARRIER, CONSUMERS);
 }
 
 // the pair at element `idx` of an activation: hi + lo
@@ -430,174 +679,219 @@ __device__ __forceinline__ void store_pair(bf16* hi, bf16* lo, int idx, float v0
 }
 
 // A stride-1 basic block on `a` (input, residual, output) with `h` for the mid
-// activation: a = relu(conv2(relu(conv1(a) + b1)) + b2 + a). EXT is the
-// extent, CH the width, IP the pitch; weights from chunk c0.
-template <int EXT, int CH, int IP, int MT>
-__device__ __forceinline__ void block_s1_mma(bf16* a_hi, bf16* a_lo, bf16* h_hi, bf16* h_lo,
-                                             uint32_t zero, const bf16* b1, const bf16* b2,
-                                             int row0, int n0, const bf16* stream, bf16* ring,
-                                             int c0, int lane) {
-  constexpr int PER_CONV = 9 * CH / KC;
-  float acc[MT][8][4];
+// activation: a = relu(conv2(relu(conv1(a) + b1)) + b2 + a); convs J, J + 1.
+template <int J, int EXT, int CH, int IP, int SPB, int NROWS, int MT>
+__device__ __forceinline__ void block_s1(bf16* a_hi, bf16* a_lo, bf16* h_hi, bf16* h_lo,
+                                         uint32_t zero, const bf16* b1, const bf16* b2,
+                                         int row0, int n0, const TileTaps& tt, int tile0,
+                                         Ring& ring, int lane) {
+  float acc[MT][3 - MT][32], bias[8][2];
   zero_acc(acc);
-  conv12<EXT, EXT, 1, CH, IP, 9, MT>(acc, a_hi, a_lo, zero, row0, n0, stream, ring, c0, lane);
-  for_each_pair(acc, row0, n0, lane, [&](int row, int col, float v0, float v1) {
-    store_pair(h_hi, h_lo, row * IP + col, fmaxf(v0 + ldg_f(b1 + col), 0.f),
-               fmaxf(v1 + ldg_f(b1 + col + 1), 0.f));
+  conv_wg<J, EXT, EXT, 1, CH, IP, SPB, NROWS, MT>(acc, a_hi, a_lo, zero, row0, n0, tt, tile0,
+                                                  ring, lane);
+  load_bias(bias, b1, n0, lane);
+  for_each_pair(acc, bias, row0, n0, lane, [&](int row, int col, float v0, float v1) {
+    store_pair(h_hi, h_lo, row * IP + col, fmaxf(v0, 0.f), fmaxf(v1, 0.f));
   });
+  consumer_sync();
   zero_acc(acc);
-  conv12<EXT, EXT, 1, CH, IP, 9, MT>(acc, h_hi, h_lo, zero, row0, n0, stream, ring,
-                                     c0 + PER_CONV, lane);
-  for_each_pair(acc, row0, n0, lane, [&](int row, int col, float v0, float v1) {
+  conv_wg<J + 1, EXT, EXT, 1, CH, IP, SPB, NROWS, MT>(acc, h_hi, h_lo, zero, row0, n0, tt,
+                                                      tile0, ring, lane);
+  load_bias(bias, b2, n0, lane);
+  for_each_pair(acc, bias, row0, n0, lane, [&](int row, int col, float v0, float v1) {
     const float2 res = load_pair(a_hi, a_lo, row * IP + col);
-    store_pair(a_hi, a_lo, row * IP + col, fmaxf(v0 + ldg_f(b2 + col) + res.x, 0.f),
-               fmaxf(v1 + ldg_f(b2 + col + 1) + res.y, 0.f));
+    store_pair(a_hi, a_lo, row * IP + col, fmaxf(v0 + res.x, 0.f), fmaxf(v1 + res.y, 0.f));
   });
-  __syncthreads();
+  consumer_sync();
 }
 
-// The SE gates of SPB samples of PS positions x CH channels at pitch IP:
-// gate[s][c] = sigmoid(d1 . relu(d0 . mean_p a[s][p])). `hid` is SPB x HID;
-// with fewer items than threads (E = 16) the positions are split in PARTS,
-// whose sums lie after `hid` and are added in part order: the mean, and so
-// the kernel's output, is the same on every run and at every batch size.
-template <int PS, int CH, int HID, int SPB, int IP>
-__device__ void se_gate_mma(const bf16* a_hi, const bf16* a_lo, const bf16* d0, const bf16* d1,
-                            float* gate, float* hid) {
+// The SE gates of SPB samples of PS positions x CH channels at pitch IP, rows
+// position-major: gate[s][c] = sigmoid(d1 . relu(d0 . mean_p a[s][p])). `hid`
+// is SPB x HID; with fewer items than threads (E = 16) the positions are
+// split in PARTS, whose sums lie after `hid` and are added in part order: the
+// mean, and so the kernel's output, is the same on every run and at every
+// batch size.
+template <int PS, int CH, int HID, int SPB, int IP, int PLANE>
+__device__ void se_gate(const bf16* a_hi, const bf16* a_lo, const bf16* d0, const bf16* d1,
+                        float* gate, float* hid) {
   constexpr int ITEMS = SPB * CH;
-  constexpr int PARTS = ITEMS >= THREADS ? 1 : THREADS / ITEMS;  // splits of the positions
+  constexpr int PARTS = ITEMS >= CONSUMERS ? 1 : CONSUMERS / ITEMS;  // splits of the positions
   static_assert(PS % PARTS == 0, "positions must split evenly");
-  static_assert(SPB * (CH + HID) + (PARTS > 1 ? PARTS * ITEMS : 0) <= PLANE / 2,
-                "the SE scratch fits in the mid-block plane");
+  static_assert(SPB * (CH + HID) + (PARTS > 1 ? PARTS * ITEMS : 0) <= PLANE,
+                "the SE scratch fits in the mid-block planes");
   float* part_sums = hid + SPB * HID;  // PARTS x ITEMS, when PARTS > 1
-  for (int i = threadIdx.x; i < ITEMS * PARTS; i += THREADS) {
+  for (int i = threadIdx.x; i < ITEMS * PARTS; i += CONSUMERS) {
     const int item = i % ITEMS, part = i / ITEMS;
-    const int base = ((item / CH) * PS + part * (PS / PARTS)) * IP + item % CH;
+    const int s = item / CH, c = item % CH, p0 = part * (PS / PARTS);
     float sum = 0.f;
-    for (int p = 0; p < PS / PARTS; ++p)
-      sum += __bfloat162float(a_hi[base + p * IP]) + __bfloat162float(a_lo[base + p * IP]);
+    for (int p = p0; p < p0 + PS / PARTS; ++p) {
+      const int idx = (p * SPB + s) * IP + c;
+      sum += __bfloat162float(a_hi[idx]) + __bfloat162float(a_lo[idx]);
+    }
     if (PARTS == 1) gate[item] = sum; else part_sums[part * ITEMS + item] = sum;
   }
-  __syncthreads();
+  consumer_sync();
   if (PARTS > 1) {
-    for (int i = threadIdx.x; i < ITEMS; i += THREADS) {
+    for (int i = threadIdx.x; i < ITEMS; i += CONSUMERS) {
       float sum = 0.f;
       for (int part = 0; part < PARTS; ++part) sum += part_sums[part * ITEMS + i];
       gate[i] = sum;
     }
-    __syncthreads();
+    consumer_sync();
   }
-  for (int i = threadIdx.x; i < SPB * HID; i += THREADS) {
-    const float* gs = gate + (i / HID) * CH;
-    const bf16* w = d0 + (i % HID) * CH;
+  // 8 lanes an output, each every 8th channel, summed by shuffles in a fixed
+  // order: the weights' loads are in flight together
+  static_assert(SPB * HID * 8 % 32 == 0, "whole warps take part in the shuffles");
+  for (int i = threadIdx.x; i < SPB * HID * 8; i += CONSUMERS) {
+    const int o = i / 8, l = i % 8;
+    const float* gs = gate + (o / HID) * CH;
+    const bf16* w = d0 + (o % HID) * CH;
     float v = 0.f;
-    for (int k = 0; k < CH; ++k) v = fmaf(ldg_f(w + k), gs[k] * (1.f / PS), v);
-    hid[i] = fmaxf(v, 0.f);
+#pragma unroll
+    for (int k = l; k < CH; k += 8) v = fmaf(ldg_f(w + k), gs[k] * (1.f / PS), v);
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    v += __shfl_xor_sync(0xffffffffu, v, 2);
+    v += __shfl_xor_sync(0xffffffffu, v, 4);
+    if (l == 0) hid[o] = fmaxf(v, 0.f);
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < ITEMS; i += THREADS) {
+  consumer_sync();
+  for (int i = threadIdx.x; i < ITEMS; i += CONSUMERS) {
     const float* hs = hid + (i / CH) * HID;
     const bf16* w = d1 + (i % CH) * HID;
     float e = 0.f;
+#pragma unroll
     for (int r = 0; r < HID; ++r) e = fmaf(ldg_f(w + r), hs[r], e);
     gate[i] = 1.f / (1.f + expf(-e));
   }
-  __syncthreads();
+  consumer_sync();
+}
+
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return p + ((1024 - (sm90::smem_u32(p) & 1023)) & 1023);
 }
 
 template <int E>
-__global__ void __launch_bounds__(THREADS)
-fused_group12_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ stream,
-                         Weights wt, bf16* __restrict__ out, int batch) {
-  constexpr int E2 = E / 2, PS1 = E * E, PS2 = E2 * E2, SPB = ROWS1 / PS1;
-  extern __shared__ uint4 mma_smem[];
-  bf16* a_hi = reinterpret_cast<bf16*>(mma_smem);  // group input / residual / output
-  bf16* a_lo = a_hi + PLANE;
-  bf16* h_hi = a_lo + PLANE;                       // mid-block activation; SE scratch
-  bf16* h_lo = h_hi + PLANE;
-  bf16* ring = h_lo + PLANE;
-  bf16* zero_row = ring + Stream12::STAGES * Stream12::SLOT;
-  float* gate = reinterpret_cast<float*>(h_hi);    // SPB x C2 at most, then SPB x SE2_H
-  const uint32_t zero = av1::smem_addr(zero_row);
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(G_THREADS, 1)
+fused_group12_wgmma_kernel(const bf16* __restrict__ x, const __grid_constant__ CUtensorMap map1,
+                           const __grid_constant__ CUtensorMap map2, const TileTaps tt,
+                           Weights wt, bf16* __restrict__ out, int batch) {
+  using G = Geo<E>;
+  constexpr int E2 = G::E2, PS1 = G::PS1, PS2 = G::PS2, SPB = G::SPB, MT = G::MT1;
+  extern __shared__ uint8_t group_smem_raw[];
+  uint8_t* slots = align_1024(group_smem_raw);
+  bf16* a_hi = reinterpret_cast<bf16*>(slots + STAGES * SLOT_BYTES);  // group input / residual / output
+  bf16* a_lo = a_hi + G::PLANE;
+  bf16* h_hi = a_lo + G::PLANE;  // mid-block activation; SE scratch
+  bf16* h_lo = h_hi + G::PLANE;
+  bf16* zero_row = h_lo + G::PLANE;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(zero_row + ZERO_ROW);
+  Ring ring{slots, bars, bars + STAGES, 0};
+  float* gate = reinterpret_cast<float*>(h_hi);  // SPB x C2 at most, then SPB x SE2_H
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int64_t b0 = int64_t(blockIdx.x) * SPB;
-  const int n = batch - b0 < SPB ? int(batch - b0) : SPB;  // samples to store
+  const int n = int(batch - b0 < SPB ? batch - b0 : SPB);  // samples to store (<= 0: none)
 
-  // ---- x into the hi plane (bf16 is exact: lo = 0), samples past the batch 0
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&ring.full[s], 1);
+      sm90::mbar_init(&ring.empty[s], CLUSTER * CONSUMERS / 128);
+    }
+    sm90::fence_barrier_init();
+  }
+  sm90::cluster_sync();  // every block's barriers exist before any TMA or remote arrive
+
+  if (warp == CONSUMERS / 32) {  // the producer warp: its first lane fetches
+    if (lane == 0) {
+      sm90::tma_prefetch_map(&map1);
+      sm90::tma_prefetch_map(&map2);
+      produce(&map1, &map2, tt, ring);
+    }
+    __syncwarp();
+    sm90::cluster_sync();  // no block leaves while its peer may still write to it
+    return;
+  }
+
+  // ---- x into the hi plane, position-major (bf16 is exact: lo = 0); samples
+  // past the batch read 0
   const bf16* xb = x + b0 * PS1 * C1;
-  for (int i = threadIdx.x; i < ROWS1 * (C1 / 8); i += THREADS) {
-    const int row = i / (C1 / 8), col = (i % (C1 / 8)) * 8;
-    const bool ok = row < n * PS1;
-    av1::cp_async16(av1::smem_addr(a_hi + row * PITCH1 + col), ok ? xb + row * C1 + col : xb,
-                    ok ? 16 : 0);
+  for (int i = threadIdx.x; i < G::ROWS1 * (C1 / 8); i += CONSUMERS) {
+    const int src = i / (C1 / 8), col = (i % (C1 / 8)) * 8;  // src = s * PS1 + p
+    const int s = src / PS1, p = src % PS1;
+    const bool ok = s < n;
+    av1::cp_async16(av1::smem_addr(a_hi + (p * SPB + s) * PITCH1 + col),
+                    ok ? xb + src * C1 + col : x, ok ? 16 : 0);
   }
   av1::cp_async_commit();
-  fetch_chunk<Stream12>(stream, ring, 0);
-  fetch_chunk<Stream12>(stream, ring, 1);
-  for (int i = threadIdx.x; i < PLANE / 8; i += THREADS)
+  for (int i = threadIdx.x; i < G::PLANE / 8; i += CONSUMERS)
     reinterpret_cast<uint4*>(a_lo)[i] = make_uint4(0, 0, 0, 0);
-  for (int i = threadIdx.x; i < ZERO_ROW / 2; i += THREADS)
+  for (int i = threadIdx.x; i < ZERO_ROW / 2; i += CONSUMERS)
     reinterpret_cast<uint32_t*>(zero_row)[i] = 0;
+  av1::cp_async_wait<0>();
+  consumer_sync();
+  const uint32_t zero = av1::smem_addr(zero_row);
+  const int wg = warp / 4;
 
-  // ---- layer group 1 and SE1, in place on a: each warp 32 rows x 64 columns
+  // ---- layer group 1 and SE1, in place on a: warpgroup wg owns ROWS1 / 2
+  // rows (MT tiles of 64) x 64 columns
   {
-    const int row0 = warp * 32;
-    block_s1_mma<E, C1, PITCH1, 2>(a_hi, a_lo, h_hi, h_lo, zero, wp<bf16>(wt, L10_B1),
-                                   wp<bf16>(wt, L10_B2), row0, 0, stream, ring, 0, lane);
-    block_s1_mma<E, C1, PITCH1, 2>(a_hi, a_lo, h_hi, h_lo, zero, wp<bf16>(wt, L11_B1),
-                                   wp<bf16>(wt, L11_B2), row0, 0, stream, ring, 18, lane);
+    const int row0 = wg * (G::ROWS1 / 2);
+    block_s1<L10_C1, E, C1, PITCH1, SPB, G::ROWS1, MT>(
+        a_hi, a_lo, h_hi, h_lo, zero, wp<bf16>(wt, L10_B1), wp<bf16>(wt, L10_B2), row0, 0, tt,
+        wg * MT, ring, lane);
+    block_s1<L11_C1, E, C1, PITCH1, SPB, G::ROWS1, MT>(
+        a_hi, a_lo, h_hi, h_lo, zero, wp<bf16>(wt, L11_B1), wp<bf16>(wt, L11_B2), row0, 0, tt,
+        wg * MT, ring, lane);
   }
-  se_gate_mma<PS1, C1, SE1_H, SPB, PITCH1>(a_hi, a_lo, wp<bf16>(wt, SE1_D0),
-                                           wp<bf16>(wt, SE1_D1), gate, gate + SPB * C1);
-  for (int i = threadIdx.x; i < ROWS1 * (C1 / 2); i += THREADS) {
+  se_gate<PS1, C1, SE1_H, SPB, PITCH1, G::PLANE>(a_hi, a_lo, wp<bf16>(wt, SE1_D0),
+                                                 wp<bf16>(wt, SE1_D1), gate, gate + SPB * C1);
+  for (int i = threadIdx.x; i < G::ROWS1 * (C1 / 2); i += CONSUMERS) {
     const int row = i / (C1 / 2), col = (i % (C1 / 2)) * 2;
     const float2 v = load_pair(a_hi, a_lo, row * PITCH1 + col);
-    const float* gs = gate + (row / PS1) * C1 + col;
+    const float* gs = gate + (row % SPB) * C1 + col;
     store_pair(a_hi, a_lo, row * PITCH1 + col, v.x * gs[0], v.y * gs[1]);
   }
-  __syncthreads();
+  consumer_sync();
 
-  // ---- layer group 2: each warp 16 rows x 64 of the 128 columns
-  const int row0 = (warp % 4) * 16, n0 = (warp / 4) * 64;
+  // ---- layer group 2: one tile of 64 rows; warpgroup wg owns 64 of the 128
+  // columns
+  const int n0 = wg * 64;
   {
     // layer2_0: conv1 3x3/2 (a -> h), then conv2 + the downsample in
     // registers; their sum replaces a once nothing reads group 1's output
-    float acc[1][8][4];
+    float acc[1][2][32], bias[8][2];
     zero_acc(acc);
-    conv12<E, E2, 2, C1, PITCH1, 9, 1>(acc, a_hi, a_lo, zero, row0, n0, stream, ring, CHUNKS1,
-                                       lane);
-    const bf16* b1 = wp<bf16>(wt, L20_B1);
-    for_each_pair(acc, row0, n0, lane, [&](int row, int col, float v0, float v1) {
-      store_pair(h_hi, h_lo, row * PITCH2 + col, fmaxf(v0 + ldg_f(b1 + col), 0.f),
-                 fmaxf(v1 + ldg_f(b1 + col + 1), 0.f));
+    conv_wg<L20_C1, E, E2, 2, C1, PITCH1, SPB, G::ROWS2, 1>(acc, a_hi, a_lo, zero, 0, n0, tt,
+                                                            0, ring, lane);
+    load_bias(bias, wp<bf16>(wt, L20_B1), n0, lane);
+    for_each_pair(acc, bias, 0, n0, lane, [&](int row, int col, float v0, float v1) {
+      store_pair(h_hi, h_lo, row * PITCH2 + col, fmaxf(v0, 0.f), fmaxf(v1, 0.f));
     });
+    consumer_sync();
     zero_acc(acc);
-    conv12<E2, E2, 1, C2, PITCH2, 9, 1>(acc, h_hi, h_lo, zero, row0, n0, stream, ring,
-                                        CHUNKS1 + 9, lane);
-    conv12<E, E2, 2, C1, PITCH1, 1, 1>(acc, a_hi, a_lo, zero, row0, n0, stream, ring,
-                                       CHUNKS1 + 27, lane);
-    __syncthreads();  // the last read of group 1's output
-    const bf16* b2 = wp<bf16>(wt, L20_B2);
-    const bf16* bd = wp<bf16>(wt, L20_DSB);
-    for_each_pair(acc, row0, n0, lane, [&](int row, int col, float v0, float v1) {
-      store_pair(a_hi, a_lo, row * PITCH2 + col,
-                 fmaxf(v0 + (ldg_f(b2 + col) + ldg_f(bd + col)), 0.f),
-                 fmaxf(v1 + (ldg_f(b2 + col + 1) + ldg_f(bd + col + 1)), 0.f));
+    conv_wg<L20_C2, E2, E2, 1, C2, PITCH2, SPB, G::ROWS2, 1>(acc, h_hi, h_lo, zero, 0, n0, tt,
+                                                             0, ring, lane);
+    conv_wg<L20_DS, E, E2, 2, C1, PITCH1, SPB, G::ROWS2, 1>(acc, a_hi, a_lo, zero, 0, n0, tt, 0,
+                                                            ring, lane);
+    load_bias(bias, wp<bf16>(wt, L20_B2), n0, lane, wp<bf16>(wt, L20_DSB));
+    consumer_sync();  // the last read of group 1's output
+    for_each_pair(acc, bias, 0, n0, lane, [&](int row, int col, float v0, float v1) {
+      store_pair(a_hi, a_lo, row * PITCH2 + col, fmaxf(v0, 0.f), fmaxf(v1, 0.f));
     });
+    consumer_sync();
   }
-  block_s1_mma<E2, C2, PITCH2, 1>(a_hi, a_lo, h_hi, h_lo, zero, wp<bf16>(wt, L21_B1),
-                                  wp<bf16>(wt, L21_B2), row0, n0, stream, ring, CHUNKS1 + 28,
-                                  lane);
-  av1::cp_async_wait<0>();
+  block_s1<L21_C1, E2, C2, PITCH2, SPB, G::ROWS2, 1>(a_hi, a_lo, h_hi, h_lo, zero,
+                                                      wp<bf16>(wt, L21_B1), wp<bf16>(wt, L21_B2),
+                                                      0, n0, tt, 0, ring, lane);
 
-  // ---- SE2 and the output, scaled as it is written
-  se_gate_mma<PS2, C2, SE2_H, SPB, PITCH2>(a_hi, a_lo, wp<bf16>(wt, SE2_D0),
-                                           wp<bf16>(wt, SE2_D1), gate, gate + SPB * C2);
+  // ---- SE2 and the output, scaled as it is written, back in sample order
+  se_gate<PS2, C2, SE2_H, SPB, PITCH2, G::PLANE>(a_hi, a_lo, wp<bf16>(wt, SE2_D0),
+                                                 wp<bf16>(wt, SE2_D1), gate, gate + SPB * C2);
   bf16* ob = out + b0 * PS2 * C2;
-  for (int i = threadIdx.x; i < ROWS2 * (C2 / 8); i += THREADS) {
-    const int row = i / (C2 / 8), col = (i % (C2 / 8)) * 8;
-    const int s = row / PS2;
+  for (int i = threadIdx.x; i < G::ROWS2 * (C2 / 8); i += CONSUMERS) {
+    const int dst = i / (C2 / 8), col = (i % (C2 / 8)) * 8;  // dst = s * PS2 + p
+    const int s = dst / PS2, p = dst % PS2;
     if (s >= n) continue;
+    const int row = p * SPB + s;
     const uint4 h = *reinterpret_cast<const uint4*>(a_hi + row * PITCH2 + col);
     const uint4 l = *reinterpret_cast<const uint4*>(a_lo + row * PITCH2 + col);
     const uint32_t hw[4] = {h.x, h.y, h.z, h.w}, lw[4] = {l.x, l.y, l.z, l.w};
@@ -608,31 +902,34 @@ fused_group12_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ st
       const float2 hv = av1::unpack_bf16(hw[q]), lv = av1::unpack_bf16(lw[q]);
       o[q] = av1::pack_bf16((hv.x + lv.x) * gs[2 * q], (hv.y + lv.y) * gs[2 * q + 1]);
     }
-    *reinterpret_cast<uint4*>(ob + row * C2 + col) = make_uint4(o[0], o[1], o[2], o[3]);
+    *reinterpret_cast<uint4*>(ob + dst * C2 + col) = make_uint4(o[0], o[1], o[2], o[3]);
   }
+  sm90::cluster_sync();
 }
 
 template <int E>
-int launch_group12_mma(const void* x, const void* stream, const Weights& w, void* out,
-                       int batch, cudaStream_t st) {
+int launch_group12_wgmma(const void* x, const CUtensorMap (&maps)[2], const TileTaps& tt,
+                         const Weights& w, void* out, int batch, cudaStream_t st) {
+  using G = Geo<E>;
   static const cudaError_t attr =  // once per kernel, not per launch
-      cudaFuncSetAttribute(fused_group12_mma_kernel<E>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, int(MMA_SMEM));
+      cudaFuncSetAttribute(fused_group12_wgmma_kernel<E>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, int(G::SMEM));
   if (attr != cudaSuccess) return int(attr);
-  constexpr int SPB = ROWS1 / (E * E);
-  fused_group12_mma_kernel<E><<<(batch + SPB - 1) / SPB, THREADS, MMA_SMEM, st>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(stream), w,
-      static_cast<bf16*>(out), batch);
+  const int blocks = (batch + G::SPB - 1) / G::SPB;
+  const int grid = (blocks + CLUSTER - 1) / CLUSTER * CLUSTER;  // whole clusters
+  fused_group12_wgmma_kernel<E><<<grid, G_THREADS, G::SMEM, st>>>(
+      static_cast<const bf16*>(x), maps[0], maps[1], tt, w, static_cast<bf16*>(out), batch);
   return int(cudaGetLastError());
 }
 
-int dispatch_extent_mma(int hw, const void* x, const void* stream, const Weights& w, void* out,
-                        int batch, cudaStream_t st) {
+int dispatch_extent_wgmma(int hw, const void* x, const CUtensorMap (&maps)[2],
+                          const TileTaps& tt, const Weights& w, void* out, int batch,
+                          cudaStream_t st) {
   switch (hw) {
-    case 2: return launch_group12_mma<2>(x, stream, w, out, batch, st);
-    case 4: return launch_group12_mma<4>(x, stream, w, out, batch, st);
-    case 8: return launch_group12_mma<8>(x, stream, w, out, batch, st);
-    case 16: return launch_group12_mma<16>(x, stream, w, out, batch, st);
+    case 2: return launch_group12_wgmma<2>(x, maps, tt, w, out, batch, st);
+    case 4: return launch_group12_wgmma<4>(x, maps, tt, w, out, batch, st);
+    case 8: return launch_group12_wgmma<8>(x, maps, tt, w, out, batch, st);
+    case 16: return launch_group12_wgmma<16>(x, maps, tt, w, out, batch, st);
     default: return int(cudaErrorInvalidValue);
   }
 }
@@ -653,23 +950,53 @@ int dispatch_extent(int hw, const void* x, const Weights& w, void* out, int batc
 
 extern "C" {
 
+// Encodes the two TMA maps of a conv stream (kernels/resnet_group.py
+// group12_conv_stream) into `maps_out` (host memory, 2 x 128 bytes): part i
+// starts `parts[3i]` elements into the stream and is a row-major array of
+// `parts[3i + 1]` rows of `parts[3i + 2]` bf16, read in boxes of
+// box_rows x box_cols. The kernel takes only the geometry it was built for.
+// Returns 0 or a cudaError_t.
+int av1_group12_encode_maps(const void* conv_stream, const long long* parts, int box_rows,
+                            int box_cols, void* maps_out) {
+  if (conv_stream == nullptr || reinterpret_cast<uintptr_t>(conv_stream) % 16 ||
+      box_rows != BOX_ROWS || box_cols != 64)
+    return int(cudaErrorInvalidValue);
+  CUtensorMap maps[2];
+  for (int i = 0; i < 2; ++i) {
+    const long long first = parts[3 * i], rows = parts[3 * i + 1], cols = parts[3 * i + 2];
+    if (rows % KC || cols != (i == 0 ? C1 : C2)) return int(cudaErrorInvalidValue);
+    const int err = sm90::encode_map_2d(
+        &maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<const bf16*>(conv_stream) + first,
+        uint64_t(rows), uint64_t(cols), uint64_t(cols) * sizeof(bf16), uint32_t(box_rows),
+        uint32_t(box_cols), CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err != 0) return err;
+  }
+  memcpy(maps_out, maps, sizeof(maps));
+  return 0;
+}
+
 // Launches K5 on `stream` and returns cudaGetLastError() (0 on success); it
 // neither allocates nor synchronises. `weights` is a host array of the 22
 // device pointers in PACK_ORDER, all in the dtype of x (`bf16`: 1, else fp32).
-// With bf16, `conv_stream` is the device pointer of the nine conv kernels
-// concatenated in the order of use (kernels/resnet_group.py
-// group12_conv_stream), 16-byte aligned like x and out.
-int av1_fused_group12(const void* x, const void* const* weights, const void* conv_stream,
-                      void* out, int batch, int hw, int bf16, void* stream) {
+// With bf16, `conv_maps` are the stream's two maps from
+// av1_group12_encode_maps and `tile_taps` the 9 x 4 tap masks of
+// group12_tile_taps at this extent (both host memory); x and out 16-byte
+// aligned.
+int av1_fused_group12(const void* x, const void* const* weights, const void* conv_maps,
+                      const uint16_t* tile_taps, void* out, int batch, int hw, int bf16,
+                      void* stream) {
   if (batch <= 0 || weights == nullptr) return int(cudaErrorInvalidValue);
   Weights w;
   for (int i = 0; i < N_WEIGHTS; ++i) w.p[i] = weights[i];
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!bf16) return dispatch_extent<float>(hw, x, w, out, batch, st);
-  const uintptr_t bits = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out) |
-                         reinterpret_cast<uintptr_t>(conv_stream);
-  if (conv_stream == nullptr || bits % 16) return int(cudaErrorInvalidValue);
-  return dispatch_extent_mma(hw, x, conv_stream, w, out, batch, st);
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out);
+  if (conv_maps == nullptr || tile_taps == nullptr || bits % 16) return int(cudaErrorInvalidValue);
+  CUtensorMap maps[2];
+  memcpy(maps, conv_maps, sizeof(maps));
+  TileTaps tt;
+  memcpy(tt.taps, tile_taps, sizeof(tt.taps));
+  return dispatch_extent_wgmma(hw, x, maps, tt, w, out, batch, st);
 }
 
 }  // extern "C"

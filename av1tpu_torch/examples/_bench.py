@@ -42,6 +42,7 @@ from av1tpu_torch.utils.initialization import init_on_cpu
 
 PEAK_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
 WARMUP_ITERS = 5
+TIMED_ITERS = 50  # bench.py's default count of timed calls
 STAGE_CLASSES = (Stage1Model, Stage2Model, Stage3RectModel, Stage3ABModel)
 
 
@@ -146,7 +147,7 @@ def _mfu(flops_per_s: float, device: torch.device) -> Optional[float]:
     return flops_per_s / PEAK_FLOPS if device.type == "cuda" else None
 
 
-def _time_predict(predict: Callable, batch: int, block_px: int, iters: int = 20,
+def _time_predict(predict: Callable, batch: int, block_px: int, iters: int = TIMED_ITERS,
                   device="cuda") -> tuple:
     """``(blocks/s, flops_per_block, mfu)`` of ``predict`` on ``batch`` seeded
     ``block_px`` blocks on ``device``: ``WARMUP_ITERS`` calls, then ``iters``
@@ -227,6 +228,6 @@ def mfu_cell(mfu: Optional[float]) -> str:
     return "not measured" if mfu is None else f"{mfu * 100:.1f}%"
 
 
-__all__ = ["PEAK_FLOPS", "WARMUP_ITERS", "_build_models", "_time_predict",
+__all__ = ["PEAK_FLOPS", "TIMED_ITERS", "WARMUP_ITERS", "_build_models", "_time_predict",
            "backbone_flops", "bench_tree_cascade", "describe_device", "flops_per_block",
            "mfu_cell", "seeded_blocks", "seeded_superblocks"]

@@ -122,7 +122,8 @@ def load_kernels() -> ctypes.CDLL:
     signatures = {
         "av1_fused_front": [ptr] * 4 + [i32] * 3 + [ptr],
         "av1_fused_front_g1": [ptr] * 8 + [i32] * 3 + [ptr],
-        "av1_fused_group12": [ptr] * 4 + [i32] * 3 + [ptr],
+        "av1_fused_group12": [ptr] * 5 + [i32] * 3 + [ptr],
+        "av1_group12_encode_maps": [ptr, ptr, i32, i32, ptr],
         "av1_tile_normalize_frames": [ptr] * 2 + [i32] * 5 + [ptr],
         "av1_normalize_blocks": [ptr, ptr, i64, i32, ptr],
         "av1_fused_dense": [ptr] * 4 + [i32] * 6 + [ptr],

@@ -11,7 +11,7 @@ position, ~2000 FLOP per byte of device memory) and K1 by bytes (its output).
 In bf16, the serving dtype, both CUDA kernels therefore run on the tensor
 cores: the stem as an implicit GEMM whose K axis is the 7x7 window laid out as
 8 rows of 8 taps (:func:`stem_gemm_weight`, :func:`stem_gemm_index`), and K2's
-four convs through the conv routine it shares with K5 (``csrc/conv_mma.cuh``),
+four convs through the conv routine of ``csrc/conv_mma.cuh``,
 reading ``conv_w`` as a stream of 36 chunks of 64 k-rows. In fp32, the parity
 mode, both run direct convolutions on the CUDA cores.
 

@@ -11,11 +11,15 @@ kept beyond that dtype and only the output is rounded, as the TPU kernel
 does. In bf16 the CUDA kernel runs every conv on the tensor cores, with each
 fp32 activation carried as a pair of bf16 values (16 bits); its conv weights
 come as one stream in the order of use, :func:`group12_conv_stream`, which a
-pipeline builds once. In fp32 it runs on the CUDA cores.
+pipeline builds once and which the kernel reads by TMA through two tensor
+maps, encoded once per stream (:func:`conv_stream_boxes` gives their
+geometry). Which taps each 64-row tile of a block computes is the host's
+table :func:`group12_tile_taps`; the block's rows are position-major
+(:func:`group12_row_order`). In fp32 it runs on the CUDA cores.
 
 The TPU kernel's ``tile`` (its VMEM batch tile) and ``interpret`` (Pallas
 interpreter mode) have no counterpart here: the CUDA kernel picks its own
-samples per block, and a CPU tensor runs the plain twin
+samples per block (:func:`samples_per_block`), and a CPU tensor runs the plain twin
 ``fused_group12_reference``. A CUDA tensor launches the kernel or raises; a
 launch adds one to ``_build.launch_counts["fused_group12"]``.
 
@@ -27,9 +31,11 @@ layouts).
 from __future__ import annotations
 
 import ctypes
+import itertools
 import math
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -111,6 +117,114 @@ def split_conv_stream(stream) -> Dict[str, torch.Tensor]:
     sizes = [math.prod(PACKED_SHAPES[name]) for name in CONV_STREAM_ORDER]
     return {name: part.reshape(PACKED_SHAPES[name])
             for name, part in zip(CONV_STREAM_ORDER, torch.split(stream, sizes))}
+
+
+# ---------------------------------------------------------------------------
+# The bf16 kernel's host tables (csrc/resnet_group.cu reads them as given)
+# ---------------------------------------------------------------------------
+
+KC = 64                    # k-rows of a weight chunk
+CLUSTER = 2                # blocks of a cluster; each fetches 1/CLUSTER of a chunk
+BOX = (KC // CLUSTER, 64)  # a TMA box: rows, columns (64 bf16: the 128-byte swizzle)
+# The stream as the kernel's two TMA maps, (first element, rows, columns):
+# layer 1's 36 chunks of 64 columns, then layer 2's 64 chunks of 128.
+CHUNKS1, CHUNKS = 36, 100
+STREAM_PARTS = ((0, CHUNKS1 * KC, C1), (CHUNKS1 * KC * C1, (CHUNKS - CHUNKS1) * KC, C2))
+
+
+def samples_per_block(e: int) -> int:
+    """Samples a bf16 block holds at extent ``e``: 256 layer-1 rows, 128 at
+    extent 2 (4,096 samples make 128 blocks)."""
+    return (128 if e == 2 else 256) // (e * e)
+
+
+def group12_convs(e: int) -> Tuple[Tuple[str, int, int, int, int, int], ...]:
+    """The nine convs in ``CONV_STREAM_ORDER`` at input extent ``e``: (name,
+    input extent, output extent, stride, taps, input channels)."""
+    e2 = e // 2
+    geometry = ((e, e, 1, 9, C1),) * 4 + ((e, e2, 2, 9, C1), (e2, e2, 1, 9, C2),
+                                           (e, e2, 2, 1, C1), (e2, e2, 1, 9, C2),
+                                           (e2, e2, 1, 9, C2))
+    return tuple((name,) + g for name, g in zip(CONV_STREAM_ORDER, geometry))
+
+
+def _tap_shift(stride: int, taps: int, tap: int) -> Tuple[int, int]:
+    """(dy, dx) of a tap from the window's start: SAME's (-1, 0, 1) at stride
+    1, XLA's (0, 1, 2) at stride 2 (padding (0, 1)), (0, 0) for a 1x1."""
+    if taps == 1:
+        return 0, 0
+    lead = 1 if stride == 1 else 0
+    return tap // 3 - lead, tap % 3 - lead
+
+
+def group12_row_order(e: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Layers 1 and 2 of a block: for each of its rows, the sample-major row
+    (sample x positions + position) it holds. Rows are position-major (row
+    p * SPB + s); layer 2 fills a 64-row tile, and at extent 2 its last 32
+    rows are padding (-1). The output write maps sample s, position p back
+    from row p * SPB + s."""
+    spb = samples_per_block(e)
+    orders = []
+    for oe in (e, e // 2):
+        positions = oe * oe
+        rows = np.arange(max(spb * positions, 64))
+        orders.append(np.where(rows < spb * positions,
+                               (rows % spb) * positions + rows // spb, -1))
+    return orders[0], orders[1]
+
+
+def group12_tile_taps(e: int) -> np.ndarray:
+    """(9, 4) uint16: bit ``tap`` of ``[j, tile]`` is set where a row of 64-row
+    tile ``tile`` of conv j (``CONV_STREAM_ORDER``) reads inside the image at
+    that tap. Layer 1 has 256 / 64 tiles (2 at extent 2), layer 2 one; the
+    rest is 0. The kernel multiplies only the set taps of a tile and fetches
+    only the taps set for some tile."""
+    spb = samples_per_block(e)
+    table = np.zeros((len(CONV_STREAM_ORDER), 4), np.uint16)
+    for j, (_, ie, oe, stride, taps, _) in enumerate(group12_convs(e)):
+        rows = spb * oe * oe
+        for tile in range(1 if j >= 4 else rows // 64):
+            positions = {r // spb for r in range(64 * tile, min(64 * tile + 64, rows))}
+            for tap in range(taps):
+                dy, dx = _tap_shift(stride, taps, tap)
+                if any(0 <= (p // oe) * stride + dy < ie and 0 <= (p % oe) * stride + dx < ie
+                       for p in positions):
+                    table[j, tile] |= 1 << tap
+    return table
+
+
+def conv_stream_boxes(chunk: int) -> Tuple[Tuple[int, int, int], ...]:
+    """The TMA boxes that bring chunk ``chunk`` of the stream: (part of
+    ``STREAM_PARTS``, first row, first column) of each, for every block rank
+    of a cluster and every 64-column box."""
+    part = 0 if chunk < CHUNKS1 else 1
+    local = chunk if part == 0 else chunk - CHUNKS1
+    return tuple((part, local * KC + rank * BOX[0], bx * BOX[1])
+                 for bx in range(STREAM_PARTS[part][2] // BOX[1]) for rank in range(CLUSTER))
+
+
+_MAPS: Dict[Tuple[torch.device, int], ctypes.Array] = {}  # encoded maps by stream address
+_TAPS: Dict[int, ctypes.Array] = {}                      # group12_tile_taps by extent
+
+
+def _conv_stream_maps(conv_stream) -> ctypes.Array:
+    """The two TMA maps of ``conv_stream``, encoded at its first use: a map
+    holds the address and the geometry, never the values."""
+    key = (conv_stream.device, conv_stream.data_ptr())
+    maps = _MAPS.get(key)
+    if maps is None:
+        maps = ctypes.create_string_buffer(256)
+        parts = (ctypes.c_longlong * 6)(*itertools.chain(*STREAM_PARTS))
+        _build.check_launch("group12_encode_maps", _build.load_kernels().av1_group12_encode_maps(
+            conv_stream.data_ptr(), parts, BOX[0], BOX[1], maps))
+        _MAPS[key] = maps
+    return maps
+
+
+def _tile_taps(e: int) -> ctypes.Array:
+    if e not in _TAPS:
+        _TAPS[e] = (ctypes.c_uint16 * 36)(*group12_tile_taps(e).reshape(-1).tolist())
+    return _TAPS[e]
 
 
 # ---------------------------------------------------------------------------
@@ -203,23 +317,33 @@ def fused_group12(x, weights, conv_stream=None):
     _check(x, weights)
     if x.device.type == "cpu":
         return fused_group12_reference(x, weights)
-    stream_ptr = _conv_stream_pointer(x, conv_stream)
     e = int(x.shape[1])
+    maps = taps = None
+    if _conv_stream_pointer(x, conv_stream) is not None:
+        maps, taps = _conv_stream_maps(conv_stream), _tile_taps(e)
     out = torch.empty((x.shape[0], e // 2, e // 2, C2), dtype=x.dtype, device=x.device)
     ptrs = (ctypes.c_void_p * len(weights))(*(t.data_ptr() for t in weights))
-    _build.launch("fused_group12", x.data_ptr(), ptrs, stream_ptr, out.data_ptr(),
+    _build.launch("fused_group12", x.data_ptr(), ptrs, maps, taps, out.data_ptr(),
                   int(x.shape[0]), e, int(x.dtype == torch.bfloat16), _build.stream_of(x))
     return out
 
 
 __all__ = [
+    "BOX",
+    "CLUSTER",
     "CONV_STREAM_ORDER",
     "CONV_STREAM_SIZE",
     "EXTENTS",
     "PACK_ORDER",
+    "STREAM_PARTS",
+    "conv_stream_boxes",
     "fused_group12",
     "fused_group12_reference",
     "group12_conv_stream",
+    "group12_convs",
+    "group12_row_order",
+    "group12_tile_taps",
     "pack_group12_weights",
+    "samples_per_block",
     "split_conv_stream",
 ]

@@ -4129,7 +4129,7 @@ class TimingCase(NamedTuple):
     library: Optional[Callable]   # one PyTorch call for the same function, if any
     n_bytes: int                  # inputs read once + outputs written once
     flops: float                  # the function's operations on these inputs
-    dtype: torch.dtype            # the inputs' type, which picks the peak rate
+    dtype: torch.dtype            # the type whose peak rate bounds the operations
     shape: dict
     main: bool                    # the case of the main path: the `kernels` line
 
@@ -4194,7 +4194,8 @@ def timing_cases(folded, gen, dev) -> list:
             lambda xd=xd, wd=wd: fused_dense_reference(xd, wd, bd, "relu"),
             lambda xd=xd, wd=wd, bias=bias: torch.addmm(bias, xd, wd).relu_(),
             tensor_bytes(xd, wd, bd, fused_dense(xd, wd, bd, "relu")),
-            2.0 * BATCH * d_in * d_hid, dtype,
+            # fp32 too at the tensor cores' bf16 rate: the kernel runs it there
+            2.0 * BATCH * d_in * d_hid, bf16,
             {"shape": [BATCH, d_in, d_hid], "act": "relu",
              "dtype": str(dtype).replace("torch.", "")}, dtype == f32))
     return cases
@@ -4222,18 +4223,22 @@ def time_case(case: TimingCase, smi: str) -> dict:
 
 
 def ptxas_report(lib: Path) -> dict:
-    """Registers and spill bytes (stores, loads) of every fused kernel, from
-    the ``-Xptxas -v`` lines in nvcc's logs beside the library."""
+    """Registers, spill bytes (stores, loads) and static shared memory of every
+    fused kernel, from the ``-Xptxas -v`` lines in nvcc's logs beside the
+    library."""
     entry = re.compile(
         r"Compiling entry function '\S*?(?<=\d)(fused_[a-z0-9_]+?_kernel)I(\S*?)Ev\S*'.*?"
-        r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?Used (\d+) registers", re.S)
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?Used (\d+) registers([^\n]*)",
+        re.S)
     report = {}
     for log in sorted(lib.parent.glob("*.nvcc.log")):
-        for kernel, targs, stores, loads, regs in entry.findall(log.read_text()):
+        for kernel, targs, stores, loads, regs, rest in entry.findall(log.read_text()):
             args = [a or b or c for a, b, c in
                     re.findall(r"Li(\d+)E|(f)|13__nv_(bfloat16)", targs)]
+            smem = re.search(r"(\d+) bytes smem", rest)
             report[f"{kernel}<{', '.join(args)}>"] = {
-                "registers": int(regs), "spill_bytes": [int(stores), int(loads)]}
+                "registers": int(regs), "spill_bytes": [int(stores), int(loads)],
+                "static_smem_bytes": int(smem.group(1)) if smem else 0}
     return report
 
 

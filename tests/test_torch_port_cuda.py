@@ -253,6 +253,43 @@ def test_group12_bf16_with_a_prebuilt_conv_stream(card, folded, e):
             rg.fused_group12(x, weights, bad)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 63, RAGGED])
+@pytest.mark.parametrize("e", [2, 4, 8, 16])
+def test_group12_bf16_off_whole_clusters(card, folded, e, batch):
+    """The wgmma kernel at batches that fill no whole cluster of two blocks of
+    ``rg.samples_per_block(e)`` samples: one sample, 63 and a ragged 4,099,
+    against the plain version, and the same output on a second call."""
+    gen = torch.Generator().manual_seed(40 + e + batch)
+    img = (torch.randint(0, 1024, (batch, 4 * e, 4 * e, 1), generator=gen).float()
+           / 1023.0).to(card)
+    stem = ff.stem_weights(folded["stem"]["weight"], folded["stem"]["bias"],
+                           torch.float32)
+    x = ff.fused_front_reference(img, *(t.to(card) for t in stem)).bfloat16()
+    weights = tuple(w.to(card) for w in rg.pack_group12_weights(folded, torch.bfloat16))
+    stream = rg.group12_conv_stream(weights)
+    got = _counted("fused_group12", rg.fused_group12, x, weights, stream)
+    _close(got, rg.fused_group12_reference(x, weights), BF16_REL_TOL)
+    assert torch.equal(got, rg.fused_group12(x, weights, stream))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("m", [1, 65, RAGGED])
+def test_fused_dense_wgmma_at_ragged_rows(card, m, dtype):
+    """The tensor-core kernel (128-row tiles) at one row, one past a warpgroup's
+    64 and a ragged 4,099, a v6 head's first layer, relu."""
+    gen = torch.Generator().manual_seed(m)
+    x = torch.randn(m, 512, generator=gen).to(card, dtype)
+    w = (torch.randn(512, 256, generator=gen) / 512 ** 0.5).to(card, dtype)
+    b = torch.randn(256, generator=gen).to(card)
+    assert takes_fast_path(x, w)
+    got = _counted("fused_dense", fused_dense, x, w, b, "relu")
+    tol = FP32_REL_TOL["fused_dense"] if dtype == torch.float32 else BF16_REL_TOL
+    _close(got, fused_dense_reference(x, w, b, "relu"), tol)
+
+
 GRAD_ATOL = {"x": 1e-4, "w": 5e-4, "b": 1e-4}
 
 

@@ -17,6 +17,7 @@ they time with (``examples/_bench.py``) against the JAX package's
 """
 import argparse
 import ast
+import inspect
 import json
 import sys
 
@@ -117,6 +118,16 @@ def test_backbone_flops_count_valid_taps_only():
     for px in LEVEL_SIZES:
         assert sum(_bench.backbone_flops(px).values()) + _bench._dense_flops(
             stage1.head.head) == _bench._stage_flops(stage1, px)
+
+
+def test_time_predict_defaults_to_bench_timed_iters():
+    """The port's ``_time_predict`` times as many calls as ``bench.py``'s
+    when the caller names no count (F13)."""
+    assert _bench.TIMED_ITERS == bench.TIMED_ITERS
+    assert _bench.WARMUP_ITERS == bench.WARMUP_ITERS
+    default = inspect.signature(_bench._time_predict).parameters["iters"].default
+    assert default == inspect.signature(bench._time_predict).parameters["iters"].default
+    assert default == bench.TIMED_ITERS
 
 
 class _Recorded(Exception):
