@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks shared by K4 (fused_dense.cu) and K5
-// (resnet_group.cu): mbarrier rings, TMA tile loads (plain and multicast to a
-// thread-block cluster), wgmma on shared-memory matrix descriptors with fp32
-// accumulators, cluster and named barriers, and, on the host, the encoding
-// of a 2-D TMA tensor map.
+// Hopper (sm_90a) building blocks shared by K1, K2 (fused_front.cu), K4
+// (fused_dense.cu) and K5 (resnet_group.cu): mbarrier rings, TMA tile loads
+// (2-D and 3-D, plain and multicast to a thread-block cluster) and 2-D tile
+// stores with their bulk groups, wgmma on shared-memory matrix descriptors
+// with fp32 accumulators, cluster and named barriers, and, on the host, the
+// encoding of a TMA tensor map.
 //
 // wgmma.m64n64k16 (one warpgroup of four warps, w = warp % 4, g = lane / 4,
 // t = lane % 4):
@@ -109,6 +110,39 @@ __device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorM
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "h"(blocks)
       : "memory");
 }
+// The box of a 3-D map at (c0 innermost, c1, c2) into `dst`, completing its
+// bytes on `bar`. Elements outside the array (negative coordinates too) arrive
+// as zeros and count as bytes of the box.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+// The box at `src` (this block's shared memory) to the 2-D map at (c0, c1);
+// elements outside the array are not written. Joins the thread's open bulk
+// group: tma_store_commit closes it. The writes of `src` must precede it in
+// the async proxy (fence_proxy_async, then a barrier, where other threads
+// wrote them).
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// blocks until at most PENDING of this thread's store groups may still read
+// their shared memory
+template <int PENDING>
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(PENDING) : "memory");
+}
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
@@ -212,11 +246,13 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
 
 // ---- host: tensor maps ------------------------------------------------------
 
-// A row-major (rows, cols) array at `base` with rows `row_bytes` apart, read
-// in boxes of (box_rows, box_cols) elements. Returns 0 or a cudaError_t.
-inline int encode_map_2d(CUtensorMap* map, CUtensorMapDataType dtype, const void* base,
-                         uint64_t rows, uint64_t cols, uint64_t row_bytes, uint32_t box_rows,
-                         uint32_t box_cols, CUtensorMapSwizzle swizzle) {
+// An array of `rank` dimensions at `base`: dims[i] elements along dimension i
+// (0 innermost), dimension i + 1 `strides[i]` bytes apart, read or written in
+// boxes of box[i] elements. Out-of-bounds elements read as zeros and are not
+// written. Returns 0 or a cudaError_t.
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType dtype, int rank, const void* base,
+                      const uint64_t* dims, const uint64_t* strides, const uint32_t* box,
+                      CUtensorMapSwizzle swizzle) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -231,15 +267,31 @@ inline int encode_map_2d(CUtensorMap* map, CUtensorMapDataType dtype, const void
     return reinterpret_cast<Encode>(fn);
   }();
   if (encode == nullptr) return int(cudaErrorNotSupported);
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {row_bytes};
-  const cuuint32_t box[2] = {box_cols, box_rows};
-  const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = encode(map, dtype, 2, const_cast<void*>(base), dims, strides, box, unit,
+  if (rank < 1 || rank > 3) return int(cudaErrorInvalidValue);
+  cuuint64_t d[3], st[2];
+  cuuint32_t b[3], unit[3];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    b[i] = box[i];
+    unit[i] = 1;
+    if (i + 1 < rank) st[i] = strides[i];
+  }
+  const CUresult r = encode(map, dtype, cuuint32_t(rank), const_cast<void*>(base), d, st, b, unit,
                             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);  // out of bounds reads zero
   return r == CUDA_SUCCESS ? 0 : int(cudaErrorInvalidValue);
+}
+
+// A row-major (rows, cols) array at `base` with rows `row_bytes` apart, read
+// in boxes of (box_rows, box_cols) elements.
+inline int encode_map_2d(CUtensorMap* map, CUtensorMapDataType dtype, const void* base,
+                         uint64_t rows, uint64_t cols, uint64_t row_bytes, uint32_t box_rows,
+                         uint32_t box_cols, CUtensorMapSwizzle swizzle) {
+  const uint64_t dims[2] = {cols, rows};
+  const uint64_t strides[1] = {row_bytes};
+  const uint32_t box[2] = {box_cols, box_rows};
+  return encode_map(map, dtype, 2, base, dims, strides, box, swizzle);
 }
 
 }  // namespace sm90

@@ -1,21 +1,16 @@
-// Tensor-core building blocks of K1 and K2 (fused_front.cu, on mma.sync), and
-// the parts K4 (fused_dense.cu) and K5 (resnet_group.cu) take beside
-// hopper.cuh's wgmma: cp.async 16-byte copies with commit/wait groups,
-// ldmatrix fragment loads (K5's A operand), the bf16 mma.sync.m16n8k16 with
-// fp32 accumulators, and the splits of an fp32 value into bf16 pieces.
+// Building blocks the wgmma kernels take beside hopper.cuh: cp.async 16-byte
+// copies with commit/wait groups (K5's input), ldmatrix fragment loads (the
+// register A of K2's and K5's convs, conv_wgmma.cuh), and the bf16 packing
+// and the splits of an fp32 value into bf16 pieces (K4, K5).
 //
-// Fragment layout of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
-//   A (16 x 16, row-major)  a0: (g, 2t..2t+1)   a1: (g+8, 2t..2t+1)
-//                           a2: (g, 2t+8..2t+9) a3: (g+8, 2t+8..2t+9)
-//   B (16 x 8, k x n)       b0: (k 2t..2t+1, n g)   b1: (k 2t+8..2t+9, n g)
-//   C (16 x 8)              c0, c1: (g, 2t..2t+1)   c2, c3: (g+8, 2t..2t+1)
-// The element with the lower index sits in the low half of a 32-bit register.
-//
+// wgmma's register A is, a warp of 16 rows, mma.sync.m16n8k16's A fragment
+// (g = lane / 4, t = lane % 4; the element with the lower index in the low
+// half of a 32-bit register):
+//   a0: (g, 2t..2t+1)   a1: (g+8, 2t..2t+1)   a2: (g, 2t+8..2t+9)   a3: (g+8, 2t+8..2t+9)
 // ldmatrix.x4 reads four 8 x 8 tiles of 16-bit values; lanes 8i..8i+7 give the
 // addresses of the eight 16-byte rows of tile i. With a tile stored [m][k]
 // (k fastest), lane l pointing at row l % 16 and column 8 * (l / 16) yields
-// a0..a3. With a tile stored [k][n] (n fastest), the same lane addressing and
-// .trans yield {b0, b1} of n-tile 0 and {b0, b1} of n-tile 1 (columns +8).
+// a0..a3.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -49,22 +44,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
 }
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// d += a (16 x 16 bf16) * b (16 x 8 bf16), fp32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // two floats as a bf16 pair, `lo_elem` in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo_elem, float hi_elem) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo_elem, hi_elem);

@@ -22,7 +22,9 @@
 // (1.35 MB in bf16) do not fit in shared memory and every block streams them
 // from L2.
 //
-// bf16 (the serving dtype): fused_group12_wgmma_kernel, tensor cores.
+// bf16 (the serving dtype): fused_group12_wgmma_kernel, tensor cores. Its
+// conv routine, weight ring, producer and tap table are csrc/conv_wgmma.cuh,
+// shared with K2 (fused_front.cu), which runs layer 1 on one plane.
 //   * Every conv is an implicit GEMM on wgmma.m64n64k16 (hopper.cuh). Rows
 //     are (sample, output position), K is tap x ci, N is 64 or 128. A block
 //     holds SPB = ROWS1 / E^2 samples: ROWS1 = 256 rows in layer 1 (128 at
@@ -101,6 +103,7 @@
 #include <string.h>
 
 #include "common.cuh"
+#include "conv_wgmma.cuh"
 #include "hopper.cuh"
 #include "mma.cuh"
 
@@ -112,7 +115,6 @@ using av1::to_f;
 using bf16 = __nv_bfloat16;
 
 constexpr int THREADS = 256;  // the fp32 kernel's block
-constexpr int KC = 64;        // k-rows of a weight chunk (bf16 kernel)
 
 constexpr int C1 = 64, C2 = 128;  // layer-1 and layer-2 widths
 constexpr int SE1_H = C1 / 16, SE2_H = C2 / 16;
@@ -407,39 +409,13 @@ int launch_group12(const void* x, const Weights& w, void* out, int batch,
 // ---------------------------------------------------------------------------
 
 namespace sm90 = av1::sm90;
+using namespace av1::convwg;  // the wgmma conv, its ring and its tap table (conv_wgmma.cuh)
 
-constexpr int CONSUMERS = 256;              // two warpgroups
-constexpr int G_THREADS = CONSUMERS + 32;   // and one producer warp
-constexpr int CONSUMER_BARRIER = 1;         // named barrier of the two warpgroups
-constexpr int WARPGROUP_BARRIER = 2;        // ... and 3: each warpgroup's own
-constexpr int CLUSTER = 2;                  // blocks that share each weight chunk
-constexpr int STAGES = 4;                   // weight ring depth
 constexpr int SLOT_BYTES = KC * C2 * 2;     // a chunk of 64 k-rows x 128 columns
-constexpr int BOX_ROWS = KC / CLUSTER;      // k-rows of a chunk that each block fetches
-constexpr int BOX_BYTES = BOX_ROWS * 128;   // ... of one 64-column box
 constexpr int PITCH1 = C1 + 8;              // plane row pitch in layer 1 (elements)
 constexpr int PITCH2 = C2 + 8;              // ... in layer 2
 constexpr int ZERO_ROW = PITCH2;            // elements of the shared zero row
-constexpr int N_CONVS = 9, MAX_TILES = 4;
-
-// The convs in the order of the stream: the first chunk of each, and which
-// taps each 64-row tile computes (bit tap; built by the host,
-// kernels/resnet_group.py group12_tile_taps). Layer 1 has ROWS1 / 64 tiles,
-// layer 2 one; a tap no tile of the block computes is not fetched either.
-struct TileTaps {
-  uint16_t taps[N_CONVS][MAX_TILES];
-};
-enum { L10_C1, L10_C2, L11_C1, L11_C2, L20_C1, L20_C2, L20_DS, L21_C1, L21_C2 };
-// the first chunk of conv j in the stream; its taps and chunks a tap
-__device__ __forceinline__ int first_chunk(int j) {
-  return j < L20_C1 ? 9 * j : j == L20_C1 ? 36 : j == L20_C2 ? 45 : j == L20_DS ? 63
-         : j == L21_C1 ? 64 : 82;
-}
-__device__ __forceinline__ int conv_taps(int j) { return j == L20_DS ? 1 : 9; }
-__device__ __forceinline__ int chunks_a_tap(int j) {
-  return j == L20_C2 || j == L21_C1 || j == L21_C2 ? 2 : 1;
-}
-constexpr int CHUNKS1 = 36;  // layer 1's chunks: 64 columns; the rest 128
+using Ring = av1::convwg::Ring<SLOT_BYTES>;
 
 // Rows of a block: ROWS1 in layer 1 (256, or 128 at extent 2 so that 4,096
 // samples fill 128 blocks), ROWS1 / 4 in layer 2, position-major: row
@@ -457,213 +433,6 @@ struct Geo {
                                  + 2 * STAGES * sizeof(uint64_t);
   static_assert(64 * PITCH2 <= PLANE, "layer 2 reuses layer 1's planes");
 };
-
-// The weight ring: STAGES slots of one chunk, a full and an empty barrier
-// each. Every thread of a role counts the chunks it has passed in `q`.
-struct Ring {
-  uint8_t* slots;
-  uint64_t* full;
-  uint64_t* empty;
-  int q;
-  __device__ uint8_t* slot() const { return slots + (q % STAGES) * SLOT_BYTES; }
-  __device__ uint32_t parity() const { return (q / STAGES) & 1; }
-};
-
-__device__ __forceinline__ int chunk_cols(int c) { return c < CHUNKS1 ? C1 : C2; }
-
-// The producer (one lane): every chunk the block's convs fetch, in order; this
-// block's BOX_ROWS-row half of each 64-column box, multicast to the cluster.
-__device__ void produce(const CUtensorMap* map1, const CUtensorMap* map2, const TileTaps& tt,
-                        Ring ring) {
-  const uint32_t rank = sm90::cluster_rank();
-#pragma unroll 1
-  for (int j = 0; j < N_CONVS; ++j) {
-    const uint32_t fetch = tt.taps[j][0] | tt.taps[j][1] | tt.taps[j][2] | tt.taps[j][3];
-    const int first = first_chunk(j), per_tap = chunks_a_tap(j);
-#pragma unroll 1
-    for (int tap = 0; tap < conv_taps(j); ++tap) {
-      if (!(fetch >> tap & 1)) continue;
-#pragma unroll 1
-      for (int u = 0; u < per_tap; ++u, ++ring.q) {
-        const int c = first + tap * per_tap + u;
-        const int boxes = chunk_cols(c) / 64;
-        const int s = ring.q % STAGES;
-        if (ring.q >= STAGES) sm90::mbar_wait(&ring.empty[s], (ring.q / STAGES - 1) & 1);
-        sm90::mbar_expect_tx(&ring.full[s], boxes * KC * 128);
-        const CUtensorMap* map = c < CHUNKS1 ? map1 : map2;
-        const int row = (c < CHUNKS1 ? c : c - CHUNKS1) * KC + int(rank) * BOX_ROWS;
-        for (int bx = 0; bx < boxes; ++bx)
-          sm90::tma_load_2d_multicast(ring.slot() + bx * KC * 128 + rank * BOX_BYTES, map,
-                                      &ring.full[s], bx * 64, row, (1 << CLUSTER) - 1);
-      }
-    }
-  }
-}
-
-// The shared-memory address, in each plane, of the input row that tap
-// (dy, dx) of output row r reads: input extent IE at pitch IP, output extent
-// OE, stride S, SPB samples, rows position-major ("pm", where K2's tap_row in
-// conv_mma.cuh takes them sample-major). A tap outside the image, and a row
-// past the block's NROWS, reads the zero row.
-template <int IE, int OE, int S, int IP, int SPB, int NROWS>
-__device__ __forceinline__ void pm_tap_row(int r, int dy, int dx, const uint32_t (&in)[2],
-                                           uint32_t zero, uint32_t (&a)[2]) {
-  const int s = r % SPB, p = r / SPB;
-  const int iy = (p / OE) * S + dy, ix = (p % OE) * S + dx;
-  const bool inside =
-      r < NROWS && unsigned(iy) < unsigned(IE) && unsigned(ix) < unsigned(IE);
-  const uint32_t off = uint32_t(((iy * IE + ix) * SPB + s) * IP) * sizeof(bf16);
-  a[0] = inside ? in[0] + off : zero;
-  a[1] = inside ? in[1] + off : zero;
-}
-
-// The wgmmas of one chunk for the tiles in ACTIVE (bit i: tile i), their
-// A fragments f[tile][plane][k16 step] in registers, B at shared address b.
-// Two tiles keep one accumulator each and the instructions alternate between
-// the tiles; a tile alone keeps one a plane and they alternate between the
-// planes: consecutive wgmmas never wait on each other's sums.
-template <int MT, int ACTIVE>
-__device__ __forceinline__ void chunk_mma(float (&acc)[MT][3 - MT][32], uint32_t (&f)[MT][2][4][4],
-                                          uint32_t b) {
-#pragma unroll
-  for (int i = 0; i < MT; ++i)  // no register of the wgmmas moves past the fence
-#pragma unroll
-    for (int pl = 0; pl < 2; ++pl) {
-      if (pl < 3 - MT) sm90::reg_fence(acc[i][pl]);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sm90::reg_fence(f[i][pl][kk][e]);
-    }
-  sm90::wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t desc = sm90::desc_sw128(b + kk * 2048, 8192, 1024);
-#pragma unroll
-    for (int pl = 1; pl >= 0; --pl)  // lo, then hi
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-        if ((ACTIVE >> i & 1) != 0)  // constant once unrolled
-          sm90::wgmma_m64n64k16_rs(acc[i][MT == 1 ? pl : 0], f[i][pl][kk], desc, 1);
-  }
-  sm90::wgmma_commit();
-  sm90::wgmma_wait<0>();
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int c = 0; c < 3 - MT; ++c) sm90::reg_fence(acc[i][c]);
-}
-
-// acc[i] += conv J on the two planes (hi, lo) `in` for tile i of this
-// warpgroup (rows row0 + 64 i ..), output columns n0 .. n0 + 63, MT tiles:
-// each chunk's A fragments by ldmatrix (a lane its row's address), then the
-// chunk's wgmmas (register A, B from the ring) for the tiles that compute
-// its tap: a tile none of whose rows reads inside the image at a tap skips
-// it. Every consumer thread walks every chunk the block fetches.
-template <int J, int IE, int OE, int S, int CI, int IP, int SPB, int NROWS, int MT>
-__device__ __forceinline__ void conv_wg(float (&acc)[MT][3 - MT][32], const bf16* in_hi,
-                                        const bf16* in_lo, uint32_t zero, int row0, int n0,
-                                        const TileTaps& tt, int tile0, Ring& ring, int lane) {
-  constexpr int TAPS = (J == L20_DS) ? 1 : 9, PER_TAP = CI / KC;
-  const uint32_t in[2] = {sm90::smem_u32(in_hi), sm90::smem_u32(in_lo)};
-  const int warp_row = (threadIdx.x / 32 % 4) * 16 + lane % 16;
-  const uint32_t kb = 16 * (lane / 16);  // bytes: 8 elements along k
-  const uint32_t fetch = tt.taps[J][0] | tt.taps[J][1] | tt.taps[J][2] | tt.taps[J][3];
-  uint32_t mine[MT];
-#pragma unroll
-  for (int i = 0; i < MT; ++i) mine[i] = tt.taps[J][tile0 + i];
-#pragma unroll 1
-  for (int tap = 0; tap < TAPS; ++tap) {
-    if (!(fetch >> tap & 1)) continue;
-    const int dy = TAPS == 1 ? 0 : tap / 3 - (S == 1 ? 1 : 0);
-    const int dx = TAPS == 1 ? 0 : tap % 3 - (S == 1 ? 1 : 0);
-    uint32_t rows[MT][2];
-    int active = 0;
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      pm_tap_row<IE, OE, S, IP, SPB, NROWS>(row0 + i * 64 + warp_row, dy, dx, in, zero, rows[i]);
-      active |= int(mine[i] >> tap & 1) << i;
-    }
-#pragma unroll 1
-    for (int u = 0; u < PER_TAP; ++u, ++ring.q) {
-      uint32_t f[MT][2][4][4];  // tile, plane, k16 step
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int pl = 0; pl < 2; ++pl)
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            av1::ldmatrix_x4(f[i][pl][kk], rows[i][pl] + u * KC * 2 + kb + kk * 32);
-      sm90::mbar_wait(&ring.full[ring.q % STAGES], ring.parity());
-      const uint32_t b = sm90::smem_u32(ring.slot()) + (n0 / 64) * KC * 128;
-      if (active == (1 << MT) - 1) {
-        chunk_mma<MT, (1 << MT) - 1>(acc, f, b);
-      } else if (MT == 2 && active == 1) {
-        chunk_mma<MT, 1>(acc, f, b);
-      } else if (MT == 2 && active == 2) {
-        chunk_mma<MT, 2>(acc, f, b);
-      }
-      // the warpgroup is done with the slot
-      sm90::named_barrier(WARPGROUP_BARRIER + threadIdx.x / 128, 128);
-      if (threadIdx.x % 128 == 0)
-        for (int r = 0; r < CLUSTER; ++r)
-          sm90::mbar_arrive_cluster(&ring.empty[ring.q % STAGES], r);
-    }
-  }
-}
-
-// This thread's bias pairs (columns n0 + 8j + 2t, + 1) of `b`, plus those of
-// `more` where given, loaded together before an epilogue.
-__device__ __forceinline__ void load_bias(float (&bias)[8][2], const bf16* b, int n0, int lane,
-                                          const bf16* more = nullptr) {
-  const int t = lane % 4;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int col = n0 + 8 * j + 2 * t + q;
-      bias[j][q] = more == nullptr ? ldg_f(b + col) : ldg_f(b + col) + ldg_f(more + col);
-    }
-}
-
-// f(row, col, v0, v1) for every pair of neighbouring columns this thread
-// holds of its warpgroup's MT tiles (rows row0 + 64 i ..., columns n0 ..),
-// each value the sum of its accumulators plus its bias.
-template <int MT, class F>
-__device__ __forceinline__ void for_each_pair(const float (&acc)[MT][3 - MT][32],
-                                              const float (&bias)[8][2], int row0, int n0,
-                                              int lane, F f) {
-  const int g = lane / 4, t = lane % 4, w = threadIdx.x / 32 % 4;
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int q = 4 * j + 2 * h;
-        float v0 = acc[i][0][q], v1 = acc[i][0][q + 1];
-        if (MT == 1) {  // a tile alone sums its planes in two accumulators
-          v0 += acc[i][MT == 1 ? 1 : 0][q];
-          v1 += acc[i][MT == 1 ? 1 : 0][q + 1];
-        }
-        f(row0 + i * 64 + w * 16 + g + 8 * h, n0 + 8 * j + 2 * t, v0 + bias[j][0],
-          v1 + bias[j][1]);
-      }
-}
-
-template <int MT>
-__device__ __forceinline__ void zero_acc(float (&acc)[MT][3 - MT][32]) {
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int c = 0; c < 3 - MT; ++c)
-#pragma unroll
-      for (int q = 0; q < 32; ++q) acc[i][c][q] = 0.f;
-}
-
-__device__ __forceinline__ void consumer_sync() {
-  sm90::named_barrier(CONSUMER_BARRIER, CONSUMERS);
-}
 
 // the pair at element `idx` of an activation: hi + lo
 __device__ __forceinline__ float2 load_pair(const bf16* hi, const bf16* lo, int idx) {
@@ -687,7 +456,7 @@ __device__ __forceinline__ void block_s1(bf16* a_hi, bf16* a_lo, bf16* h_hi, bf1
                                          Ring& ring, int lane) {
   float acc[MT][3 - MT][32], bias[8][2];
   zero_acc(acc);
-  conv_wg<J, EXT, EXT, 1, CH, IP, SPB, NROWS, MT>(acc, a_hi, a_lo, zero, row0, n0, tt, tile0,
+  conv_wg<J, EXT, EXT, 1, CH, IP, SPB, NROWS, MT, 2>(acc, a_hi, a_lo, zero, row0, n0, tt, tile0,
                                                   ring, lane);
   load_bias(bias, b1, n0, lane);
   for_each_pair(acc, bias, row0, n0, lane, [&](int row, int col, float v0, float v1) {
@@ -695,7 +464,7 @@ __device__ __forceinline__ void block_s1(bf16* a_hi, bf16* a_lo, bf16* h_hi, bf1
   });
   consumer_sync();
   zero_acc(acc);
-  conv_wg<J + 1, EXT, EXT, 1, CH, IP, SPB, NROWS, MT>(acc, h_hi, h_lo, zero, row0, n0, tt,
+  conv_wg<J + 1, EXT, EXT, 1, CH, IP, SPB, NROWS, MT, 2>(acc, h_hi, h_lo, zero, row0, n0, tt,
                                                       tile0, ring, lane);
   load_bias(bias, b2, n0, lane);
   for_each_pair(acc, bias, row0, n0, lane, [&](int row, int col, float v0, float v1) {
@@ -766,10 +535,6 @@ __device__ void se_gate(const bf16* a_hi, const bf16* a_lo, const bf16* d0, cons
   consumer_sync();
 }
 
-__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
-  return p + ((1024 - (sm90::smem_u32(p) & 1023)) & 1023);
-}
-
 template <int E>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(G_THREADS, 1)
 fused_group12_wgmma_kernel(const bf16* __restrict__ x, const __grid_constant__ CUtensorMap map1,
@@ -804,7 +569,7 @@ fused_group12_wgmma_kernel(const bf16* __restrict__ x, const __grid_constant__ C
     if (lane == 0) {
       sm90::tma_prefetch_map(&map1);
       sm90::tma_prefetch_map(&map2);
-      produce(&map1, &map2, tt, ring);
+      produce<N_CONVS>(&map1, &map2, tt, ring);
     }
     __syncwarp();
     sm90::cluster_sync();  // no block leaves while its peer may still write to it
@@ -860,7 +625,7 @@ fused_group12_wgmma_kernel(const bf16* __restrict__ x, const __grid_constant__ C
     // registers; their sum replaces a once nothing reads group 1's output
     float acc[1][2][32], bias[8][2];
     zero_acc(acc);
-    conv_wg<L20_C1, E, E2, 2, C1, PITCH1, SPB, G::ROWS2, 1>(acc, a_hi, a_lo, zero, 0, n0, tt,
+    conv_wg<L20_C1, E, E2, 2, C1, PITCH1, SPB, G::ROWS2, 1, 2>(acc, a_hi, a_lo, zero, 0, n0, tt,
                                                             0, ring, lane);
     load_bias(bias, wp<bf16>(wt, L20_B1), n0, lane);
     for_each_pair(acc, bias, 0, n0, lane, [&](int row, int col, float v0, float v1) {
@@ -868,9 +633,9 @@ fused_group12_wgmma_kernel(const bf16* __restrict__ x, const __grid_constant__ C
     });
     consumer_sync();
     zero_acc(acc);
-    conv_wg<L20_C2, E2, E2, 1, C2, PITCH2, SPB, G::ROWS2, 1>(acc, h_hi, h_lo, zero, 0, n0, tt,
+    conv_wg<L20_C2, E2, E2, 1, C2, PITCH2, SPB, G::ROWS2, 1, 2>(acc, h_hi, h_lo, zero, 0, n0, tt,
                                                              0, ring, lane);
-    conv_wg<L20_DS, E, E2, 2, C1, PITCH1, SPB, G::ROWS2, 1>(acc, a_hi, a_lo, zero, 0, n0, tt, 0,
+    conv_wg<L20_DS, E, E2, 2, C1, PITCH1, SPB, G::ROWS2, 1, 2>(acc, a_hi, a_lo, zero, 0, n0, tt, 0,
                                                             ring, lane);
     load_bias(bias, wp<bf16>(wt, L20_B2), n0, lane, wp<bf16>(wt, L20_DSB));
     consumer_sync();  // the last read of group 1's output

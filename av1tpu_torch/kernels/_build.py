@@ -121,7 +121,8 @@ def load_kernels() -> ctypes.CDLL:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     signatures = {
         "av1_fused_front": [ptr] * 4 + [i32] * 3 + [ptr],
-        "av1_fused_front_g1": [ptr] * 8 + [i32] * 3 + [ptr],
+        "av1_fused_front_g1": [ptr] * 10 + [i32] * 3 + [ptr],
+        "av1_fused_front_g1_encode_map": [ptr, ptr],
         "av1_fused_group12": [ptr] * 5 + [i32] * 3 + [ptr],
         "av1_group12_encode_maps": [ptr, ptr, i32, i32, ptr],
         "av1_tile_normalize_frames": [ptr] * 2 + [i32] * 5 + [ptr],

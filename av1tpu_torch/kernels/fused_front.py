@@ -8,12 +8,15 @@ layer-1 blocks and SE1. Both map NHWC ``(B, hw, hw, 1)`` to
 
 On an H100 K2 is bound by operations (four 64x64 3x3 convs per pooled
 position, ~2000 FLOP per byte of device memory) and K1 by bytes (its output).
-In bf16, the serving dtype, both CUDA kernels therefore run on the tensor
-cores: the stem as an implicit GEMM whose K axis is the 7x7 window laid out as
-8 rows of 8 taps (:func:`stem_gemm_weight`, :func:`stem_gemm_index`), and K2's
-four convs through the conv routine of ``csrc/conv_mma.cuh``,
-reading ``conv_w`` as a stream of 36 chunks of 64 k-rows. In fp32, the parity
-mode, both run direct convolutions on the CUDA cores.
+In bf16, the serving dtype, both CUDA kernels run on ``wgmma``: the stem as an
+implicit GEMM whose K axis is the 7x7 window laid out as 8 rows of 8 taps
+(:func:`stem_gemm_weight`, :func:`stem_gemm_index`) on 64-row tiles
+(:func:`stem_tile_rows`), its input read by one TMA box a group of samples
+(:func:`x_box`), and K2's four convs through the conv routine it shares with
+K5 (``csrc/conv_wgmma.cuh``), reading ``conv_w`` by TMA through a map encoded
+once per weight tensor, with K5's rows (position-major) and tap table
+(``resnet_group.group12_tile_taps``). In fp32, the parity mode, both run
+direct convolutions on the CUDA cores.
 
 Numerics follow the TPU kernels: every sum and every bias add is fp32. K2
 keeps fp32 between its stages and rounds to the weight dtype wherever the TPU
@@ -33,12 +36,15 @@ the activation dtype (:func:`g1_weights` rounds them once).
 """
 from __future__ import annotations
 
-from typing import Callable
+import ctypes
+from typing import Callable, Dict, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from av1tpu_torch.kernels import _build
+from av1tpu_torch.kernels import resnet_group as rg
 
 C = 64
 SE_HIDDEN = C // 16
@@ -128,6 +134,23 @@ def _check_input(x):
         raise ValueError(f"x: unsupported device {x.device}")
 
 
+_MAPS: Dict[Tuple[torch.device, int], ctypes.Array] = {}  # conv_w maps by address
+
+
+def _conv_w_map(conv_w) -> ctypes.Array:
+    """K2's TMA map of ``conv_w``, encoded at its first use: a map holds the
+    address and the geometry, never the values."""
+    key = (conv_w.device, conv_w.data_ptr())
+    found = _MAPS.get(key)
+    if found is None:
+        found = ctypes.create_string_buffer(128)
+        _build.check_launch("fused_front_g1_encode_map",
+                            _build.load_kernels().av1_fused_front_g1_encode_map(
+                                conv_w.data_ptr(), found))
+        _MAPS[key] = found
+    return found
+
+
 def _out_like(x):
     hw = int(x.shape[1])
     return torch.empty((x.shape[0], hw // 4, hw // 4, C), dtype=x.dtype,
@@ -163,11 +186,14 @@ def fused_front_g1(x, stem_w, stem_b, conv_w, conv_b, se_d0, se_d1):
         return fused_front_g1_reference(x, stem_w, stem_b, conv_w, conv_b,
                                         se_d0, se_d1)
     out = _out_like(x)
+    maps = taps = None  # the bf16 kernel's: conv_w's map, layer 1's tap table
+    if x.dtype == torch.bfloat16:
+        maps, taps = _conv_w_map(conv_w), rg._tile_taps(int(x.shape[1]) // 4)
     _build.launch(
         "fused_front_g1", x.data_ptr(), stem_w.data_ptr(), stem_b.data_ptr(),
         conv_w.data_ptr(), conv_b.data_ptr(), se_d0.data_ptr(),
-        se_d1.data_ptr(), out.data_ptr(), int(x.shape[0]), int(x.shape[1]),
-        int(x.dtype == torch.bfloat16), _build.stream_of(x),
+        se_d1.data_ptr(), maps, taps, out.data_ptr(), int(x.shape[0]),
+        int(x.shape[1]), int(x.dtype == torch.bfloat16), _build.stream_of(x),
     )
     return out
 
@@ -224,6 +250,50 @@ def stem_gemm_index(hw: int):
     return (2 * (pos // co) + k // 8) * (hw + 8) + 2 * (pos % co) + k % 8
 
 
+def stem_tile_rows(hw: int) -> np.ndarray:
+    """``(64, 3)``: for row ``16 * w + 8 * h + g`` of a 64-row stem tile of the
+    bf16 kernels (warp ``w``, lane group ``g = lane // 4``, fragment half
+    ``h``), the (sample of the tile, conv row, conv column) it computes: conv
+    row ``Y = RW * w + g // XP`` of the tile's samples (``hw // 2`` rows each)
+    at column ``2 * (g % XP) + h``, where ``XP = hw // 4`` lane groups cover a
+    conv row and a warp ``RW = 8 // XP`` rows. A lane thus holds two
+    neighbouring columns of one row, which the in-register max-pool uses; a
+    tile holds one sample at 16 px, four at 8 px."""
+    co = hw // 2
+    xp = co // 2
+    rw = 8 // xp
+    r = np.arange(64)
+    w, h, g = r // 16, r % 16 // 8, r % 8
+    y_all = w * rw + g // xp
+    return np.stack([y_all // co, y_all % co, 2 * (g % xp) + h], axis=1)
+
+
+def x_box(hw: int, samples: int) -> Tuple[Tuple[int, int, int], Tuple[int, int, int], int]:
+    """The TMA box through which the bf16 kernels read ``samples`` samples of
+    x, viewed as ``(B, hw, hw)``: its shape ``(samples, hw + 6, hw + 8)``, its
+    origin relative to the group's first sample, ``(0, 0, 0)`` (TMA takes no
+    negative coordinates), and the lead, ``3 * (hw + 8) + 4`` elements. The
+    box's zero fill outside x puts zeros right of and below each sample's
+    pixels and zero samples past the batch; read from the lead's zeros in
+    front of the box on, each sample's block is its tile as
+    :func:`stem_gemm_index` reads it (the 4 columns left of a row are the
+    previous row's last 4 zeros, the 3 rows above the first the previous
+    sample's last zero rows, or the lead)."""
+    return (samples, hw + 6, hw + 8), (0, 0, 0), 3 * (hw + 8) + 4
+
+
+def g1_samples_per_block(hw: int) -> int:
+    """Samples of a bf16 K2 block: K5's layer-1 block at extent ``hw // 4``
+    (256 rows, 128 at 8 px, position-major: ``resnet_group.group12_row_order``)."""
+    return rg.samples_per_block(hw // 4)
+
+
+def k1_samples_per_group(hw: int) -> int:
+    """Samples a bf16 K1 worker takes at a time: two stem tiles at 16 px, one
+    (of four samples) at 8 px; one TMA box in, one TMA store out."""
+    return 2 if hw == 16 else 4
+
+
 def _for_extent(fn, hw, float_dtype, args) -> Callable:
     if not supports_extent(hw):
         raise ValueError(f"fused front supports 8/16px extents, got {hw}")
@@ -254,13 +324,17 @@ __all__ = [
     "fused_front_g1",
     "fused_front_g1_reference",
     "fused_front_reference",
+    "g1_samples_per_block",
     "g1_weights",
+    "k1_samples_per_group",
     "launch_counts",
     "make_fused_front",
     "make_fused_front_g1",
     "reset_launch_counts",
     "stem_gemm_index",
     "stem_gemm_weight",
+    "stem_tile_rows",
     "stem_weights",
     "supports_extent",
+    "x_box",
 ]

@@ -6,8 +6,9 @@
 Run from the root of a checkout. Phases, one JSON line each:
   1. device: ``nvidia-smi`` name and power limit, the torch device name;
   2. build: nvcc builds the kernels from ``av1tpu_torch/csrc``, one process
-     per source, all started together; the registers and spill bytes ptxas
-     reports for each fused kernel;
+     per source, all started together; the registers, spill bytes and static
+     shared memory ptxas reports for each fused kernel, and the count of its
+     C75xx warnings (wgmmas it serialised);
   3. kernel checks, each kernel against its plain PyTorch version on the
      card, fp32 (TF32 off) and bf16, with the share of output elements that
      differ at all: K1 and K2 at 8 and 16 px on batches of 1, 255 and 4099
@@ -4223,22 +4224,35 @@ def time_case(case: TimingCase, smi: str) -> dict:
 
 
 def ptxas_report(lib: Path) -> dict:
-    """Registers, spill bytes (stores, loads) and static shared memory of every
-    fused kernel, from the ``-Xptxas -v`` lines in nvcc's logs beside the
-    library."""
+    """Registers, spill bytes (stores, loads), static shared memory and the
+    count of ptxas's C75xx warnings (wgmmas it serialised) of every fused
+    kernel, from the ``-Xptxas -v`` lines in nvcc's logs beside the library."""
+    mangled = re.compile(r"\S*?(?<=\d)(fused_[a-z0-9_]+?_kernel)I(\S*?)Ev\S*")
     entry = re.compile(
-        r"Compiling entry function '\S*?(?<=\d)(fused_[a-z0-9_]+?_kernel)I(\S*?)Ev\S*'.*?"
+        r"Compiling entry function '(\S+)'.*?"
         r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?Used (\d+) registers([^\n]*)",
         re.S)
+
+    def key(name: str) -> Optional[str]:
+        found = mangled.fullmatch(name)
+        if found is None:
+            return None
+        args = [a or b or c for a, b, c in
+                re.findall(r"Li(\d+)E|(f)|13__nv_(bfloat16)", found.group(2))]
+        return f"{found.group(1)}<{', '.join(args)}>"
+
     report = {}
     for log in sorted(lib.parent.glob("*.nvcc.log")):
-        for kernel, targs, stores, loads, regs, rest in entry.findall(log.read_text()):
-            args = [a or b or c for a, b, c in
-                    re.findall(r"Li(\d+)E|(f)|13__nv_(bfloat16)", targs)]
+        text = log.read_text()
+        for name, stores, loads, regs, rest in entry.findall(text):
+            if key(name) is None:
+                continue
             smem = re.search(r"(\d+) bytes smem", rest)
-            report[f"{kernel}<{', '.join(args)}>"] = {
+            report[key(name)] = {
                 "registers": int(regs), "spill_bytes": [int(stores), int(loads)],
-                "static_smem_bytes": int(smem.group(1)) if smem else 0}
+                "static_smem_bytes": int(smem.group(1)) if smem else 0, "c75_warnings": 0}
+        for name in re.findall(r"\(C75\d\d\)[^\n]*?'(\S+?)'", text):
+            report.setdefault(key(name) or "unattributed", {"c75_warnings": 0})["c75_warnings"] += 1
     return report
 
 

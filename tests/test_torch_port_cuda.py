@@ -274,6 +274,24 @@ def test_group12_bf16_off_whole_clusters(card, folded, e, batch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 63, 127, RAGGED, 16384])
+@pytest.mark.parametrize("hw", [8, 16])
+@pytest.mark.parametrize("name", ["fused_front", "fused_front_g1"])
+def test_fronts_wgmma_at_block_and_group_edges(card, folded, name, hw, batch):
+    """The bf16 wgmma kernels at batches that end inside a block, a cluster
+    of two K2 blocks (16 or 32 samples each) and a K1 worker's group (2 or 4
+    samples), and at 16,384 samples (K1's workers take several groups each):
+    against the plain version, and the same output on a second call."""
+    gen = torch.Generator().manual_seed(60 + hw + batch)
+    x = (torch.randint(0, 1024, (batch, hw, hw, 1), generator=gen).float()
+         / 1023.0).to(card, torch.bfloat16)
+    kernel, plain, args = _args(name, folded, torch.bfloat16, card)
+    got = _counted(name, kernel, x, *args)
+    _close(got, plain(x, *args), BF16_REL_TOL)
+    assert torch.equal(got, kernel(x, *args))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("m", [1, 65, RAGGED])
