@@ -48,6 +48,7 @@ from av1tpu_torch.parallel.mesh import (
 )
 from av1tpu_torch.quant.ptq import _sigmoid  # XLA's sigmoid, rounded op by op
 from av1tpu_torch.train.augment import align_tta_ab_logits, tta_views
+from av1tpu_torch.utils import profiling
 
 
 @dataclass
@@ -347,7 +348,8 @@ class _Staging:
         staging stream."""
         i, self.turn = self.turn, (self.turn + 1) % len(self.bufs)
         if self.done[i] is not None:
-            self.done[i].synchronize()
+            with profiling.span("batching.ring_wait"):
+                self.done[i].synchronize()
         rows = len(chunk)
         np.copyto(self.views[i][:rows], chunk)
         with torch.cuda.stream(self.stream):
@@ -390,11 +392,12 @@ def _chunks(samples, qps, batch_size: int, device: torch.device,
 
     def stage(start):
         chunk = samples[start:start + batch_size]
-        if staging is not None:
-            return staging.upload(chunk, qps_at(start), device)
-        q = qps_at(start)
-        return (torch.from_numpy(np.array(chunk)),
-                None if q is None else torch.as_tensor(np.array(q)), None)
+        with profiling.span("batching.stage", rows=len(chunk), bytes=chunk.nbytes):
+            if staging is not None:
+                return staging.upload(chunk, qps_at(start), device)
+            q = qps_at(start)
+            return (torch.from_numpy(np.array(chunk)),
+                    None if q is None else torch.as_tensor(np.array(q)), None)
 
     if not threaded:
         for start in starts:
@@ -415,11 +418,14 @@ def _chunks(samples, qps, batch_size: int, device: torch.device,
                 continue
         return False
 
+    caller = profiling.current()  # the producer's spans are children of the caller's
+
     def produce():
         try:
-            for start in starts:
-                if not put(stage(start)):
-                    return
+            with profiling.within(caller):
+                for start in starts:
+                    if not put(stage(start)):
+                        return
         except BaseException as exc:  # raised again in the caller
             put(exc)
 
@@ -427,7 +433,8 @@ def _chunks(samples, qps, batch_size: int, device: torch.device,
                      daemon=True).start()
     try:
         for _ in starts:
-            item = staged.get()
+            with profiling.span("batching.wait"):
+                item = staged.get()
             if isinstance(item, BaseException):
                 raise item
             chunk, q, copied = item
@@ -510,25 +517,32 @@ def run_pipeline_batched(
     outputs are all-gathered over the data group, so that every rank returns
     the whole result, as the JAX package replicates it. ``valid`` is then
     the batch's count of real rows; a 0-d output is the same on every rank.
-    A mesh with one data rank streams as no mesh does."""
+    A mesh with one data rank streams as no mesh does.
+
+    The call is the span ``batching``; inside it ``batching.predict`` around
+    each predictor call, ``batching.stage`` around each batch's staging (on
+    the producer thread, parented to ``batching``), ``batching.wait`` where
+    the caller waits for the producer (``utils.profiling``)."""
     device = torch.device(device)
     n = int(samples.shape[0])
     accepts_valid = getattr(predict_fn, "accepts_valid", False)
-    if axis_size(mesh, DATA_AXIS) > 1:
-        return _run_sharded(predict_fn, samples, batch_size, device, as_numpy, qps, mesh,
-                            accepts_valid, prefetch)
-    outputs: Dict[str, List[torch.Tensor]] = {}
-    with contextlib.closing(_chunks(samples, qps, batch_size, device, prefetch)) as chunks:
-        for chunk, qchunk, valid in chunks:
-            if accepts_valid:
-                result = predict_fn(_pad_rows(chunk, batch_size), valid)
-            elif qchunk is not None:
-                result = predict_fn(chunk, qchunk)
-            else:
-                result = predict_fn(chunk)
-            for key, value in result.items():
-                outputs.setdefault(key, []).append(value)
-    return _gathered(outputs, n, as_numpy)
+    with profiling.span("batching", rows=n):
+        if axis_size(mesh, DATA_AXIS) > 1:
+            return _run_sharded(predict_fn, samples, batch_size, device, as_numpy, qps, mesh,
+                                accepts_valid, prefetch)
+        outputs: Dict[str, List[torch.Tensor]] = {}
+        with contextlib.closing(_chunks(samples, qps, batch_size, device, prefetch)) as chunks:
+            for chunk, qchunk, valid in chunks:
+                with profiling.span("batching.predict", rows=valid):
+                    if accepts_valid:
+                        result = predict_fn(_pad_rows(chunk, batch_size), valid)
+                    elif qchunk is not None:
+                        result = predict_fn(chunk, qchunk)
+                    else:
+                        result = predict_fn(chunk)
+                for key, value in result.items():
+                    outputs.setdefault(key, []).append(value)
+        return _gathered(outputs, n, as_numpy)
 
 
 def _run_sharded(predict_fn, samples, batch_size, device, as_numpy, qps, mesh,
@@ -542,12 +556,13 @@ def _run_sharded(predict_fn, samples, batch_size, device, as_numpy, qps, mesh,
     with contextlib.closing(_chunks(samples, qps, batch_size, device, prefetch)) as chunks:
         for chunk, qchunk, valid in chunks:
             chunk = shard_batch(_pad_rows(chunk, batch_size), mesh)
-            if accepts_valid:
-                result = predict_fn(chunk, valid)
-            elif qchunk is not None:
-                result = predict_fn(chunk, shard_batch(_pad_rows(qchunk, batch_size), mesh))
-            else:
-                result = predict_fn(chunk)
+            with profiling.span("batching.predict", rows=valid):
+                if accepts_valid:
+                    result = predict_fn(chunk, valid)
+                elif qchunk is not None:
+                    result = predict_fn(chunk, shard_batch(_pad_rows(qchunk, batch_size), mesh))
+                else:
+                    result = predict_fn(chunk)
             for key, value in result.items():
                 if value.dim() > 0:
                     value = gather_group(value, group)

@@ -23,6 +23,7 @@ from av1tpu_torch.codec.partitions import PARTITION_SPLIT, V6_FINAL_TO_RAW
 from av1tpu_torch.codec.tree import LEVEL_SIZES, NODES_PER_LEVEL, assemble_trees
 from av1tpu_torch.eval.hierarchy import run_pipeline_batched
 from av1tpu_torch.ingest.tiler import tile_frame
+from av1tpu_torch.utils.profiling import span
 
 
 def quad_tile_on_device(sbs: torch.Tensor, size: int) -> torch.Tensor:
@@ -86,7 +87,18 @@ def predict_partition_trees(
     ``mesh`` (``parallel.mesh``; every rank passes the same superblocks and
     predictors built with the same mesh) shards every level's batches over
     the data axis. Each level's outputs come back whole on every rank, so
-    the node selection of the next level is the same everywhere."""
+    the node selection of the next level is the same everywhere.
+
+    The call is the span ``cascade``, with ``cascade.upload`` and one
+    ``cascade.level`` a level inside it (``utils.profiling``)."""
+    with span("cascade", rows=int(superblocks.shape[0])):
+        return _cascade(superblocks, level_predictors, batch_size, mesh, as_numpy,
+                        level_capacities, torch.device(device))
+
+
+def _cascade(superblocks, level_predictors, batch_size, mesh, as_numpy, level_capacities,
+             device) -> Dict[str, np.ndarray]:
+    """``predict_partition_trees``'s body."""
     missing = [s for s in LEVEL_SIZES if s not in level_predictors]
     if missing:
         raise ValueError(f"missing level predictors for sizes: {missing}")
@@ -94,59 +106,61 @@ def predict_partition_trees(
     bad = {s: c for s, c in caps.items() if not 0.0 < c <= 1.0}
     if bad:
         raise ValueError(f"level capacities must be in (0, 1]: {bad}")
-    device = torch.device(device)
-    if isinstance(superblocks, np.ndarray):
-        superblocks = torch.from_numpy(np.ascontiguousarray(superblocks))
-    if superblocks.dim() == 4:
-        superblocks = superblocks[..., 0]
-    n = superblocks.shape[0]
+    n = int(superblocks.shape[0])
     # Upload the 64x64 superblocks ONCE. Tiling and gathering only move
     # values, so they work on the int16 view of the uint16 codes, a dtype
     # every torch build indexes and stacks on either device.
-    device_sbs = superblocks.to(device, non_blocking=True).view(torch.int16)
+    with span("cascade.upload", bytes=n * 64 * 64 * 2):
+        if isinstance(superblocks, np.ndarray):
+            superblocks = torch.from_numpy(np.ascontiguousarray(superblocks))
+        if superblocks.dim() == 4:
+            superblocks = superblocks[..., 0]
+        device_sbs = superblocks.to(device, non_blocking=True).view(torch.int16)
 
     remap = torch.from_numpy(V6_FINAL_TO_RAW).to(device)
     level_modes = []
     per_level: Dict[str, torch.Tensor] = {}
     alive = None  # (n, nodes) bool at the current level; None = all alive
     for size, nodes in zip(LEVEL_SIZES, NODES_PER_LEVEL):
-        blocks = quad_tile_on_device(device_sbs, size)  # stays on device
-        total = blocks.shape[0]
+        total = n * nodes
         cap = caps.get(size, 1.0)
-        if alive is not None and cap < 1.0:
-            k = min(max(int(np.ceil(cap * total)), 1), total)
-            score = alive.reshape(-1).to(torch.float32)
-            # a stable descending sort: ties keep their index order
-            idx = torch.sort(score, descending=True, stable=True).indices[:k]
-            level_batch = min(batch_size, -(-k // 256) * 256)
-            out = run_pipeline_batched(
-                level_predictors[size],
-                blocks.index_select(0, idx).view(torch.uint16),
-                batch_size=level_batch, device=device, as_numpy=False, mesh=mesh,
-            )
-            final = torch.zeros((total,), dtype=out["final"].dtype, device=device)
-            final[idx] = out["final"]
-            # The overflow count stays a device scalar under as_numpy=False:
-            # int() here would wait for the device once per gated level and
-            # end the overlap of IO and compute documented above.
-            overflow = torch.clamp(score.sum().to(torch.int32) - k, min=0)
-            per_level[f"overflow_{size}"] = overflow
-        else:
-            # Cap the batch at the level's real block count (rounded up to
-            # 256), so that chunk boundaries match the JAX package's.
-            level_batch = min(batch_size, -(-total // 256) * 256)
-            out = run_pipeline_batched(
-                level_predictors[size], blocks.view(torch.uint16),
-                batch_size=level_batch, device=device, as_numpy=False, mesh=mesh,
-            )
-            final = out["final"]
-        raw_modes = remap[final.long()].reshape(n, nodes)
-        level_modes.append(raw_modes)
-        per_level[f"modes_{size}"] = raw_modes
-        if size != LEVEL_SIZES[-1]:
-            node_split = raw_modes == PARTITION_SPLIT
-            parent_alive = node_split if alive is None else (alive & node_split)
-            alive = parent_alive.repeat_interleave(4, dim=1)
+        gated = alive is not None and cap < 1.0
+        k = min(max(int(np.ceil(cap * total)), 1), total) if gated else total
+        with span("cascade.level", device=device, px=size, rows=k):
+            blocks = quad_tile_on_device(device_sbs, size)  # stays on device
+            if gated:
+                score = alive.reshape(-1).to(torch.float32)
+                # a stable descending sort: ties keep their index order
+                idx = torch.sort(score, descending=True, stable=True).indices[:k]
+                level_batch = min(batch_size, -(-k // 256) * 256)
+                out = run_pipeline_batched(
+                    level_predictors[size],
+                    blocks.index_select(0, idx).view(torch.uint16),
+                    batch_size=level_batch, device=device, as_numpy=False, mesh=mesh,
+                )
+                final = torch.zeros((total,), dtype=out["final"].dtype, device=device)
+                final[idx] = out["final"]
+                # The overflow count stays a device scalar under as_numpy=False:
+                # int() here would wait for the device once per gated level and
+                # end the overlap of IO and compute documented above.
+                overflow = torch.clamp(score.sum().to(torch.int32) - k, min=0)
+                per_level[f"overflow_{size}"] = overflow
+            else:
+                # Cap the batch at the level's real block count (rounded up to
+                # 256), so that chunk boundaries match the JAX package's.
+                level_batch = min(batch_size, -(-total // 256) * 256)
+                out = run_pipeline_batched(
+                    level_predictors[size], blocks.view(torch.uint16),
+                    batch_size=level_batch, device=device, as_numpy=False, mesh=mesh,
+                )
+                final = out["final"]
+            raw_modes = remap[final.long()].reshape(n, nodes)
+            level_modes.append(raw_modes)
+            per_level[f"modes_{size}"] = raw_modes
+            if size != LEVEL_SIZES[-1]:
+                node_split = raw_modes == PARTITION_SPLIT
+                parent_alive = node_split if alive is None else (alive & node_split)
+                alive = parent_alive.repeat_interleave(4, dim=1)
 
     result = {"trees": assemble_trees(level_modes), **per_level}
     if not as_numpy:

@@ -8,6 +8,8 @@ Tiling contract (identical to the reference):
   * grid is ceil(H/bs) x ceil(W/bs), zero-padded bottom/right
   * blocks emitted row-major (left->right, top->bottom)
   * dtype uint16, lossless
+
+Tiling is the span ``ingest.tile`` (``utils.profiling``).
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ from dataclasses import dataclass
 from typing import Tuple
 
 import numpy as np
+
+from av1tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -63,17 +67,18 @@ def tile_frame(y_plane: np.ndarray, block_size: int) -> Tuple[np.ndarray, TileGr
     """
     h, w = y_plane.shape
     grid = TileGrid(block_size=block_size, frame_height=h, frame_width=w)
-    ph, pw = grid.padded_height, grid.padded_width
-    if (ph, pw) != (h, w):
-        padded = np.zeros((ph, pw), dtype=y_plane.dtype)
-        padded[:h, :w] = y_plane
-    else:
-        padded = y_plane
-    blocks = (
-        padded.reshape(grid.num_rows, block_size, grid.num_cols, block_size)
-        .transpose(0, 2, 1, 3)
-        .reshape(grid.num_blocks, block_size, block_size)
-    )
+    with span("ingest.tile", rows=grid.num_blocks):
+        ph, pw = grid.padded_height, grid.padded_width
+        if (ph, pw) != (h, w):
+            padded = np.zeros((ph, pw), dtype=y_plane.dtype)
+            padded[:h, :w] = y_plane
+        else:
+            padded = y_plane
+        blocks = (
+            padded.reshape(grid.num_rows, block_size, grid.num_cols, block_size)
+            .transpose(0, 2, 1, 3)
+            .reshape(grid.num_blocks, block_size, block_size)
+        )
     return blocks, grid
 
 
@@ -81,17 +86,18 @@ def tile_frames(y_planes: np.ndarray, block_size: int) -> Tuple[np.ndarray, Tile
     """Tile a batch ``(F, H, W)`` into ``(F*N, bs, bs)``, frame-major order."""
     f, h, w = y_planes.shape
     grid = TileGrid(block_size=block_size, frame_height=h, frame_width=w)
-    ph, pw = grid.padded_height, grid.padded_width
-    if (ph, pw) != (h, w):
-        padded = np.zeros((f, ph, pw), dtype=y_planes.dtype)
-        padded[:, :h, :w] = y_planes
-    else:
-        padded = y_planes
-    blocks = (
-        padded.reshape(f, grid.num_rows, block_size, grid.num_cols, block_size)
-        .transpose(0, 1, 3, 2, 4)
-        .reshape(f * grid.num_blocks, block_size, block_size)
-    )
+    with span("ingest.tile", rows=f * grid.num_blocks):
+        ph, pw = grid.padded_height, grid.padded_width
+        if (ph, pw) != (h, w):
+            padded = np.zeros((f, ph, pw), dtype=y_planes.dtype)
+            padded[:, :h, :w] = y_planes
+        else:
+            padded = y_planes
+        blocks = (
+            padded.reshape(f, grid.num_rows, block_size, grid.num_cols, block_size)
+            .transpose(0, 1, 3, 2, 4)
+            .reshape(f * grid.num_blocks, block_size, block_size)
+        )
     return blocks, grid
 
 

@@ -18,7 +18,6 @@ import os
 import re
 import subprocess
 import sys
-import time
 import types
 from pathlib import Path
 
@@ -31,7 +30,6 @@ from av1tpu.cli import common as jax_common
 from av1tpu.cli import visualize_blocks as jax_visualize_blocks
 from av1tpu.eval import html_report as jreport
 from av1tpu.eval import plots as jplots
-from av1tpu.utils import profiling as jprofiling
 from av1tpu_torch.cli import analysis_report, common, visualize_blocks
 from av1tpu_torch.data import BlockSet, build_v6_bundle, save_split
 from av1tpu_torch.eval import html_report, plots
@@ -299,33 +297,19 @@ def test_analysis_report_cli_matches_jax(inputs, tmp_path, case, capsys):
 # ---------------------------------------------------------------------------
 
 
-def test_throughput_meter_matches_jax(tmp_path, monkeypatch):
-    """The same clock readings give the same summary (the clock is faked)."""
-    summaries = []
-    for module in (profiling, jprofiling):
-        ticks = iter(np.cumsum(np.arange(1, 21) * 1e-3).tolist())
-        monkeypatch.setattr(time, "perf_counter", lambda: next(ticks))
-        meter = module.ThroughputMeter(unit="samples")
-        for i in range(5):
-            with meter.step(100 + i):
-                pass
-        meter.start()
-        meter.stop(7)
-        summaries.append(meter.summary())
-        meter.save(tmp_path / module.__name__ / "m.json")
-    assert summaries[0] == summaries[1]
-    assert summaries[0]["steps"] == 5 and summaries[0]["samples_per_sec"] > 0
-    with pytest.raises(RuntimeError):
-        profiling.ThroughputMeter().stop(1)
-
-
 def test_trace_annotate_and_memory_stats(tmp_path):
+    """A named region inside ``trace``: a span, read with ``spans()`` after
+    the trace, around the op the trace records."""
     with profiling.trace(tmp_path / "traces", "test") as prof:
-        with profiling.annotate("inner"):
+        with profiling.span("inner"):
             torch.ones(8, 8) @ torch.ones(8, 8)
     trace = json.loads((tmp_path / "traces" / "test.pt.trace.json").read_text())
     names = {e.get("name") for e in trace["traceEvents"]}
-    assert {"test", "inner"} <= names
-    assert any(e.key == "inner" for e in prof.key_averages())
+    assert {"test", "aten::mm"} <= names
+    assert any(e.key == "aten::mm" for e in prof.key_averages())
+    (inner,) = [s for s in profiling.spans() if s["name"] == "inner"]
+    (mm,) = [e for e in prof.profiler.kineto_results.events() if e.name() == "aten::mm"]
+    start = mm.start_ns()
+    assert inner["start_ns"] <= start <= start + mm.duration_ns() <= inner["end_ns"]
     if not torch.cuda.is_available():
         assert profiling.device_memory_stats() == {}
