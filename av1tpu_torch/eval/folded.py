@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from av1tpu_torch.data.records import NORM_10BIT
+from av1tpu_torch.eval.graphs import graphed
 from av1tpu_torch.eval.hierarchy import PipelineModels, assemble_v6_predict, on_device
 from av1tpu_torch.kernels.fused_front import (
     make_fused_front,
@@ -113,7 +114,8 @@ def make_v6_pipeline_folded(
     ``device`` and runs its rows of every batch there, the kernels
     included; the JAX package's ``shard_map`` wrappers have no counterpart
     here (``run_pipeline_batched(mesh=...)`` does the slicing and the
-    gather)."""
+    gather). On a CUDA ``device`` each input shape's calls are captured and
+    replayed as a CUDA graph from its second call on (``eval.graphs``)."""
     check_fused_front_option(use_fused_front)
     device = torch.device(device)
     fns = [
@@ -125,8 +127,8 @@ def make_v6_pipeline_folded(
                                     use_fused_front, use_pallas_groups, device))
     else:  # FGVC head layout: its own unfolded forward
         fns.append(on_device(models.stage3_ab, device, float_dtype))
-    return assemble_v6_predict(*fns, stage1_threshold, norm_scale,
-                               float_dtype=float_dtype)
+    return graphed(assemble_v6_predict(*fns, stage1_threshold, norm_scale,
+                                       float_dtype=float_dtype), device)
 
 
 __all__ = ["check_fused_front_option", "front_selector", "make_v6_pipeline_folded"]

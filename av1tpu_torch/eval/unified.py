@@ -27,6 +27,7 @@ from torch import nn
 
 from av1tpu_torch.data.records import NORM_10BIT
 from av1tpu_torch.eval.folded import check_fused_front_option, front_selector
+from av1tpu_torch.eval.graphs import graphed
 from av1tpu_torch.eval.hierarchy import on_device, tta_mean_logits, v6_route
 from av1tpu_torch.models.v6 import split_unified_logits
 from av1tpu_torch.quant.ptq import (
@@ -125,7 +126,9 @@ def make_unified_pipeline_folded(
     the whole stem + maxpool + layer group 1 + SE1 chain as kernel K2. Both
     are built lazily per input extent, and extents above 16 px take the plain
     front. ``mesh``: the folded model stays replicated on this rank's
-    ``device``, where its kernels run."""
+    ``device``, where its kernels run. On a CUDA ``device`` each input
+    shape's calls are captured and replayed as a CUDA graph from its second
+    call on (``eval.graphs``)."""
     check_fused_front_option(use_fused_front)
     device = torch.device(device)
     folded32 = cast_tree(fold_backbone(model.backbone), device, torch.float32)
@@ -144,7 +147,8 @@ def make_unified_pipeline_folded(
             [_head_apply(heads[n], feats, float_dtype=float_dtype).float()
              for n in _HEADS], dim=-1)
 
-    return _unified_predict(forward, stage1_threshold, norm_scale, float_dtype)
+    return graphed(_unified_predict(forward, stage1_threshold, norm_scale, float_dtype),
+                   device)
 
 
 __all__ = ["make_unified_pipeline", "make_unified_pipeline_folded"]

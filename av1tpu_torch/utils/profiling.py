@@ -25,7 +25,10 @@ session's spans. The spans the port records (attributes in brackets):
   ``batching.wait`` where the caller waits on the producer's queue, and
   ``batching.stage`` (``rows``, ``bytes``: a batch sliced, staged and its
   copy issued, on the producer thread or the caller's) with
-  ``batching.ring_wait`` where staging waits for a pinned buffer's last copy.
+  ``batching.ring_wait`` where staging waits for a pinned buffer's last copy;
+* ``pipeline.capture`` and ``pipeline.replay`` (``rows``): a folded
+  pipeline's predict captured as a CUDA graph, and each replay of it
+  (``eval/graphs``), inside ``batching.predict``.
 
 Times are ``time.time_ns()``, the clock of the profiler's device events.
 """
