@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from portbench.reference import cascade as ref
-from portbench.reference.v6 import HEADS, threshold_logit
+from portbench.reference.v6 import threshold_logit
 
 VALID_RAW = set(ref.FINAL_TO_RAW.tolist())
 SURE = 0.25  # a regret above this many median margins is no rounding flip
@@ -55,7 +55,7 @@ def _tally(reg: Dict[str, np.ndarray], scale: Dict[str, float]) -> np.ndarray:
     """``[widest regret, decisions judged, decisions over each of OVER]`` in
     units of each head's median margin."""
     out = np.zeros(2 + len(OVER))
-    for h in HEADS:
+    for h in ref.DECISIONS:
         r = reg[h][~np.isnan(reg[h])] / scale[h]
         if r.size:
             out[1:] += (r.size, *((r > t).sum() for t in OVER))
@@ -100,13 +100,14 @@ def malformed_frame(out: dict, superblocks: int, grid=None) -> bool:
     return not set(np.unique(trees).tolist()) <= VALID_RAW | {-1}
 
 
-def cascade(arch: dict, level_models: dict, pool: np.ndarray, occurrences: Sequence[tuple],
-            sample: Sequence[int], threshold: float, norm_scale: float, device,
-            rows: Dict[int, int]) -> Dict[str, float]:
+def cascade(family, arch: dict, level_models: dict, pool: np.ndarray,
+            occurrences: Sequence[tuple], sample: Sequence[int], threshold: float,
+            norm_scale: float, device, rows: Dict[int, int]) -> Dict[str, float]:
     """``occurrences``: ``(pool index, outputs of that frame)`` for every frame
-    of the window. The reference runs once over the ``sample`` of pool frames
-    and every occurrence of a sampled frame is judged against it."""
-    want = ref.frame_reference(arch, level_models, [pool[i] for i in sample], threshold,
+    of the window. The reference (``family``'s, a ``spec.Family``) runs once
+    over the ``sample`` of pool frames and every occurrence of a sampled frame
+    is judged against it."""
+    want = ref.frame_reference(family, arch, level_models, [pool[i] for i in sample], threshold,
                                norm_scale, device, rows)
     n_sb = want["trees"].shape[1]
     scales = {size: _scales(want["logits"][size], threshold) for size in ref.LEVELS}
@@ -145,12 +146,12 @@ def cascade(arch: dict, level_models: dict, pool: np.ndarray, occurrences: Seque
     return {**numbers, "trees_wrong": trees_wrong}
 
 
-def blocks(arch: dict, models: dict, dataset: np.ndarray, passes: List[dict],
+def blocks(family, arch: dict, models: dict, dataset: np.ndarray, passes: List[dict],
            sample: np.ndarray, threshold: float, norm_scale: float, device,
            rows: int) -> Dict[str, float]:
     """Every pass's outputs at the ``sample`` of block indices, against the
-    reference's logits of those blocks."""
-    logits = ref.block_logits(arch, models, dataset[sample], norm_scale, device, rows)
+    reference's (``family``'s, a ``spec.Family``) logits of those blocks."""
+    logits = ref.block_logits(family, arch, models, dataset[sample], norm_scale, device, rows)
     scale = _scales(logits, threshold)
     want_final = ref.route(logits, threshold).numpy()
     want_prob = torch.sigmoid(logits["stage1"].double()).numpy()

@@ -1,12 +1,14 @@
-"""Operations of the v6 models on one block, from the configuration's sizes.
+"""Operations of the v6 models' parts on one block, from the configuration's
+sizes; each model family's ``per_block`` sums them for its models.
 
 Every convolution counts only the taps that fall inside its input (the
 padding's taps are not work): at the 1x1 and 2x2 extents of layers 3 and 4
 eight of a 3x3 window's nine taps are padding. The SE and spatial-attention
 products and the MLP heads count too, each multiply-add as two; the
 elementwise work (biases, ReLUs, sigmoids, pooling, converts) does not. This
-is the count of the port's ``examples/_bench.py`` (``flops_per_block``,
-``backbone_flops``), worked out here from the configuration.
+is the count of the port's ``examples/_bench.py`` (``backbone_flops``; with
+the per-stage family's ``per_block``, ``flops_per_block``), worked out here
+from the configuration.
 """
 from __future__ import annotations
 
@@ -66,13 +68,3 @@ def head(widths, in_dim: int) -> int:
         total += 2 * in_dim * width
         in_dim = width
     return total
-
-
-def per_block(config: dict, px: int) -> int:
-    """Operations of one ``px`` block through one level's models: four
-    trunks and four heads per stage, or one trunk and four heads unified."""
-    arch = config["arch"]
-    trunk = sum(backbone(arch, px).values())
-    heads = sum(head(w, arch["widths"][-1]) for w in arch["heads"].values())
-    trunks = 1 if config["family"] == "unified" else len(arch["heads"])
-    return trunks * trunk + heads

@@ -1,12 +1,11 @@
 """The program's own spans in the traced phase, and the reductions the
 span readers under ``metrics/`` make of them.
 
-Besides ``system.py``, this is the one module of the benchmark that touches
-the port, and only to read its recorder: ``av1tpu_torch.utils.profiling
-.spans()``, the spans the port recorded at its layer boundaries while the
-traced phase's profiler ran (the recorder keeps one profiler session). They
-are taken once a run and kept in the summary. A port without the recorder
-gives none, and every reader returns None.
+The spans come from the port's recorder through ``system.recorded_spans``
+(``av1tpu_torch.utils.profiling.spans()``): those the port recorded at its
+layer boundaries while the traced phase's profiler ran (the recorder keeps
+one profiler session). They are taken once a run and kept in the summary. A
+port without the recorder gives none, and every reader returns None.
 
 A span is a dict: ``name``, ``id``, ``parent``, ``call``, ``thread``,
 ``start_ns`` and ``end_ns`` on ``time.time_ns`` (the clock of the device
@@ -32,11 +31,8 @@ def load(summary: dict) -> Optional[List[dict]]:
     if not summary.get("on_card") or not summary.get("trace"):
         return None
     if KEY not in summary:
-        try:
-            from av1tpu_torch.utils.profiling import spans
-        except ImportError:  # a port without the recorder
-            spans = None
-        summary[KEY] = (spans() or None) if spans is not None else None
+        from portbench.system import recorded_spans
+        summary[KEY] = recorded_spans()
     return summary[KEY]
 
 

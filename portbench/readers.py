@@ -3,6 +3,9 @@
 The summary a run hands each reader (``metrics/<name>.py``'s ``read``):
 
 * ``config``, ``traffic`` and ``peaks`` (``counts/peaks.json``);
+* ``family``: the configuration's model family (``spec.Family``), whose
+  reference counts the trunks a row runs through the fused kernels
+  (``trunks``) and a block's operations (``per_block``);
 * ``on_card``: whether the run was on the card (no device metric otherwise);
 * ``host``: the untraced dispatches of a traced run: ``cascade_call_s``
   (the host's seconds inside each call into the cascade), ``seconds`` (their
@@ -19,11 +22,6 @@ import statistics
 from typing import Optional
 
 from portbench import spec
-from portbench.counts import v6
-
-
-def _trunks(config: dict) -> int:
-    return 1 if config["family"] == "unified" else len(config["arch"]["heads"])
 
 
 def roofline(summary: dict, kernel: str) -> Optional[float]:
@@ -44,9 +42,10 @@ def roofline(summary: dict, kernel: str) -> Optional[float]:
     if not by_px:
         return None
     config, peaks = summary["config"], summary["peaks"]
+    trunks = summary["family"].reference.trunks(config)
     bound = seconds = 0.0
     for px, (calls, ns) in by_px.items():
-        rows = trace["level_rows"].get(px, 0) * _trunks(config)
+        rows = trace["level_rows"].get(px, 0) * trunks
         by_ops = rows * count.ops(config, px) / peaks["bf16_flops_per_s"]
         by_bytes = (rows * count.io_bytes(config, px)
                     + calls * count.weight_bytes(config, px)) / peaks["hbm_bytes_per_s"]
@@ -61,8 +60,8 @@ def mfu(summary: dict) -> Optional[float]:
     host = summary.get("host")
     if not summary.get("on_card") or not host or not host.get("seconds"):
         return None
-    config = summary["config"]
-    ops = sum(rows * v6.per_block(config, px) for px, rows in host["level_rows"].items())
+    config, per_block = summary["config"], summary["family"].reference.per_block
+    ops = sum(rows * per_block(config, px) for px, rows in host["level_rows"].items())
     return 100.0 * ops / host["seconds"] / summary["peaks"]["bf16_flops_per_s"]
 
 

@@ -11,6 +11,9 @@ Contracts, as the system states them:
   bottom-right);
 * a block's input is its uint16 codes divided by the configuration's
   ``norm_scale``;
+* the decisions (:data:`DECISIONS`): the stage-1 gate's one logit, stage 2's
+  three (SPLIT, RECT, AB), the RECT head's two and the AB head's four; a model
+  family (``spec.load_family``) gives them for one level's models;
 * routing: ``final = NONE`` where the stage-1 probability is under the
   threshold, else SPLIT, ``2 + rect`` or ``4 + ab`` by stage 2's argmax
   (SPLIT, RECT, AB);
@@ -27,8 +30,9 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
-from portbench.reference.v6 import HEADS, level_logits, threshold_logit
+from portbench.reference.v6 import threshold_logit
 
+DECISIONS = ("stage1", "stage2", "rect", "ab")
 LEVELS = (64, 32, 16, 8)
 NODES = (1, 4, 16, 64)
 FINAL_TO_RAW = np.array([0, 3, 1, 2, 4, 5, 6, 7], dtype=np.int64)
@@ -101,11 +105,13 @@ def exact_fp32():
 
 
 @torch.inference_mode()
-def block_logits(arch: dict, models: Dict[str, Dict[str, torch.Tensor]], blocks: np.ndarray,
-                 norm_scale: float, device, rows: int) -> Dict[str, torch.Tensor]:
-    """fp32 logits of uint16 blocks ``(N, s, s)`` or ``(N, s, s, 1)``, on
-    ``device`` in chunks of ``rows``, returned on the CPU."""
-    out: Dict[str, List[torch.Tensor]] = {h: [] for h in HEADS}
+def block_logits(family, arch: dict, models: Dict[str, Dict[str, torch.Tensor]],
+                 blocks: np.ndarray, norm_scale: float, device,
+                 rows: int) -> Dict[str, torch.Tensor]:
+    """fp32 logits of uint16 blocks ``(N, s, s)`` or ``(N, s, s, 1)`` through
+    ``family``'s reference (a ``spec.Family``), on ``device`` in chunks of
+    ``rows``, returned on the CPU."""
+    out: Dict[str, List[torch.Tensor]] = {d: [] for d in DECISIONS}
     n = blocks.shape[0]
     with exact_fp32():
         for start in range(0, n, rows):
@@ -113,12 +119,13 @@ def block_logits(arch: dict, models: Dict[str, Dict[str, torch.Tensor]], blocks:
                 blocks[start:start + rows].reshape(-1, blocks.shape[1], blocks.shape[2], 1)
                 .astype(np.float32)))
             x = chunk.to(device) / norm_scale
-            for h, t in level_logits(arch, models, x).items():
+            for h, t in family.reference.level_logits(arch, models, x).items():
                 out[h].append(t.float().cpu())
     return {h: torch.cat(v) for h, v in out.items()}
 
 
-def frame_reference(arch: dict, level_models: Dict[int, Dict[str, Dict[str, torch.Tensor]]],
+def frame_reference(family, arch: dict,
+                    level_models: Dict[int, Dict[str, Dict[str, torch.Tensor]]],
                     planes: Sequence[np.ndarray], threshold: float, norm_scale: float,
                     device, rows: Dict[int, int]) -> dict:
     """The reference cascade over whole frames: per level the logits of every
@@ -130,8 +137,8 @@ def frame_reference(arch: dict, level_models: Dict[int, Dict[str, Dict[str, torc
     flat = sbs.reshape(f * n, 64, 64)
     logits, modes = {}, []
     for size, nodes in zip(LEVELS, NODES):
-        lg = block_logits(arch, level_models[size], quad_tile(flat, size), norm_scale, device,
-                          rows[size])
+        lg = block_logits(family, arch, level_models[size], quad_tile(flat, size), norm_scale,
+                          device, rows[size])
         logits[size] = lg
         final = route(lg, threshold).numpy()
         modes.append(FINAL_TO_RAW[final].reshape(f * n, nodes))
@@ -143,7 +150,7 @@ def margins(logits: Dict[str, torch.Tensor], threshold: float) -> Dict[str, np.n
     """Each decision's margin: the stage-1 logit's distance from the
     threshold's, and each argmax head's best logit less its second."""
     out = {"stage1": (logits["stage1"] - threshold_logit(threshold)).abs().numpy()}
-    for h in HEADS[1:]:
+    for h in DECISIONS[1:]:
         top = logits[h].topk(2, dim=-1).values
         out[h] = (top[:, 0] - top[:, 1]).numpy()
     return out
@@ -158,7 +165,7 @@ def regrets(logits: Dict[str, torch.Tensor], threshold: float,
     s1 = logits["stage1"].numpy().astype(np.float64) - threshold_logit(threshold)
     c1 = choices["stage1"]
     out["stage1"] = np.where(c1 < 0, np.nan, np.where((s1 >= 0) == (c1 == 1), 0.0, np.abs(s1)))
-    for h in HEADS[1:]:
+    for h in DECISIONS[1:]:
         lg = logits[h].numpy().astype(np.float64)
         c = choices[h]
         picked = np.take_along_axis(lg, np.clip(c, 0, None)[:, None], axis=1)[:, 0]
@@ -179,6 +186,6 @@ def choices_from_final(final: np.ndarray) -> Dict[str, np.ndarray]:
     }
 
 
-__all__ = ["FINAL_TO_RAW", "LEVELS", "NODES", "RAW_TO_FINAL", "assemble", "block_logits",
-           "choices_from_final", "exact_fp32", "frame_reference", "margins", "quad_tile",
-           "regrets", "route", "tile_superblocks"]
+__all__ = ["DECISIONS", "FINAL_TO_RAW", "LEVELS", "NODES", "RAW_TO_FINAL", "assemble",
+           "block_logits", "choices_from_final", "exact_fp32", "frame_reference", "margins",
+           "quad_tile", "regrets", "route", "tile_superblocks"]

@@ -1,12 +1,13 @@
-"""The v6 stage models in plain PyTorch, from a state dict and the
-configuration's sizes.
+"""The parts of the v6 models in plain PyTorch, from a state dict and the
+configuration's sizes; each model family (``families/<family>/reference.py``)
+builds its models from them.
 
 This is the benchmark's own statement of what the system computes: a
 ResNet-18 trunk (7x7/2 stem with BatchNorm, ReLU and a 3x3/2 max-pool; four
 groups of two basic blocks, widths 64-512, a 1x1 projection shortcut where the
 stride or width changes), a squeeze-and-excitation gate after each group, a
 7x7 spatial-attention gate over the channel mean and max, a global mean, and
-an MLP head per stage. BatchNorm runs in eval mode, unfolded. The 3x3
+an MLP head per decision. BatchNorm runs in eval mode, unfolded. The 3x3
 convolutions pad as XLA's "SAME" does (at stride 2 and an even extent the
 extra row and column go low/high as (0, 1)): the system's stated semantics,
 where the published PyTorch code pads (1, 1). Nothing here imports the
@@ -14,8 +15,7 @@ program.
 
 State dict names follow the published checkpoints' torchvision-style keys
 (``backbone.layer2.0.downsample.0.weight``, ``head.head.3.bias``), which is the
-checkpoint format the system loads. A per-stage model has one ``head``; the
-unified model has ``head_stage1``, ``head_stage2``, ``head_rect``, ``head_ab``.
+checkpoint format the system loads; a family names its heads' prefixes.
 """
 from __future__ import annotations
 
@@ -24,10 +24,6 @@ from typing import Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
-
-HEADS = ("stage1", "stage2", "rect", "ab")
-UNIFIED_HEAD = {"stage1": "head_stage1", "stage2": "head_stage2", "rect": "head_rect",
-                "ab": "head_ab"}
 
 
 def _bn_shapes(prefix: str, c: int) -> List[Tuple[str, tuple]]:
@@ -66,22 +62,6 @@ def head_shapes(widths: List[int], in_dim: int, prefix: str) -> List[Tuple[str, 
         out += [(f"{prefix}.head.{3 * i}.weight", (width, in_dim)),
                 (f"{prefix}.head.{3 * i}.bias", (width,))]
         in_dim = width
-    return out
-
-
-def model_shapes(arch: dict, kind: str) -> List[Tuple[str, tuple]]:
-    """Every float tensor of one model: ``kind`` is a stage name of
-    :data:`HEADS` or ``"unified"``."""
-    feat = arch["widths"][-1]
-    out = backbone_shapes(arch)
-    if kind == "unified":
-        for head in HEADS:
-            out += head_shapes(arch["heads"][head], feat, UNIFIED_HEAD[head])
-        out.append(("temperature", (1,)))
-    else:
-        out += head_shapes(arch["heads"][kind], feat, "head")
-        if kind == "stage1":
-            out.append(("head.temperature", (1,)))
     return out
 
 
@@ -156,21 +136,11 @@ def head(sd: Dict[str, torch.Tensor], prefix: str, feats: torch.Tensor) -> torch
     return x
 
 
-def level_logits(arch: dict, models: Dict[str, Dict[str, torch.Tensor]], x: torch.Tensor,
-                 calibrate: bool = False) -> Dict[str, torch.Tensor]:
-    """The four decisions' logits of one level's models on NHWC blocks in
-    [0, 1]: ``stage1`` ``(N,)``, ``stage2`` ``(N, 3)``, ``rect`` ``(N, 2)``,
-    ``ab`` ``(N, 4)``. ``models`` holds the four stage models by name, or one
-    ``unified`` model."""
-    if "unified" in models:
-        sd = models["unified"]
-        feats = backbone(sd, arch, x, calibrate)
-        out = {h: head(sd, UNIFIED_HEAD[h], feats) for h in HEADS}
-    else:
-        out = {h: head(models[h], "head", backbone(models[h], arch, x, calibrate))
-               for h in HEADS}
-    out["stage1"] = out["stage1"][:, 0]
-    return out
+def last_bias(sd: Dict[str, torch.Tensor], prefix: str) -> torch.Tensor:
+    """The bias of an MLP head's logits layer (a view: adding to it shifts
+    the logits)."""
+    index = max(int(k.split(".")[-2]) for k in sd if k.startswith(f"{prefix}.head."))
+    return sd[f"{prefix}.head.{index}.bias"]
 
 
 def threshold_logit(threshold: float) -> float:
@@ -178,5 +148,5 @@ def threshold_logit(threshold: float) -> float:
     return math.log(threshold / (1.0 - threshold))
 
 
-__all__ = ["HEADS", "backbone", "backbone_shapes", "batch_norm", "conv_same", "head",
-           "head_shapes", "level_logits", "model_shapes", "same_padding", "threshold_logit"]
+__all__ = ["backbone", "backbone_shapes", "batch_norm", "conv_same", "head", "head_shapes",
+           "last_bias", "same_padding", "threshold_logit"]

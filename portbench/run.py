@@ -84,7 +84,8 @@ def _free(device: torch.device) -> None:
 def run_cell(cell: str, seed: int, seconds: float, traced: bool, device: torch.device,
              bench: Optional[dict] = None, config: Optional[dict] = None,
              traffic: Optional[dict] = None, limits: Optional[dict] = None,
-             system=None, t_start: Optional[float] = None) -> dict:
+             system=None, family: Optional[spec.Family] = None,
+             t_start: Optional[float] = None) -> dict:
     """The result object of one run (not printed). The keyword arguments
     replace what the cell's files give, for tests and for the control."""
     t_start = time.perf_counter() if t_start is None else t_start
@@ -95,6 +96,7 @@ def run_cell(cell: str, seed: int, seconds: float, traced: bool, device: torch.d
     limits = spec.load_limits(cell) if limits is None else limits
     if system is None:
         from portbench import system
+    family = spec.load_family(config["family"]) if family is None else family
     e2e, per_layer = spec.cell_metrics(bench, cell)
 
     build_s = 0.0
@@ -104,10 +106,10 @@ def run_cell(cell: str, seed: int, seconds: float, traced: bool, device: torch.d
         build_s = time.perf_counter() - t_build
     gen = torch.Generator(device).manual_seed(seed % (1 << 63))
     mix = LOOPS[traffic["kind"]](traffic, gen, device)
-    level_models = make_level_models(config, mix.calib, gen, device)
+    level_models = make_level_models(family, config, mix.calib, gen, device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    predictors = system.build_predictors(config, level_models, device, mix.calib)
+    predictors = system.build_predictors(family, config, level_models, device, mix.calib)
     launches0 = system.launch_counts()
     ran = mix.run(system, predictors, seconds, traced)
     launches = {k: v - launches0.get(k, 0) for k, v in system.launch_counts().items() if v}
@@ -126,14 +128,14 @@ def run_cell(cell: str, seed: int, seconds: float, traced: bool, device: torch.d
         seen = sorted({index for index, _ in good})
         sample = sorted(rng.choice(seen, size=min(traffic["check_frames"], len(seen)),
                                    replace=False).tolist()) if seen else []
-        numbers = check.cascade(config["arch"], level_models, mix.pool, good, sample,
+        numbers = check.cascade(family, config["arch"], level_models, mix.pool, good, sample,
                                 threshold, scale, device, REFERENCE_ROWS)
         attempted, failed = len(frames), sum(bad)
     else:
         n = traffic["dataset_blocks"]
         sample = np.sort(rng.choice(n, size=min(traffic["check_blocks"], n), replace=False))
         px = traffic["block_px"]
-        numbers = check.blocks(config["arch"], level_models[px], mix.dataset,
+        numbers = check.blocks(family, config["arch"], level_models[px], mix.dataset,
                                [r["out"] for r in records], sample, threshold, scale, device,
                                REFERENCE_ROWS[px])
         attempted, failed = n * len(records), 0
@@ -142,7 +144,7 @@ def run_cell(cell: str, seed: int, seconds: float, traced: bool, device: torch.d
 
     metrics = {}
     if traced:
-        summary = {"config": config, "traffic": traffic, "peaks": spec.peaks(),
+        summary = {"config": config, "family": family, "traffic": traffic, "peaks": spec.peaks(),
                    "on_card": device.type == "cuda", "host": ran["host"], "trace": ran["trace"]}
         for m in per_layer:
             value = spec.load_reader(m["name"])(summary)

@@ -10,16 +10,19 @@ belongs to one name sits in a file of its own:
   (a metric ``<name>.<part>`` without a file of its own reads with
   ``metrics/<name>.py``: the same quantity in other cells, moving another
   end-to-end metric);
-* ``counts/<kernel>.py``: a kernel's operations and bytes, and ``counts/peaks.json``.
+* ``counts/<kernel>.py``: a kernel's operations and bytes, and ``counts/peaks.json``;
+* ``families/<family>/reference.py`` and ``port.py``: a model family, which a
+  configuration names under ``family`` (:func:`load_family`).
 
-So a later change adds a cell, a configuration, a mix or a metric by adding
-files and entries, and edits none.
+So a later change adds a cell, a configuration, a model family, a mix or a
+metric by adding files and entries, and edits none.
 """
 from __future__ import annotations
 
 import importlib.util
 import json
 import re
+from dataclasses import dataclass
 from pathlib import Path
 from types import ModuleType
 from typing import Callable, Dict, List, Optional, Tuple
@@ -99,6 +102,40 @@ def peaks(directory: Path = PKG / "counts") -> Dict[str, float]:
     return read_json(directory / "peaks.json")
 
 
-__all__ = ["BENCHMARK", "NAME", "PKG", "ROOT", "UNIT", "cell_metrics", "load_benchmark",
-           "load_config", "load_count", "load_limits", "load_reader", "load_traffic",
-           "peaks", "read_json", "workload"]
+@dataclass(frozen=True)
+class Family:
+    """A model family: what a configuration's models are, to the reference
+    and to the port.
+
+    ``reference`` (``families/<name>/reference.py``, plain PyTorch, nothing of
+    the port) gives ``DECISIONS``, ``kinds(config)``, ``shapes(arch, kind)``,
+    ``level_logits(arch, models, x, calibrate=False)``,
+    ``first_class_shift(models, decision, amount)``, ``trunks(config)`` and
+    ``per_block(config, px)``. ``port`` (``families/<name>/port.py``) gives
+    ``CLASSES`` (the port's model of each kind) and ``build(config, models,
+    device, calib) -> predict`` for one level."""
+    name: str
+    reference: ModuleType
+    port: ModuleType
+
+
+def load_family(name: str, directory: Path = PKG / "families") -> Family:
+    """The family ``directory / name``; refused where a file is missing or
+    its decisions are not the ones the cascade routes."""
+    from portbench.reference.cascade import DECISIONS
+    folder = directory / name
+    missing = [f for f in ("reference.py", "port.py") if not (folder / f).is_file()]
+    if missing:
+        raise FileNotFoundError(f"model family {name!r} has no {' or '.join(missing)} "
+                                f"in {folder}")
+    reference = _load_module(folder / "reference.py")
+    decisions = tuple(getattr(reference, "DECISIONS", ()))
+    if decisions != DECISIONS:
+        raise ValueError(f"model family {name!r} decides {decisions}; the cascade routes "
+                         f"{DECISIONS} to its 8 classes")
+    return Family(name, reference, _load_module(folder / "port.py"))
+
+
+__all__ = ["BENCHMARK", "Family", "NAME", "PKG", "ROOT", "UNIT", "cell_metrics",
+           "load_benchmark", "load_config", "load_count", "load_family", "load_limits",
+           "load_reader", "load_traffic", "peaks", "read_json", "workload"]

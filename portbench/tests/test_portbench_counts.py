@@ -8,13 +8,14 @@ from portbench.counts import v6
 
 STAGES = spec.load_config("v6_stages")
 UNIFIED = spec.load_config("v6_unified")
+PER_BLOCK = {name: spec.load_family(name).reference.per_block for name in ("stages", "unified")}
 MFLOP = {8: 14.97, 16: 35.27, 32: 163.2, 64: 856.5}  # PERF.md, four stages dense
 
 
 @pytest.mark.parametrize("px", [8, 16, 32, 64])
 def test_per_block_matches_the_port_and_perf_md(px):
-    assert v6.per_block(STAGES, px) == _bench.flops_per_block(px)
-    assert round(v6.per_block(STAGES, px) / 1e6, 2 if px < 32 else 1) == MFLOP[px]
+    assert PER_BLOCK["stages"](STAGES, px) == _bench.flops_per_block(px)
+    assert round(PER_BLOCK["stages"](STAGES, px) / 1e6, 2 if px < 32 else 1) == MFLOP[px]
 
 
 @pytest.mark.parametrize("px", [8, 16, 32, 64])
@@ -24,8 +25,8 @@ def test_backbone_parts_match_the_port(px):
 
 def test_unified_is_one_trunk_and_four_heads():
     trunk = sum(v6.backbone(UNIFIED["arch"], 16).values())
-    heads = (v6.per_block(STAGES, 16) - 4 * trunk)
-    assert v6.per_block(UNIFIED, 16) == trunk + heads
+    heads = (PER_BLOCK["stages"](STAGES, 16) - 4 * trunk)
+    assert PER_BLOCK["unified"](UNIFIED, 16) == trunk + heads
 
 
 def test_kernel_counts():

@@ -66,11 +66,12 @@ def test_seed_gives_the_same_inputs_and_weights():
     from portbench.weights import make_level_models
     cell = "v6_unified.offline_1080p"
     config = spec.load_config("v6_unified")
+    family = spec.load_family(config["family"])
     made = []
     for _ in range(2):
         gen = torch.Generator().manual_seed(SEED)
         mix = Cascade(tiny(cell), gen, CPU)
-        models = make_level_models(config, mix.calib, gen, CPU)
+        models = make_level_models(family, config, mix.calib, gen, CPU)
         made.append((mix.pool, models[8]["unified"]["backbone.conv1.weight"]))
     assert np.array_equal(made[0][0], made[1][0]) and torch.equal(made[0][1], made[1][1])
 
@@ -160,7 +161,8 @@ def test_summarize_busy_gaps_and_readers():
     config = spec.load_config("v6_stages")
     k5 = spec.load_count("K5")
     s.update(frames=2, level_rows={8: 1000})
-    summary = {"config": config, "peaks": spec.peaks(), "on_card": True, "trace": s}
+    summary = {"config": config, "family": spec.load_family("stages"), "peaks": spec.peaks(),
+               "on_card": True, "trace": s}
     rows = 1000 * 4  # four stage trunks
     bound = max(rows * k5.ops(config, 8) / 989e12,
                 (rows * k5.io_bytes(config, 8) + k5.weight_bytes(config, 8)) / 3.35e12)

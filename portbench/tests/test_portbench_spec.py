@@ -63,6 +63,7 @@ def test_cell_resolves_to_its_files(cell):
 def test_a_metric_with_a_part_reads_with_its_stems_reader():
     assert not (spec.PKG / "metrics" / "mfu.blocks.py").exists()
     summary = {"on_card": True, "config": spec.load_config("v6_stages"), "peaks": spec.peaks(),
+               "family": spec.load_family("stages"),
                "host": {"seconds": 2.0, "level_rows": {16: 8192}}}
     value = spec.load_reader("mfu.blocks")(summary)
     assert value is not None and value > 0 and value == spec.load_reader("mfu")(summary)
@@ -83,3 +84,31 @@ def test_every_end_to_end_metric_is_reported_somewhere():
     assert reported == {m["name"] for m in BENCH["end_to_end"]}
     assert {m["name"] for m in BENCH["end_to_end"]} == {
         "setup_s", "frames_per_s", "frame_ms_p95", "blocks_per_s"}
+
+
+@pytest.mark.parametrize("name", [c["name"] for c in BENCH["configs"]])
+def test_every_configuration_names_a_family_of_two_files_and_the_contract(name):
+    from portbench.reference.cascade import DECISIONS
+    config = spec.load_config(name)
+    folder = spec.PKG / "families" / config["family"]
+    assert (folder / "reference.py").is_file() and (folder / "port.py").is_file()
+    family = spec.load_family(config["family"])
+    assert family.name == config["family"] and family.reference.DECISIONS == DECISIONS
+    for fn in ("kinds", "shapes", "level_logits", "first_class_shift", "trunks", "per_block"):
+        assert callable(getattr(family.reference, fn)), fn
+    assert callable(family.port.build)
+    kinds = family.reference.kinds(config)
+    assert kinds and set(kinds) <= set(family.port.CLASSES)
+
+
+def test_a_family_that_decides_otherwise_or_lacks_a_file_is_refused(tmp_path):
+    (tmp_path / "flat").mkdir()
+    (tmp_path / "flat" / "reference.py").write_text('DECISIONS = ("stage1", "flat7")\n')
+    (tmp_path / "flat" / "port.py").write_text("def build(*args):\n    pass\n")
+    with pytest.raises(ValueError, match="decides"):
+        spec.load_family("flat", directory=tmp_path)
+    (tmp_path / "half").mkdir()
+    (tmp_path / "half" / "reference.py").write_text(
+        'DECISIONS = ("stage1", "stage2", "rect", "ab")\n')
+    with pytest.raises(FileNotFoundError, match="port.py"):
+        spec.load_family("half", directory=tmp_path)

@@ -10,56 +10,58 @@ alike):
    (a forward that normalises each layer by its batch statistics), then
    perturbed: the mean by ``bn_mean_shift`` standard deviations of a normal
    draw, the variance by a uniform factor in ``bn_var_scale``;
-3. each head's last bias shifted so that, on probe blocks, the stage-1 gate
+3. each decision's first logit shifted (the family's ``first_class_shift``:
+   for an MLP head its last bias) so that, on probe blocks, the stage-1 gate
    opens on ``gate_share`` of them and class 0 (SPLIT for stage 2, HORZ,
    HORZ_A) wins on the configured shares. Random heads otherwise take one
    decision on every block, and the cascade's trees would not vary.
 
-Everything runs in fp32 with TF32 off, through the reference forward.
+The models, their tensors and their forward are the model family's
+(``spec.Family``: ``kinds``, ``shapes``, ``level_logits``); a BatchNorm is a
+tensor group with a ``running_var``. Everything runs in fp32 with TF32 off,
+through the reference forward.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from portbench.reference.cascade import exact_fp32
-from portbench.reference.v6 import (HEADS, UNIFIED_HEAD, backbone, level_logits, model_shapes,
-                                    threshold_logit)
+from portbench.reference.cascade import DECISIONS, exact_fp32
+from portbench.reference.v6 import threshold_logit
 
 Models = Dict[str, Dict[str, torch.Tensor]]
-
-
-def model_kinds(config: dict) -> List[str]:
-    return ["unified"] if config["family"] == "unified" else list(HEADS)
-
-
-def _is_bn(name: str) -> bool:
-    return ".bn" in name or ".downsample.1." in name
 
 
 def _bn_prefixes(sd: Dict[str, torch.Tensor]) -> List[str]:
     return [k[: -len(".running_var")] for k in sd if k.endswith(".running_var")]
 
 
-def _draw(config: dict, levels: Sequence[int], gen: torch.Generator, device) -> Dict[int, Models]:
+def _drawn(shapes: List[Tuple[str, tuple]]) -> List[bool]:
+    """Which tensors the normal draw fills: the weights of all but the
+    BatchNorms."""
+    stats = {n[: -len(".running_var")] for n, _ in shapes if n.endswith(".running_var")}
+    return [n.endswith(".weight") and n[: -len(".weight")] not in stats for n, _ in shapes]
+
+
+def _draw(family, config: dict, levels: Sequence[int], gen: torch.Generator,
+          device) -> Dict[int, Models]:
     """Step 1: every model's tensors, the weights from one normal draw."""
     arch = config["arch"]
-    layout = [(size, kind, model_shapes(arch, kind)) for size in levels
-              for kind in model_kinds(config)]
-    weights = [(n, s) for _, _, shapes in layout for n, s in shapes
-               if n.endswith(".weight") and not _is_bn(n)]
-    total = sum(math.prod(s) for _, s in weights)
+    layout = [(size, kind, family.reference.shapes(arch, kind)) for size in levels
+              for kind in family.reference.kinds(config)]
+    weights = [s for _, _, shapes in layout for (_, s), w in zip(shapes, _drawn(shapes)) if w]
+    total = sum(math.prod(s) for s in weights)
     noise = torch.randn(total, generator=gen, device=device, dtype=torch.float32)
     out: Dict[int, Models] = {size: {} for size in levels}
     offset = 0
     for size, kind, shapes in layout:
         sd = {}
-        for name, shape in shapes:
+        for (name, shape), drawn in zip(shapes, _drawn(shapes)):
             count = math.prod(shape)
-            if name.endswith(".weight") and not _is_bn(name):
+            if drawn:
                 fan_in = count // shape[0]
                 sd[name] = noise[offset:offset + count].view(shape) / math.sqrt(fan_in)
                 offset += count
@@ -82,28 +84,23 @@ def _share_shift(logits: np.ndarray, share: float, threshold: float) -> float:
     return float(np.quantile(logits[:, 1:].max(axis=1) - logits[:, 0], share))
 
 
-def _last_bias(sd: Dict[str, torch.Tensor], prefix: str) -> torch.Tensor:
-    index = max(int(k.split(".")[-2]) for k in sd if k.startswith(f"{prefix}.head."))
-    return sd[f"{prefix}.head.{index}.bias"]
-
-
 @torch.no_grad()
-def make_level_models(config: dict, calib: Dict[int, np.ndarray], gen: torch.Generator,
-                      device) -> Dict[int, Models]:
-    """``{block px: {kind: state dict}}`` for the levels in ``calib``, whose
-    uint16 blocks ``(2 * n, px, px)`` give the calibration batch (first
-    half) and the probe batch (second half)."""
+def make_level_models(family, config: dict, calib: Dict[int, np.ndarray],
+                      gen: torch.Generator, device) -> Dict[int, Models]:
+    """``{block px: {kind: state dict}}`` of ``family`` (a ``spec.Family``)
+    for the levels in ``calib``, whose uint16 blocks ``(2 * n, px, px)`` give
+    the calibration batch (first half) and the probe batch (second half)."""
     recipe, arch = config["recipe"], config["arch"]
     levels = sorted(calib, reverse=True)
-    models = _draw(config, levels, gen, device)
+    models = _draw(family, config, levels, gen, device)
     threshold = config["stage1_threshold"]
     with exact_fp32():
         for size in levels:
             blocks = torch.from_numpy(np.asarray(calib[size], np.float32)).to(device)
             x = (blocks / config["norm_scale"])[..., None]
             half = x.shape[0] // 2
-            for kind, sd in models[size].items():
-                backbone(sd, arch, x[:half], calibrate=True)
+            family.reference.level_logits(arch, models[size], x[:half], calibrate=True)
+            for sd in models[size].values():
                 prefixes = _bn_prefixes(sd)
                 widths = [sd[f"{p}.running_var"].numel() for p in prefixes]
                 shift = torch.randn(sum(widths), generator=gen, device=device).split(widths)
@@ -113,16 +110,13 @@ def make_level_models(config: dict, calib: Dict[int, np.ndarray], gen: torch.Gen
                     std = sd[f"{p}.running_var"].sqrt()
                     sd[f"{p}.running_mean"] += recipe["bn_mean_shift"] * std * n01
                     sd[f"{p}.running_var"] *= lo + (hi - lo) * u01
-            probe = level_logits(arch, models[size], x[half:])
-            shares = {"stage1": recipe["gate_share"],
-                      "stage2": recipe["split_share"][str(size)],
-                      "rect": recipe["rect_share"], "ab": recipe["ab_share"]}
-            for h in HEADS:
-                sd = models[size]["unified" if "unified" in models[size] else h]
-                prefix = UNIFIED_HEAD[h] if "unified" in models[size] else "head"
-                _last_bias(sd, prefix)[0] += _share_shift(probe[h].cpu().numpy(), shares[h],
-                                                          threshold)
+            probe = family.reference.level_logits(arch, models[size], x[half:])
+            shares = dict(zip(DECISIONS, (recipe["gate_share"], recipe["split_share"][str(size)],
+                                          recipe["rect_share"], recipe["ab_share"])))
+            for d in DECISIONS:
+                family.reference.first_class_shift(
+                    models[size], d, _share_shift(probe[d].cpu().numpy(), shares[d], threshold))
     return models
 
 
-__all__ = ["Models", "make_level_models", "model_kinds"]
+__all__ = ["Models", "make_level_models"]
